@@ -1,0 +1,138 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own
+shared library with a plain C interface, which is loaded with ``ctypes``
+(no PyTorch headers, so a build takes seconds).  Builds happen at first
+use, are keyed by a hash of the source and the flags, and land in
+``build/kernels/`` at the root of the checkout (listed in ``.gitignore``;
+``REPRO_TORCH_BUILD_DIR`` overrides it).  :func:`build_all` starts one
+``nvcc`` per source at once.
+
+Nothing here runs at import time: the CPU tests import every module of the
+port on machines with no ``nvcc`` and no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+SOURCES = ("paged_copy", "flash_attention", "paged_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+#: C signature of every launcher: (function name, argtypes).  Pointers and
+#: the stream are ``c_void_p``; each returns its ``cudaError_t`` as an int.
+SIGNATURES = {
+    "paged_copy": ("paged_copy_launch",
+                   [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL,
+                    _LL, _P]),
+    "flash_attention": ("flash_attention_launch",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                         _P, _P]),
+    "paged_attention": ("paged_decode_attention_launch",
+                        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _LL, _I, _F, _F, _I, _I, _I, _I, _I, _P]),
+}
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+#: ptxas report (registers, shared memory, spills) of each fresh build
+build_logs: dict[str, str] = {}
+
+
+def build_dir() -> pathlib.Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return pathlib.Path(env)
+    return CSRC.parents[3] / "build" / "kernels"
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found: the port's CUDA kernels are built on the machine "
+            "with the card (CUDA toolkit under /usr/local/cuda)")
+    return path
+
+
+def _target(name: str) -> pathlib.Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / f"lib{name}-{key}.so"
+
+
+def _start(name: str):
+    """Spawn nvcc for ``name`` into a temporary file next to its target."""
+    target = _target(name)
+    target.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, target
+
+
+def _finish(name: str, proc, tmp: str, target: pathlib.Path) -> None:
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    os.replace(tmp, target)          # atomic: concurrent builds agree
+    build_logs[name] = out
+
+
+def build_all(names=SOURCES) -> None:
+    """Compile every missing library, one nvcc per source, all at once."""
+    with _lock:
+        pending = [(n, *_start(n)) for n in names if not _target(n).exists()]
+        errors = []
+        for name, proc, tmp, target in pending:
+            try:
+                _finish(name, proc, tmp, target)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library of ``name`` (compiled on first use)."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    build_all((name,))
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(_target(name)))
+            fn_name, argtypes = SIGNATURES[name]
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[name] = lib
+    return lib
+
+
+def launcher(name: str):
+    """The C launch function of ``name``, with its argtypes set."""
+    return getattr(load(name), SIGNATURES[name][0])
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a launch returned a non-zero ``cudaError_t``."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
