@@ -14,7 +14,8 @@ The pools are torch tensors ``[L, P, page, ...]`` (page axis 1).  Spill
 gathers the victim's frames and copies them to host memory in the pool's
 storage dtype (bf16 and int8 stay as they are: the record is a host torch
 tensor, not numpy); restore writes them into freshly allocated frames in
-place.  Byte and page counts are those of the JAX switcher.
+place — whole, after a shared pinned prefix, or only a leading part
+(partial restore).  Byte and page counts are those of the JAX switcher.
 """
 
 from __future__ import annotations
@@ -109,24 +110,46 @@ class ContextSwitcher:
         )
 
     def restore_kv(self, seq_id: int, k_pools: torch.Tensor,
-                   v_pools: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
-                                                   Any]:
+                   v_pools: torch.Tensor,
+                   shared_prefix_pages: list[int] | None = None,
+                   num_tokens: int | None = None,
+                   ) -> tuple[torch.Tensor, torch.Tensor, Any]:
         """Swap ``seq_id`` back in through a page-granular scatter into
         freshly allocated frames, in place.  Returns ``(k_pools, v_pools,
         extra_state)``.  Raises OutOfPagesError if frames are unavailable.
 
-        Whole sequences only: the JAX switcher's shared-prefix re-share and
-        partial restore come with the continuation slice."""
+        ``shared_prefix_pages``: leading frames to re-share by refcount
+        (``VirtualMemory.restore_seq``) instead of re-mapping — they are
+        still resident (the pinned prefix) and hold bytes identical to the
+        spilled copy, so they are neither allocated nor written; only the
+        unshared tail moves, and only it is counted in
+        ``bytes_restored``/``pages_restored``.
+
+        ``num_tokens``: PARTIAL restore — re-map and write only the leading
+        ``num_tokens`` of the record (which must cover the shared frames);
+        the record's evicted tail pages are dropped and the caller
+        re-prefills those positions through the continuation path.  Either
+        way the swap record is consumed."""
         spilled = self._swap[seq_id]
-        state = self.vmem.restore_seq(seq_id, spilled.num_tokens)  # may raise
-        pages = torch.as_tensor(state.pages, dtype=torch.long,
-                                device=k_pools.device)
-        k_pools.index_copy_(1, pages, spilled.page_data[0].to(k_pools.device))
-        v_pools.index_copy_(1, pages, spilled.page_data[1].to(v_pools.device))
+        keep = spilled.num_tokens if num_tokens is None else int(num_tokens)
+        if not 0 < keep <= spilled.num_tokens:
+            raise ValueError(
+                f"partial restore of seq {seq_id}: num_tokens={keep} "
+                f"outside (0, {spilled.num_tokens}]")
+        state = self.vmem.restore_seq(
+            seq_id, keep, shared_prefix_pages)  # may raise
+        skip = len(shared_prefix_pages or ())
+        n_keep = len(state.pages)
+        data = spilled.page_data[:, :, skip:n_keep]
+        if n_keep > skip:
+            pages = torch.as_tensor(state.pages[skip:], dtype=torch.long,
+                                    device=k_pools.device)
+            k_pools.index_copy_(1, pages, data[0].to(k_pools.device))
+            v_pools.index_copy_(1, pages, data[1].to(v_pools.device))
         del self._swap[seq_id]
-        nbytes = _nbytes(spilled.page_data)
+        nbytes = _nbytes(data)
         self.stats.bytes_restored += nbytes
-        self.stats.pages_restored += 2 * len(state.pages)
+        self.stats.pages_restored += 2 * (n_keep - skip)
         self.stats.modeled_cycles += self.cost.bytes_move_cycles(nbytes)
         return k_pools, v_pools, spilled.extra_state
 
@@ -134,6 +157,11 @@ class ContextSwitcher:
         """Token length recorded when ``seq_id`` was spilled — the only
         length a restore may legally re-map (KeyError if not spilled)."""
         return self._swap[seq_id].num_tokens
+
+    @property
+    def swapped_out(self) -> list[int]:
+        """Ids of the sequences whose swap records are held."""
+        return sorted(self._swap)
 
     def discard(self, seq_id: int) -> None:
         """Drop a swap record without restoring it (the request was failed

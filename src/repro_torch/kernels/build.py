@@ -3,7 +3,8 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own
 shared library with a plain C interface, which is loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds).  Builds happen at first
-use, are keyed by a hash of the source and the flags, and land in
+use, are keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, and land in
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``;
 ``REPRO_TORCH_BUILD_DIR`` overrides it).  :func:`build_all` starts one
 ``nvcc`` per source at once.
@@ -24,7 +25,8 @@ import tempfile
 import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("paged_copy", "flash_attention", "paged_attention")
+SOURCES = ("paged_copy", "flash_attention", "paged_attention",
+           "paged_prefill_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -32,18 +34,26 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
-#: C signature of every launcher: (function name, argtypes).  Pointers and
-#: the stream are ``c_void_p``; each returns its ``cudaError_t`` as an int.
+#: C signature of every launcher: (source, function name, argtypes).
+#: Pointers and the stream are ``c_void_p``; each returns its
+#: ``cudaError_t`` as an int.  One source may hold several launchers.
 SIGNATURES = {
-    "paged_copy": ("paged_copy_launch",
+    "paged_copy": ("paged_copy", "paged_copy_launch",
                    [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL,
-                    _LL, _P]),
-    "flash_attention": ("flash_attention_launch",
+                    _LL, _I, _P]),
+    "paged_copy_at": ("paged_copy", "paged_copy_at_launch",
+                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL,
+                       _LL, _LL, _LL, _I, _P]),
+    "flash_attention": ("flash_attention", "flash_attention_launch",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                          _P, _P]),
-    "paged_attention": ("paged_decode_attention_launch",
+    "paged_attention": ("paged_attention", "paged_decode_attention_launch",
                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _LL, _I, _F, _F, _I, _I, _I, _I, _I, _P]),
+    "paged_prefill_attention": (
+        "paged_prefill_attention", "paged_prefill_attention_launch",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _LL,
+         _F, _F, _I, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -70,6 +80,7 @@ def nvcc() -> str:
 
 def _target(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"lib{name}-{key}.so"
 
@@ -110,7 +121,7 @@ def build_all(names=SOURCES) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``name`` (compiled on first use)."""
+    """The built library of source ``name`` (compiled on first use)."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
@@ -119,17 +130,20 @@ def load(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_target(name)))
-            fn_name, argtypes = SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for source, fn_name, argtypes in SIGNATURES.values():
+                if source == name:
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             _loaded[name] = lib
     return lib
 
 
 def launcher(name: str):
-    """The C launch function of ``name``, with its argtypes set."""
-    return getattr(load(name), SIGNATURES[name][0])
+    """The C launch function ``name`` of :data:`SIGNATURES`, with its
+    argtypes set."""
+    source, fn_name, _ = SIGNATURES[name]
+    return getattr(load(source), fn_name)
 
 
 def check(err: int, name: str) -> None:

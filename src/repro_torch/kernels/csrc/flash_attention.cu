@@ -24,17 +24,14 @@
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int BQ = 64;     // query rows per block
 constexpr int BK = 64;     // keys per KV tile
 constexpr int NT = 256;    // threads per block: 4 per query row
 constexpr int DMAX = 128;  // largest head_dim taken
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 template <typename T>
 __global__ void __launch_bounds__(NT) flash_attention_kernel(

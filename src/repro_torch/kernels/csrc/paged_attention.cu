@@ -32,29 +32,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int NT = 128;                     // 4 warps
 constexpr int NWARP = NT / 32;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-    return __bfloat162float(__float2bfloat16(x));
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-template <typename T, bool QUANT>
-__device__ __forceinline__ float load_kv(const void* pool, long long i,
-                                         float kv_scale) {
-    if (QUANT) {
-        const float x = (float)static_cast<const int8_t*>(pool)[i] * kv_scale;
-        return round_to(x, static_cast<const T*>(nullptr));
-    }
-    return to_f(static_cast<const T*>(pool)[i]);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
     for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));

@@ -22,7 +22,13 @@ from repro_torch.kernels.paged_attention import (
 )
 from repro_torch.kernels.paged_copy import (
     check_paged_copy,
+    check_paged_copy_at,
     paged_copy as _paged_copy_kernel,
+    paged_copy_at as _paged_copy_at_kernel,
+)
+from repro_torch.kernels.paged_prefill_attention import (
+    check_paged_prefill_attention,
+    paged_prefill_attention as _paged_prefill_kernel,
 )
 
 #: the kernel wrappers whose ``launches`` counters a run reads
@@ -30,6 +36,8 @@ KERNELS = {
     "paged_copy": _paged_copy_kernel,
     "flash_attention": _flash_kernel,
     "paged_decode_attention": _paged_attn_kernel,
+    "paged_copy_at": _paged_copy_at_kernel,
+    "paged_prefill_attention": _paged_prefill_kernel,
 }
 
 
@@ -87,3 +95,38 @@ def paged_copy(src, pool, page_table, lens, *, page_size: int,
                                   page_size=page_size)
     return _paged_copy_kernel(src, pool, page_table, lens,
                               page_size=page_size)
+
+
+def paged_copy_at(src, pool, page_table, starts, lens, *, page_size: int,
+                  use_kernel: bool = True):
+    """Write ``src[b, :lens[b]]`` at logical positions ``starts[b]...`` of
+    ``pool`` in place; returns ``pool``."""
+    if _plain(src, use_kernel):
+        check_paged_copy_at(src, pool, page_table, starts, lens, page_size)
+        return ref.paged_copy_at_ref(src, pool, page_table, starts, lens,
+                                     page_size=page_size)
+    return _paged_copy_at_kernel(src, pool, page_table, starts, lens,
+                                 page_size=page_size)
+
+
+def kernel_route(t, use_kernel: bool = True) -> bool:
+    """True when a call on ``t`` launches the hand-written kernel (the
+    route a counter of fetched bytes must follow)."""
+    return not _plain(t, use_kernel)
+
+
+def paged_prefill_attention(q, k_pool, v_pool, page_table, starts, *,
+                            page_size: int, scale: float | None = None,
+                            kv_scale: float | None = None,
+                            use_kernel: bool = True):
+    """Continuation-chunk attention through the page table,
+    ``[B, S, Hkv, G, D]``."""
+    if _plain(q, use_kernel):
+        check_paged_prefill_attention(q, k_pool, v_pool, page_table, starts,
+                                      page_size, kv_scale)
+        return ref.paged_prefill_attention_ref(
+            q, k_pool, v_pool, page_table, starts, page_size=page_size,
+            scale=scale, kv_scale=kv_scale)
+    return _paged_prefill_kernel(
+        q, k_pool, v_pool, page_table, starts, page_size=page_size,
+        scale=scale, kv_scale=kv_scale)

@@ -103,3 +103,67 @@ def paged_copy_ref(
     rows = entry.long() * page_size + (tok % page_size)[None, :]
     pool.view(-1, w)[rows[valid]] = src[valid].to(pool.dtype)
     return pool
+
+
+def paged_copy_at_ref(
+    src: torch.Tensor,          # [B, S, W]
+    pool: torch.Tensor,         # [P, page, W] — updated in place
+    page_table: torch.Tensor,   # [B, max_pages] int32
+    starts: torch.Tensor,       # [B] int32 — logical position of src[:, 0]
+    lens: torch.Tensor,         # [B] int32
+    *,
+    page_size: int,
+) -> torch.Tensor:
+    """Continuation copy, in place: chunk token ``t < lens[b]`` lands at
+    logical position ``starts[b] + t``.  Tokens whose page is unmapped
+    (entry < 0) or past the table (``vpn >= max_pages``) are not stored,
+    as in the JAX oracle; every other pool row keeps its bytes."""
+    b, s, w = src.shape
+    max_pages = page_table.shape[1]
+    tok = torch.arange(s, device=src.device)
+    pos = starts[:b, None].long() + tok[None, :]              # [B, S]
+    vpn = pos // page_size
+    entry = page_table[:b].gather(1, vpn.clamp(max=max_pages - 1))
+    valid = ((tok[None, :] < lens[:b, None]) & (entry >= 0)
+             & (vpn < max_pages))
+    rows = entry.long() * page_size + pos % page_size
+    pool.view(-1, w)[rows[valid]] = src[valid].to(pool.dtype)
+    return pool
+
+
+def paged_prefill_attention_ref(
+    q: torch.Tensor,            # [B, S, Hkv, G, D] chunk queries
+    k_pool: torch.Tensor,       # [P, page, Hkv, D]
+    v_pool: torch.Tensor,       # [P, page, Hkv, D]
+    page_table: torch.Tensor,   # [B, max_pages] int32
+    starts: torch.Tensor,       # [B] int32 — tokens already cached per row
+    *,
+    page_size: int,
+    scale: float | None = None,
+    kv_scale: float | None = None,
+) -> torch.Tensor:
+    """Gathers the whole logical prefix (``max_pages * page_size`` tokens)
+    through the page table, then dense attention with a causal mask on
+    absolute positions (``k_pos <= starts[b] + t``).  Entries -1 clamp to
+    frame 0; ``kv_scale`` dequantizes int8 pools to ``q.dtype``.  Returns
+    ``[B, S, Hkv, G, D]``."""
+    b, s, hkv, g, d = q.shape
+    max_pages = page_table.shape[1]
+    max_t = max_pages * page_size
+    scale = scale if scale is not None else d ** -0.5
+    frames = page_table[:b].clamp(min=0).long()              # [B, maxp]
+    k_log = k_pool[frames].reshape(b, max_t, hkv, d)
+    v_log = v_pool[frames].reshape(b, max_t, hkv, d)
+    if kv_scale is not None:
+        k_log = (k_log.float() * kv_scale).to(q.dtype)
+        v_log = (v_log.float() * kv_scale).to(q.dtype)
+    positions = (starts[:b, None].long()
+                 + torch.arange(s, device=q.device)[None, :])  # [B, S]
+    k_pos = torch.arange(max_t, device=q.device)[None, None, :]
+    causal = k_pos <= positions[:, :, None]                   # [B, S, maxT]
+    sc = torch.einsum("bshgd,bthd->bshgt", q.float(), k_log.float()) * scale
+    sc = torch.where(causal[:, :, None, None, :], sc, _NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    p = torch.where(causal[:, :, None, None, :], p, 0.0)
+    o = torch.einsum("bshgt,bthd->bshgd", p, v_log.float())
+    return o.to(q.dtype)

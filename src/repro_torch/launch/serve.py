@@ -7,10 +7,11 @@ Executor = data plane with the CUDA kernels; see
 context-switch bytes/cycles, page-table delta uploads, tokens/s on the
 card.
 
-This slice of the port serves with the radix prefix cache OFF and partial
-restore OFF (``prefix_cache=False``, ``restore_patience=0``): both ride
-the continuation kernels, which a later slice ports.  The serving flags
-come from ``ServeConfig.add_args``; ``--no-prefix-cache`` is implied.
+The serving flags come from ``ServeConfig.add_args``: the default policy
+serves, with the radix prefix cache (``--no-prefix-cache`` turns it off)
+and partial restore on.  ``--prefix-len N`` preloads a
+random N-token shared prefix and submits every request as a
+``share_prefix`` fork of it (continuation prefill through the executor).
 
 The model is the arch's reduced config unless ``--full`` asks for the
 published widths; ``--num-layers`` cuts depth only.  ``--device cpu``
@@ -84,6 +85,9 @@ def main() -> None:
     ap.add_argument("--max-new-tokens", type=int, default=24)
     ap.add_argument("--prompt-len", type=int, default=24)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--prefix-len", type=int, default=0,
+                    help="preload a shared prefix of this many tokens; "
+                         "requests fork from it (continuation prefill)")
     ap.add_argument("--profile", action="store_true",
                     help="trace the serve run with torch.profiler and print "
                          "device time by kernel and the device busy share")
@@ -95,10 +99,9 @@ def main() -> None:
         cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     model = build_model(cfg, device=args.device)
     params = model.init(args.seed)
-    serve_cfg = ServeConfig.from_args(
-        args, prefix_cache=False, restore_patience=0,
-        max_pages_per_seq=max(
-            4, (args.prompt_len + args.max_new_tokens) // args.page_size + 2))
+    serve_cfg = ServeConfig.from_args(args, max_pages_per_seq=max(
+        4, (args.prefix_len + args.prompt_len + args.max_new_tokens)
+        // args.page_size + 2))
     print(serve_cfg.describe())
     print(f"model: {cfg.name} ({cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.param_dtype}) on {device_name(model.device)}")
@@ -111,11 +114,15 @@ def main() -> None:
     warm.close()
     eng = Engine(model, params, serve_cfg)
     rng = np.random.default_rng(args.seed)
+    share = args.prefix_len > 0
+    if share:
+        eng.preload_prefix(rng.integers(0, cfg.vocab_size,
+                                        size=args.prefix_len))
     for _ in range(args.requests):
         plen = int(rng.integers(args.prompt_len // 2, args.prompt_len + 1))
         eng.submit(ServeRequest(
             prompt=rng.integers(0, cfg.vocab_size, size=plen).astype(np.int32),
-            max_new_tokens=args.max_new_tokens,
+            max_new_tokens=args.max_new_tokens, share_prefix=share,
         ))
     ctx = contextlib.nullcontext()
     if args.profile:
@@ -159,6 +166,10 @@ def main() -> None:
           f"{c.get('decode_horizon') / max(c.get('decode_dispatches'), 1):.2f}"
           f" over {c.get('decode_dispatches')} dispatches, "
           f"{c.ratio('host_syncs', 'decode_tokens'):.3f} host syncs/token")
+    print(f"  continuation: {c.get('forked_admissions')} forks in "
+          f"{c.get('fork_batches')} batches, {c.get('prefix_hits')} prefix "
+          f"hits, {c.get('partial_restores')} partial restores, "
+          f"{c.get('continuation_prefill_tokens')} continuation tokens")
     print("pool:", stats["pool"])
     eng.close()
 

@@ -9,8 +9,11 @@ Port of the dense family of ``src/repro/models/transformer.py``:
     (no transpose in the bridge);
   * serving reads/writes the KV cache through the paged virtual-memory
     subsystem: prefill writes KV with one translation per page burst
-    (``paged_copy``) and attends within the chunk (``flash_attention``),
-    decode attends through the page table (``paged_decode_attention``);
+    (``paged_copy``) and attends within the chunk (``flash_attention``);
+    continuation prefill writes at an arbitrary logical offset
+    (``paged_copy_at``) and attends over cache plus chunk through the
+    page table (``paged_prefill_attention``); decode attends through the
+    page table (``paged_decode_attention``);
   * the KV pools are updated IN PLACE (JAX returns new, donated pools);
     every serve entry point returns the state it was given, with new
     ``seq_lens``.
@@ -191,6 +194,55 @@ class TransformerLM:
         last = x[torch.arange(b, device=x.device), last_idx]
         logits = self.logits_fn(params, last)
         return logits, state._replace(seq_lens=prompt_lens.to(torch.int32))
+
+    @torch.no_grad()
+    def prefill_continue(self, params: Params, tokens: torch.Tensor,
+                         start_lens: torch.Tensor, chunk_lens: torch.Tensor,
+                         state: PagedKVState
+                         ) -> tuple[torch.Tensor, PagedKVState]:
+        """Chunked prefill at arbitrary start offsets (continuation).
+
+        Extends sequences that already hold ``start_lens [B]`` tokens in
+        the paged cache by padded chunks ``tokens [B, S]`` (true lengths
+        ``chunk_lens [B]``): per layer, K/V are written at logical
+        positions ``start + t`` through the page table (``paged_copy_at``,
+        quantized under int8), then each chunk query attends causally over
+        cache plus chunk through the table (``paged_prefill_attention``).
+        The host must have mapped pages covering ``[start, start + chunk)``.
+        Returns (logits of each row's last chunk token [B, V], state with
+        seq_lens = start_lens + chunk_lens)."""
+        cfg = self.cfg
+        b, s = tokens.shape[:2]
+        page = state.page_size
+        hkv, hd, g = cfg.num_kv_heads, cfg.head_dim, cfg.q_per_kv
+        positions = (start_lens[:, None]
+                     + torch.arange(s, device=tokens.device)[None, :])
+        rope = self._rope(positions)
+        kv_scale = self._kv_scale()
+        x = self.embed(params, tokens)
+        for li, block_p in enumerate(params["blocks"]):
+            q, k, v = self._block_serve_qkv(block_p, x, rope)
+            for t, pools in ((k, state.k_pools), (v, state.v_pools)):
+                ops.paged_copy_at(
+                    self._kv_quant(t).reshape(b, s, hkv * hd),
+                    pools[li].view(-1, page, hkv * hd),
+                    state.page_table, start_lens, chunk_lens, page_size=page,
+                    use_kernel=self.use_kernels,
+                )
+            o = ops.paged_prefill_attention(
+                q.reshape(b, s, hkv, g, hd), state.k_pools[li],
+                state.v_pools[li], state.page_table, start_lens,
+                page_size=page, kv_scale=kv_scale,
+                use_kernel=self.use_kernels,
+            )                                         # [B, S, Hkv, G, hd]
+            x = x + o.reshape(b, s, hkv * g * hd) @ block_p["attn"]["wo"]
+            x = self._ffn_serve(block_p, x)
+        x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        last_idx = (chunk_lens.long() - 1).clamp(min=0)
+        last = x[torch.arange(b, device=x.device), last_idx]
+        logits = self.logits_fn(params, last)
+        return logits, state._replace(
+            seq_lens=(start_lens + chunk_lens).to(torch.int32))
 
     @torch.no_grad()
     def decode_step(self, params: Params, tokens: torch.Tensor,

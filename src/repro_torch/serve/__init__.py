@@ -7,10 +7,11 @@ kernels), and :class:`Engine` the facade that wires them together.
 Clients submit typed :class:`ServeRequest` records and ``drain()`` typed
 :class:`ServeResult` records (:mod:`repro_torch.serve.api`).
 
-Ported so far: one replica on one card, with the radix prefix cache and
-partial restore off.  The router, the sharded executor and the
-continuation paths (forks, prefix cache, partial restore) are later
-slices.
+Ported so far: one replica on one card with the default policy: cold
+prefill, fused decode horizons, preemption, and the continuation paths —
+the radix prefix cache, a preloaded shared prefix with ``share_prefix``
+forks, and partial restore.  The router (with portable swap records),
+the sharded executor and AOT buckets are later slices.
 """
 from repro_torch.serve.api import (
     RequestTiming,

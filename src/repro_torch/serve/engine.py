@@ -13,15 +13,21 @@ The device pool reserves its LAST frame as scratch for masked decode
 lanes: the engine hands ``VirtualMemory`` one frame fewer than physically
 allocated.
 
-What this slice ports is the configuration with ``prefix_cache=False``
-and ``restore_patience=0`` on one card.  The engine refuses, at
-construction, every config that would reach an unported path.
+Ported: one replica on one card with the default policy — the radix
+prefix cache (a plain admission whose prompt starts with a resident run
+shares its whole pages and prefills only the divergent chunk), a
+preloaded shared prefix with ``share_prefix`` forks, and partial restore,
+all through the executor's batched continuation prefill.  The engine
+refuses, at construction, every config that would reach an unported path
+(AOT buckets, a serve mesh, non-dense families).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
+
+import numpy as np
 
 from repro_torch.core import CostModel, PerfCounters, VirtualMemory, VMemConfig
 from repro_torch.models.transformer import TransformerLM
@@ -35,14 +41,8 @@ __all__ = ["Engine", "Request", "ServeConfig", "ServeRequest", "ServeResult"]
 
 def check_ported(model: TransformerLM, cfg: ServeConfig) -> None:
     """Raise ``NotImplementedError`` for any config that would reach a
-    path this slice of the port does not have."""
+    path the port does not have yet."""
     refused = []
-    if cfg.prefix_cache:
-        refused.append("prefix_cache=True (radix prefix cache: continuation "
-                       "slice)")
-    if cfg.restore_patience > 0:
-        refused.append("restore_patience>0 (partial restore: continuation "
-                       "slice)")
     if cfg.aot_buckets:
         refused.append("aot_buckets (AOT-bucketed prefill: not ported)")
     if cfg.serve_mesh not in (None, "off"):
@@ -53,8 +53,8 @@ def check_ported(model: TransformerLM, cfg: ServeConfig) -> None:
     if refused:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(refused)
-            + ".  Serve with prefix_cache=False, restore_patience=0, "
-            "aot_buckets=None, serve_mesh='off' and a dense model.")
+            + ".  Serve with aot_buckets=None, serve_mesh='off' and a dense "
+            "model.")
 
 
 class Engine:
@@ -90,8 +90,30 @@ class Engine:
         return self.executor.switcher
 
     @property
+    def PREFIX_ID(self):
+        return self.scheduler.PREFIX_ID
+
+    @property
     def kv(self):
         return self.executor.kv
+
+    def preload_prefix(self, prefix_tokens) -> None:
+        """Prefill a resident shared prefix (system-prompt caching).
+
+        Later ``share_prefix`` requests fork their page tables from it:
+        whole prefix pages are shared by refcount, only the partial tail
+        page is copied.  The prefix also enters the radix cache (after its
+        KV is committed), so plain prompts that merely start with it share
+        its whole pages too."""
+        if self.vmem.num_seqs:
+            raise RuntimeError("preload the prefix before serving")
+        prefix = np.asarray(prefix_tokens, np.int32)
+        n = len(prefix)
+        self.vmem.map_seq(self.scheduler.PREFIX_ID, n)
+        slot = self.vmem.seq(self.scheduler.PREFIX_ID).slot
+        self.executor.preload_prefix(prefix, slot, n)
+        self.scheduler.prefix_len = n
+        self.scheduler.register_resident(self.scheduler.PREFIX_ID, prefix)
 
     def _alloc_req_id(self) -> int:
         rid = self._next_req_id
@@ -104,10 +126,6 @@ class Engine:
         if not isinstance(req, ServeRequest):
             raise TypeError(f"Engine.submit takes a ServeRequest, got "
                             f"{type(req).__name__}")
-        if req.share_prefix:
-            raise NotImplementedError(
-                "share_prefix forks from a preloaded prefix: continuation "
-                "slice of the PyTorch port")
         rid = req.req_id if req.req_id is not None else self._alloc_req_id()
         internal = to_internal(req, req_id=rid, cfg=self.cfg)
         self._next_req_id = max(self._next_req_id, internal.req_id + 1)

@@ -17,13 +17,20 @@ place.
     masking, then ONE host transfer of the ``[K, B]`` token block, so the
     host round-trip and the page-table delta sync are paid once per
     horizon (``host_syncs`` / ``decode_horizon`` counters);
+  * forked admissions (``share_prefix`` forks of the preloaded prefix,
+    radix-cache hits, the re-prefilled tail of a partial restore) run as
+    ONE batched continuation prefill per step (``admit_forked_batch``):
+    copy-on-write tail pages in one indexed assignment, then
+    ``TransformerLM.prefill_continue`` with a per-row start offset;
+  * restore re-shares pinned-prefix frames by refcount and may re-map
+    only a leading part of the record (partial restore);
   * every compute step is tallied as ``kernel_dispatches`` (the kernel
     wrappers) or ``ref_path_dispatches`` (the explicit plain-version hatch,
     ``ServeConfig.use_ref_path``).
 
-Not ported yet (the continuation slice): forked admission, the preloaded
-shared prefix and swap-record migration raise ``NotImplementedError``; AOT
-buckets and the serve mesh are refused by the engine.
+Not ported yet: swap-record migration (``export_swap``/``import_swap``)
+comes with the router slice; AOT buckets and the serve mesh are refused
+by the engine.
 """
 
 from __future__ import annotations
@@ -41,11 +48,16 @@ from repro_torch.core import (
     PerfCounters,
     VirtualMemory,
 )
+from repro_torch.kernels import ops
+from repro_torch.kernels.paged_prefill_attention import (
+    pages_touched,
+    query_block,
+)
 from repro_torch.models.transformer import PagedKVState, TransformerLM, sample
 from repro_torch.serve.scheduler import DecodePlan, Request, ServeConfig
 
-_CONTINUATION = ("is not ported yet: it comes with the continuation slice "
-                 "of the PyTorch port (paged_copy_at, paged_prefill_attention)")
+_ROUTER = ("is not ported yet: it comes with the router slice of the "
+           "PyTorch port")
 
 
 def _twin(model: TransformerLM, **attrs) -> TransformerLM:
@@ -128,7 +140,8 @@ class Executor:
 
     def _pad_prompt_batch(self, reqs: list[Request]):
         """Burst-aligned ``[B, smax]`` prompt matrix + true lengths + the
-        batch's page-table rows."""
+        batch's page-table rows — shared by cold and forked admission, so
+        padding and slot lookup cannot drift between them."""
         page = self.cfg.page_size
         smax = max(len(r.prompt) for r in reqs)
         smax = -(-smax // page) * page            # burst-align
@@ -197,11 +210,72 @@ class Executor:
     # DataPlane protocol (driven by the Scheduler)
     # ------------------------------------------------------------------
 
-    def admit_forked_batch(self, reqs, start_lens, tail_copies):
-        raise NotImplementedError(f"forked admission {_CONTINUATION}")
+    def _continuation_gather_bytes(self, start_lens, smax: int,
+                                   nrows: int) -> int:
+        """K+V bytes the continuation attention reads per layer stack, by
+        the route that ran: the kernel fetches ``pages_touched`` pages per
+        row (its own query block), the plain version gathers every row's
+        full table reach."""
+        cfg = self.model.cfg
+        per_tok = (2 * cfg.num_kv_heads * cfg.head_dim
+                   * self.kv.k_pools.element_size())
+        if ops.kernel_route(self.kv.k_pools, self._step_model.use_kernels):
+            bq = query_block(cfg.q_per_kv)
+            pages = sum(pages_touched(st, smax, self.cfg.max_pages_per_seq,
+                                      page_size=self.cfg.page_size, bq=bq)
+                        for st in start_lens)
+            tokens = pages * self.cfg.page_size
+        else:
+            tokens = nrows * self.cfg.max_pages_per_seq * self.cfg.page_size
+        return cfg.num_layers * per_tok * tokens
+
+    def _copy_pages(self, copies: list[tuple[int, int]]) -> None:
+        """Copy-on-write tail pages: every forked frame of both pools in one
+        indexed assignment each."""
+        srcs = self._tensor([src for src, _ in copies], torch.long)
+        dsts = self._tensor([dst for _, dst in copies], torch.long)
+        self.kv.k_pools[:, dsts] = self.kv.k_pools[:, srcs]
+        self.kv.v_pools[:, dsts] = self.kv.v_pools[:, srcs]
+
+    def admit_forked_batch(self, reqs: list[Request], start_lens: list[int],
+                           tail_copies: list[tuple[int, int] | None]
+                           ) -> list[np.ndarray]:
+        """COW tail copies + ONE batched continuation prefill for all
+        same-step forked admissions (each request's chunk starts at its own
+        logical offset); returns the first sampled token per request."""
+        self.sync_page_table()
+        copies = [tc for tc in tail_copies if tc is not None]
+        if copies:
+            self._copy_pages(copies)
+        chunks, lens, pt_rows = self._pad_prompt_batch(reqs)
+        starts = self._tensor(start_lens)
+        with self.counters.timer("prefill"):
+            logits, _ = self._step_model.prefill_continue(
+                self.params, chunks, starts, lens,
+                self._state(pt_rows, starts))
+            self._block()
+        self._count_dispatch()
+        self.counters.inc("continuation_prefill_tokens", int(lens.sum()))
+        self.counters.inc("prefill_bytes_gathered",
+                          self._continuation_gather_bytes(
+                              [int(s) for s in start_lens],
+                              int(chunks.shape[1]), len(reqs)))
+        first = self.sample(logits)
+        return [np.asarray(first[i]) for i in range(len(reqs))]
 
     def preload_prefix(self, prefix_tokens, slot: int, n: int) -> None:
-        raise NotImplementedError(f"the preloaded shared prefix {_CONTINUATION}")
+        """Prefill the resident shared prefix into the frames mapped for
+        ``slot`` (one cold prefill of the burst-aligned prefix)."""
+        self.sync_page_table()
+        page = self.cfg.page_size
+        tokens = np.zeros((1, -(-n // page) * page), np.int32)
+        tokens[0, :n] = np.asarray(prefix_tokens, np.int32)
+        pt_rows = self._ptab.index_select(0, self._tensor([slot], torch.long))
+        lens = self._tensor([n])
+        self._step_model.prefill(self.params, self._tensor(tokens), lens,
+                                 self._state(pt_rows, torch.zeros_like(lens)))
+        self._count_dispatch()
+        self.counters.inc("prefix_tokens", n)
 
     def spill(self, req: Request) -> None:
         """Page-granular spill: only the victim's frames leave the device."""
@@ -209,24 +283,31 @@ class Executor:
 
     def restore(self, req: Request, num_tokens: int,
                 shared_pages: list[int] | None = None) -> None:
-        """Page-granular restore into freshly allocated frames (whole
-        sequence: the engine refuses partial restore and shared prefixes)."""
-        if shared_pages or num_tokens != self.switcher.spilled_len(req.req_id):
-            raise NotImplementedError(
-                f"partial or shared-prefix restore {_CONTINUATION}")
-        self.switcher.restore_kv(req.req_id, self.kv.k_pools, self.kv.v_pools)
+        """Page-granular restore into freshly allocated frames.
+
+        ``shared_pages``: leading frames the scheduler proved are still
+        the pinned prefix's — re-shared by refcount, not written.
+        ``num_tokens`` may be shorter than the spilled length (partial
+        restore): only the leading part is written back, and the
+        scheduler re-prefills the rest through the continuation path."""
+        spilled = self.switcher.spilled_len(req.req_id)
+        if num_tokens > spilled:
+            raise ValueError(
+                f"restore of req {req.req_id}: scheduler asks {num_tokens} "
+                f"tokens, the switcher spilled only {spilled}")
+        self.switcher.restore_kv(
+            req.req_id, self.kv.k_pools, self.kv.v_pools,
+            shared_prefix_pages=shared_pages, num_tokens=num_tokens)
 
     def discard(self, req: Request) -> None:
         """Free a failed request's host-side swap record (never restored)."""
         self.switcher.discard(req.req_id)
 
     def export_swap(self, req: Request):
-        raise NotImplementedError(
-            f"swap-record migration {_CONTINUATION}, with the router")
+        raise NotImplementedError(f"swap-record migration {_ROUTER}")
 
     def import_swap(self, req: Request, record) -> None:
-        raise NotImplementedError(
-            f"swap-record migration {_CONTINUATION}, with the router")
+        raise NotImplementedError(f"swap-record migration {_ROUTER}")
 
     # ------------------------------------------------------------------
     # sampling

@@ -8,8 +8,9 @@ the machine with the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 1e-5 (both sides accumulate in f32 in different orders);
-bf16 2e-2 (outputs round to bf16, one ulp is 2^-8 relative); the copy is
-bit-identical.
+bf16 2e-2 (outputs round to bf16, one ulp is 2^-8 relative), and for the
+continuation attention four bf16 steps of the largest output
+(``4 * 2^-8 * max|want|``); the copies are bit-identical on the whole pool.
 """
 
 import pytest
@@ -91,3 +92,68 @@ def test_paged_decode_attention(gen, quant, dtype, hkv, g, d, page):
         torch.testing.assert_close(got, want, atol=tol(dtype),
                                    rtol=tol(dtype))
         assert float(got[1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_paged_copy_at_bit_identical(gen, dtype):
+    """Unaligned start ending mid-page (both edge pages), aligned start, a
+    1-token chunk, a padded row across an unmapped page, and a row that
+    runs past the table; the strided layer view as the model passes it."""
+    b, s, w, page, frames, maxp = 5, 37, 512, 16, 40, 6
+    src = torch.randn((b, s, w), generator=gen, device="cuda").mul(50).to(dtype)
+    pools = torch.randn((2, frames, page, w), generator=gen,
+                        device="cuda").mul(50).to(dtype)
+    perm = torch.randperm(frames, generator=gen, device="cuda").int()
+    table = perm[: b * maxp].view(b, maxp).contiguous()
+    table[3, 2] = -1
+    starts = torch.tensor([5, 32, 77, 20, 70], dtype=torch.int32,
+                          device="cuda")
+    lens = torch.tensor([37, 16, 1, 30, 37], dtype=torch.int32, device="cuda")
+    got = ops.paged_copy_at(src, pools[1].clone(), table, starts, lens,
+                            page_size=page)
+    want = ref.paged_copy_at_ref(src, pools[1].clone(), table, starts, lens,
+                                 page_size=page)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype,hkv,g,d,page", [
+    (torch.float32, 2, 2, 14, 4), (torch.bfloat16, 4, 7, 128, 16)])
+def test_paged_prefill_attention(gen, quant, dtype, hkv, g, d, page):
+    """Rows at mid-page, page-aligned and zero starts with chunks of 37, 1
+    and 16 tokens (a padded batch of S = 37), -1 entries past each row's
+    pages, q as the strided view of the projection."""
+    b, frames, maxp = 3, 64, 12
+    starts = torch.tensor([page + 3, 2 * page, 0], dtype=torch.int32,
+                          device="cuda")
+    chunks = [37, 1, 16]
+    s = max(chunks)
+    q = torch.randn((b, s, hkv * g * d), generator=gen,
+                    device="cuda").to(dtype).view(b, s, hkv, g, d)
+    shape = (frames, page, hkv, d)
+    if quant:
+        kp = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.int8)
+    else:
+        kp = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        vp = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    perm = torch.randperm(frames, generator=gen, device="cuda").int()
+    table = torch.full((b, maxp), -1, dtype=torch.int32, device="cuda")
+    for i, c in enumerate(chunks):
+        n = -(-(int(starts[i]) + c) // page)
+        table[i, :n] = perm[i * maxp: i * maxp + n]
+    kvs = 1 / 24 if quant else None
+    got = ops.paged_prefill_attention(q, kp, vp, table, starts,
+                                      page_size=page, kv_scale=kvs)
+    want = ref.paged_prefill_attention_ref(q, kp, vp, table, starts,
+                                           page_size=page, kv_scale=kvs)
+    for i, c in enumerate(chunks):
+        g_, w_ = got[i, :c].float(), want[i, :c].float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(g_, w_, atol=1e-5, rtol=1e-5)
+        else:
+            err = float((g_ - w_).abs().max())
+            assert err <= 4 * 2**-8 * float(w_.abs().max()), (i, err)

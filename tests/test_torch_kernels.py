@@ -232,7 +232,9 @@ def test_cpu_dispatch_launches_no_kernel():
     x = torch.zeros(1, 2, 8, 14)
     ops.flash_attention(x, x, x)
     assert ops.launch_counts() == {"paged_copy": 0, "flash_attention": 0,
-                                   "paged_decode_attention": 0}
+                                   "paged_decode_attention": 0,
+                                   "paged_copy_at": 0,
+                                   "paged_prefill_attention": 0}
 
 
 def test_jax_side_runs_on_cpu():

@@ -131,8 +131,6 @@ def test_temperature_stream_fused_equals_stepwise(models):
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(prefix_cache=True), "prefix_cache"),
-    (dict(restore_patience=6), "restore_patience"),
     (dict(aot_buckets=(16,)), "aot_buckets"),
     (dict(serve_mesh="auto"), "serve_mesh"),
 ])
@@ -144,16 +142,18 @@ def test_engine_refuses_unported_paths(models, override, match):
 
 
 def test_forked_requests_are_refused(models):
+    """Forked requests are served now (``tests/test_torch_continuation.py``);
+    what the executor still refuses is swap-record migration, and it names
+    the router slice that brings it."""
     _, _, tm, tp = models
     eng = Engine(tm, tp, ServeConfig(**PORTED))
-    with pytest.raises(NotImplementedError, match="continuation"):
-        eng.submit(ServeRequest(prompt=np.arange(4, dtype=np.int32),
-                                max_new_tokens=2, share_prefix=True))
-    for call in (lambda: eng.executor.admit_forked_batch([], [], []),
-                 lambda: eng.executor.preload_prefix(None, 0, 0),
-                 lambda: eng.executor.export_swap(None),
+    eng.preload_prefix(np.arange(6, dtype=np.int32))
+    eng.submit(ServeRequest(prompt=np.arange(4, dtype=np.int32),
+                            max_new_tokens=2, share_prefix=True))
+    assert eng.run()[0].status == "done"
+    for call in (lambda: eng.executor.export_swap(None),
                  lambda: eng.executor.import_swap(None, None)):
-        with pytest.raises(NotImplementedError, match="continuation slice"):
+        with pytest.raises(NotImplementedError, match="router slice"):
             call()
     eng.close()
 
