@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port serves on the card.
 
-    python3 chip_smoke.py            # one CUDA card, ~1-2 minutes
+    python3 chip_smoke.py            # one CUDA card, ~2 minutes
+    python3 chip_smoke.py --quick    # build and the reduced checks only
 
 Imports nothing of JAX and nothing of the JAX package (``src/repro``); it
 puts ``src`` on ``sys.path`` and drives ``repro_torch``.  Phases, each
@@ -15,10 +16,15 @@ printing its lines; any failure exits non-zero before the last line:
    card at the reduced qwen2-7b shapes in f32 (D=14, G=2), with ragged
    lengths, -1 table entries, an empty sequence, a window, unaligned and
    page-aligned chunk starts, a 1-token chunk, tokens past the table and
-   int8 pools; then the reduced engine on the card against the same
-   engine on the CPU: the cold workload, the default-policy workload
-   (radix prefix hits and partial restores) and a fork workload, with
-   identical greedy tokens and counters;
+   int8 pools; both WKV kernels in f32 at N = 16 and 64, T = 1, 27, 64
+   and 96, with and without an initial state, a state handed over between
+   two calls, a decay of 1e-6; then the reduced engine on the card against
+   the same engine on the CPU: the cold workload, the default-policy
+   workload (radix prefix hits and partial restores) and a fork workload,
+   with identical greedy tokens and counters; and the reduced rwkv6-7b
+   (prefill + 16 greedy decode steps, both ``tm_impl``s, 32- and 27-token
+   prompts) on the card against the CPU: identical tokens, logits within
+   1e-4;
 4. serve: qwen2-7b at full width (bf16, random weights from a seeded
    generator) serves 8 requests (64-512-token prompts, 32 new tokens,
    page 16, horizon 8) cold, in a pool tight enough to preempt; launch
@@ -40,13 +46,28 @@ printing its lines; any failure exits non-zero before the last line:
    calls), from CUDA events around 50 back-to-back calls with a cold L2,
    beside the least time the card could take (bytes / 3.35 TB/s or
    operations / 989 TFLOP/s bf16);
-7. the kernel JSON line, then the device JSON line, last.
+7. RWKV-6 serve: the qwen2-7b weights are freed, rwkv6-7b at full width
+   (32 layers, d_model 4096, 64 heads of 64, bf16, random weights, depth
+   not cut) prefills 8 prompts of 512 tokens and decodes 32 greedy tokens,
+   once with ``tm_impl="sequential"`` (``wkv6`` everywhere) and once with
+   ``"chunked_matmul"`` (``wkv6_chunked`` for the prefill); launch counts
+   are zeroed before and read after each run; then the state is wound to
+   524,284 tokens and 4 more steps must leave its bytes unchanged;
+8. WKV full-width check and timing: each WKV kernel against its plain
+   version (f32, within 1e-3 of the largest output) on the largest inputs
+   an untimed repeat gave it (prefill, decode at T = 1, chunked prefill),
+   timed as in 6, beside bytes / 3.35 TB/s or f32 operations / 67 TFLOP/s
+   (the CUDA-core peak: the kernels compute in f32); then a traced,
+   untimed repeat of each run's prefill and of 8 decode steps prints the
+   device's busy share and device time by kernel;
+9. the kernel JSON line, then the device JSON line, last.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import pathlib
 import statistics
@@ -71,6 +92,10 @@ KERNELS = {
     "paged_prefill_attention": (
         "src/repro_torch/kernels/csrc/paged_prefill_attention.cu",
         "src/repro/kernels/paged_prefill_attention.py:61"),
+    "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
+             "src/repro/kernels/wkv6.py:61"),
+    "wkv6_chunked": ("src/repro_torch/kernels/csrc/wkv6_chunked.cu",
+                     "src/repro/kernels/wkv6_chunked.py:84"),
 }
 
 
@@ -380,6 +405,88 @@ def reduced_checks() -> None:
     ops.reset_launch_counts()
 
 
+def close_err(got, want, tol) -> float:
+    """``max(|got - want| - tol * |want|)``: at most ``tol`` when the two
+    agree within ``atol = rtol = tol`` (``torch.testing.assert_close``)."""
+    return float(((got.float() - want.float()).abs()
+                  - tol * want.float().abs()).max())
+
+
+def wkv_operands(gen, dev, bh, t, n, *, state, decay=None):
+    """f32 r, k, v (scale 0.5), w = sigmoid(z - 1) or a constant decay, u,
+    and an optional initial state (scale 0.1), as the CPU tests draw them."""
+    import torch
+
+    def f(*shape, sc=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * sc
+    r, k, v = f(bh, t, n, sc=0.5), f(bh, t, n, sc=0.5), f(bh, t, n, sc=0.5)
+    w = (torch.sigmoid(f(bh, t, n) - 1.0) if decay is None
+         else torch.full((bh, t, n), decay, device=dev))
+    return r, k, v, w, f(bh, n, sc=0.5), (f(bh, n, n, sc=0.1) if state
+                                          else None)
+
+
+def reduced_wkv_checks() -> None:
+    """Both WKV kernels against their plain versions on the card, f32, at
+    the tolerances of their CPU tests against the Pallas kernels: 1e-4
+    sequential, 3e-4 chunked (the chunked form takes every decay as an exp
+    of a cumsum of logs), 1e-3 at a decay of 1e-6."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.kernels.wkv6_chunked import wkv6_chunked
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    kernels = (("wkv6", wkv6, ref.wkv6_ref, 1e-4),
+               ("wkv6_chunked", wkv6_chunked,
+                lambda *a: ref.wkv6_chunked_matmul_ref(*a, chunk=32), 3e-4))
+    for name, kern, plain, tol in kernels:
+        worst = 0.0
+        for n in (16, 64):
+            for t in (1, 27, 64, 96):
+                for state in (False, True):
+                    args = wkv_operands(gen, dev, 6, t, n, state=state)
+                    for g_, w_ in zip(kern(*args), plain(*args)):
+                        err = close_err(g_, w_, tol)
+                        require(err <= tol, f"{name} N={n} T={t} "
+                                            f"state={state}: off by {err}")
+                        worst = max(worst, max_err(g_, w_))
+        # a state handed over between two calls (written in place into
+        # the caller's state) equals one call
+        r, k, v, w, u, _ = wkv_operands(gen, dev, 4, 96, 64, state=False)
+        o_full, s_full = kern(r, k, v, w, u)
+        s = torch.zeros_like(s_full)
+        o1, _ = kern(*(x[:, :64].contiguous() for x in (r, k, v, w)), u, s,
+                     out_state=s)
+        o2, _ = kern(*(x[:, 64:].contiguous() for x in (r, k, v, w)), u, s,
+                     out_state=s)
+        require(close_err(torch.cat([o1, o2], 1), o_full, 1e-4) <= 1e-4
+                and close_err(s, s_full, 1e-4) <= 1e-4,
+                f"{name}: a handed-over state differs from one call")
+        # a decay of 1e-6: finite, and within 1e-3 of the step loop
+        args = wkv_operands(gen, dev, 4, 64, 16, state=False, decay=1e-6)
+        got, want = kern(*args), ref.wkv6_ref(*args)
+        require(all(torch.isfinite(x).all() for x in got),
+                f"{name}: not finite at a decay of 1e-6")
+        require(all(close_err(g_, w_, 1e-3) <= 1e-3
+                    for g_, w_ in zip(got, want)),
+                f"{name}: off at a decay of 1e-6")
+        torch.cuda.synchronize()
+        log(f"check reduced: {name} f32 N in (16, 64), T in (1, 27, 64, 96), "
+            f"with and without a state, handoff, decay 1e-6 within {tol} "
+            f"(largest |err| {worst:.3g})")
+    ops.reset_launch_counts()
+
+
+def to_device(p, dev):
+    """A params tree (dicts and lists of tensors) on ``dev``."""
+    if isinstance(p, dict):
+        return {k: to_device(v, dev) for k, v in p.items()}
+    if isinstance(p, list):
+        return [to_device(v, dev) for v in p]
+    return p.to(dev)
+
+
 def run_engine(model, params, serve_cfg, reqs, prefix=None):
     """Serve ``reqs`` (after preloading ``prefix``, if given) to the end;
     returns the engine, its results and the drain's wall seconds."""
@@ -409,15 +516,7 @@ def reduced_engine_check() -> None:
     cpu_model = build_model(cfg, device="cpu")
     cpu_params = cpu_model.init(0)
     gpu_model = build_model(cfg, device="cuda")
-
-    def to_gpu(p):
-        if isinstance(p, dict):
-            return {k: to_gpu(v) for k, v in p.items()}
-        if isinstance(p, list):
-            return [to_gpu(v) for v in p]
-        return p.to("cuda")
-
-    gpu_params = to_gpu(cpu_params)
+    gpu_params = to_device(cpu_params, "cuda")
     for kv in ("native", "int8"):
         scfg = ServeConfig(page_size=4, num_pages=16, max_pages_per_seq=16,
                            max_batch=3, prefix_cache=False,
@@ -917,13 +1016,7 @@ def full_checks(rec, rec_q, launches, launches_q) -> list[dict]:
                          bound_ms=b_ms, bound_by=b_by, library_ms=None,
                          library=None,
                          launches=counts["paged_decode_attention"]))
-    for r in rows:
-        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        log(f"kernel {r['name']}: {r['shape']}; err {r['max_abs_err']:.3g} "
-            f"(max|want| {r['max_abs_want']:.3g}); "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"{lib} ({r['library']}), bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), {r['launches']} serve launches")
+    print_rows(rows)
     return rows
 
 
@@ -1025,6 +1118,361 @@ def continuation_checks(rec, rec_pq, counts) -> list[dict]:
                          max_abs_want=peak, ms=ms, plain_ms=plain,
                          bound_ms=b_ms, bound_by=b_by, library_ms=None,
                          library=None, launches=n_launch))
+    print_rows(rows)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6
+# ---------------------------------------------------------------------------
+
+
+def rwkv_decode(model, params, logits, state, steps: int):
+    """``steps`` greedy decode steps from prefill ``logits``; the tokens
+    stay on the card.  Returns (tokens [B, steps + 1], every step's logits,
+    state)."""
+    import torch
+    tok = logits.argmax(-1).to(torch.int32)
+    toks, all_logits = [tok], [logits]
+    for _ in range(steps):
+        logits, state = model.decode_step(params, tok, state)
+        tok = logits.argmax(-1).to(torch.int32)
+        toks.append(tok)
+        all_logits.append(logits)
+    return torch.stack(toks, 1), all_logits, state
+
+
+def expected_wkv_launches(tm_impl: str, prompt_len: int, layers: int,
+                          decode_steps: int) -> dict[str, int]:
+    """The launches of one prefill and ``decode_steps`` decode steps: the
+    chunked kernel for a prefill iff ``tm_impl == "chunked_matmul"`` and
+    the prompt is a multiple of 32 (JAX's rule), else the sequential one;
+    every decode step (T = 1) runs the sequential kernel."""
+    from repro_torch.kernels import ops
+    route = ops.wkv6_route(prompt_len,
+                           matmul_chunks=tm_impl == "chunked_matmul")
+    want = {"wkv6": layers * decode_steps, "wkv6_chunked": 0}
+    want[route] += layers
+    return want
+
+
+def reduced_rwkv_check() -> None:
+    """The reduced rwkv6-7b (f32) on the card against the same model and
+    weights on the CPU: prefill, then 16 greedy decode steps, for both
+    ``tm_impl``s with 32-token prompts (the chunked kernel under
+    ``chunked_matmul``) and 27-token prompts (the sequential kernel);
+    identical tokens, logits and final state within 1e-4 (f32 sums in
+    another order).  ``w_lora_B`` is drawn nonzero (the init makes it
+    zero), so the data-dependent decay runs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.rwkv6 import TM_IMPLS
+    cfg = get_config("rwkv6-7b", reduced=True)
+    cpu_params = build_model(cfg, device="cpu").init(0)
+    gen = torch.Generator().manual_seed(5)
+    for blk in cpu_params["blocks"]:
+        blk["tm"]["w_lora_B"] = 0.5 * torch.randn(
+            blk["tm"]["w_lora_B"].shape, generator=gen)
+    gpu_params = to_device(cpu_params, "cuda")
+    for tm_impl in TM_IMPLS:
+        for plen in (32, 27):
+            toks = torch.randint(0, cfg.vocab_size, (3, plen), generator=gen,
+                                 dtype=torch.int32)
+            lens = torch.full((3,), plen, dtype=torch.int32)
+            runs = {}
+            for tag, dev, params in (("card", "cuda", gpu_params),
+                                     ("cpu", "cpu", cpu_params)):
+                model = build_model(cfg, device=dev, tm_impl=tm_impl)
+                ops.reset_launch_counts()
+                logits, st = model.prefill(params, toks.to(dev), lens.to(dev),
+                                           model.init_state(3))
+                out, all_logits, st = rwkv_decode(model, params, logits, st,
+                                                  16)
+                runs[tag] = (out.cpu(), [x.cpu() for x in all_logits],
+                             [x.cpu() for x in st], ops.launch_counts())
+            (t_g, l_g, s_g, n_g), (t_c, l_c, s_c, _) = runs["card"], runs["cpu"]
+            require(torch.equal(t_g, t_c), f"reduced rwkv6 ({tm_impl}, "
+                                           f"prompt {plen}): tokens differ "
+                                           "card vs cpu")
+            err = max(close_err(a, b, 1e-4) for a, b in
+                      zip(l_g + s_g[:3], l_c + s_c[:3]))
+            require(err <= 1e-4 and torch.equal(s_g[3], s_c[3]),
+                    f"reduced rwkv6 ({tm_impl}, prompt {plen}): logits or "
+                    f"state off by {err}")
+            want = expected_wkv_launches(tm_impl, plen, cfg.num_layers, 16)
+            got = {k: n_g[k] for k in want}
+            require(got == want, f"reduced rwkv6 ({tm_impl}, prompt {plen}): "
+                                 f"launches {got}, expected {want}")
+            log(f"check reduced rwkv6 ({tm_impl}, prompt {plen}): card == cpu "
+                f"greedy tokens (prefill + 16 steps), logits and state within "
+                f"1e-4; launches {json.dumps(got)}")
+    ops.reset_launch_counts()
+
+
+#: the full-width RWKV-6 workload: one batch of 8 equal 512-token prompts
+#: (the JAX prefill is exact only for equal lengths), 32 greedy new tokens
+RWKV = dict(batch=8, prompt=512, new=32, seed=4)
+#: the context the example winds the state to (``long_500k``)
+LONG_CONTEXT = 524_288 - 4
+
+
+def rwkv_models():
+    """rwkv6-7b at full width, one model per ``tm_impl`` sharing one set of
+    random bf16 weights from a seeded generator, and the prompts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.rwkv6 import TM_IMPLS
+    cfg = get_config("rwkv6-7b")          # all 32 layers: depth is not cut
+    models = {impl: build_model(cfg, device="cuda", tm_impl=impl)
+              for impl in TM_IMPLS}
+    t0 = time.perf_counter()
+    params = models["sequential"].init(0)
+    torch.cuda.synchronize()
+    log(f"rwkv: rwkv6-7b full width ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_rwkv_heads} heads of {cfg.rwkv_head_size}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16) initialised on the "
+        f"card in {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB")
+    rng = np.random.default_rng(RWKV["seed"])
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (RWKV["batch"], RWKV["prompt"])).astype(
+        np.int32)).cuda()
+    return cfg, models, params, tokens
+
+
+def rwkv_serve(model, params, tokens):
+    """Prefill the batch, then greedy decode to ``RWKV["new"]`` tokens.
+    Returns (tokens [B, new], prefill logits, state, prefill seconds,
+    decode seconds); the clock stops after a synchronize."""
+    import torch
+    lens = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.int32,
+                      device=tokens.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, st = model.prefill(params, tokens, lens,
+                               model.init_state(tokens.shape[0]))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out, _, st = rwkv_decode(model, params, logits, st, RWKV["new"] - 1)
+    torch.cuda.synchronize()
+    return out, logits, st, t1 - t0, time.perf_counter() - t1
+
+
+def rwkv_phase(cfg, models, params, tokens) -> dict[str, dict[str, int]]:
+    """Serve the batch with each ``tm_impl`` (after an untimed warm-up of
+    the same shapes), the launch counts zeroed just before and read just
+    after each run; then the long-context decode.  Returns each run's
+    launch counts."""
+    import torch
+    from repro_torch.kernels import ops
+    counts, first = {}, {}
+    decode_steps = RWKV["new"] - 1
+    for impl, model in models.items():
+        rwkv_serve(model, params, tokens)       # warm-up: same shapes, untimed
+        ops.reset_launch_counts()
+        out, logits, st, pre_s, dec_s = rwkv_serve(model, params, tokens)
+        launches = ops.launch_counts()
+        counts[impl], first[impl] = launches, (logits.float(), out)
+        want = expected_wkv_launches(impl, tokens.shape[1], cfg.num_layers,
+                                     decode_steps)
+        got = {k: launches[k] for k in want}
+        require(got == want, f"rwkv {impl}: launches {got}, expected {want}")
+        require(out.shape == (RWKV["batch"], RWKV["new"]), "rwkv: wrong shape")
+        require(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+                f"rwkv {impl}: token outside the vocabulary")
+        require(bool(torch.isfinite(logits).all()), f"rwkv {impl}: "
+                                                    "non-finite logits")
+        n_tok = out.numel()
+        log(f"rwkv {impl}: {RWKV['batch']} requests x {RWKV['prompt']}-token "
+            f"prompts, {n_tok} tokens in {pre_s + dec_s:.3f}s = "
+            f"{n_tok / (pre_s + dec_s):.1f} tok/s; prefill (TTFT of the "
+            f"batch) {pre_s * 1e3:.1f} ms, decode {dec_s / decode_steps * 1e3:.2f}"
+            f" ms/step (TPOT) over {decode_steps} steps; launches "
+            f"{json.dumps(got)}")
+        if impl == "sequential":
+            seq_state, seq_tpot = st, dec_s / decode_steps
+            seq_tok = out[:, -1]
+    (l_s, o_s), (l_c, o_c) = first["sequential"], first["chunked_matmul"]
+    diff = float((l_s - l_c).abs().max())
+    lead = [next((k for k in range(o_s.shape[1]) if o_s[i, k] != o_c[i, k]),
+                 o_s.shape[1]) for i in range(o_s.shape[0])]
+    log(f"rwkv: largest difference of the two runs' prefill logits {diff:.4g} "
+        f"(max|logit| {float(l_s.abs().max()):.4g}); greedy tokens agree up "
+        f"to positions {lead} (printed, not required)")
+
+    # the example's point: the state is the only thing carried, O(1) in
+    # context length
+    model = models["sequential"]
+    st = seq_state._replace(seq_lens=torch.full_like(seq_state.seq_lens,
+                                                     LONG_CONTEXT))
+    nbytes = st.nbytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok = seq_tok
+    for _ in range(4):
+        logits, st = model.decode_step(params, tok, st)
+        tok = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    long_s = (time.perf_counter() - t0) / 4
+    require(st.nbytes == nbytes, f"state grew with context: {nbytes} -> "
+                                 f"{st.nbytes} bytes")
+    require(bool((st.seq_lens == LONG_CONTEXT + 4).all()), "seq_lens wrong")
+    log(f"rwkv long context: 4 decode steps at ~{LONG_CONTEXT} tokens, "
+        f"{long_s * 1e3:.2f} ms/step vs {seq_tpot * 1e3:.2f} ms/step at "
+        f"{RWKV['prompt']}; state {nbytes} bytes before and after "
+        f"(unchanged)")
+    return counts
+
+
+class WkvTap:
+    """Wraps ``ops.wkv6``; keeps clones of the inputs of the largest call of
+    each (route, prefill or decode), for the full-width checks."""
+
+    def __init__(self, fn):
+        self.fn, self.best = fn, {}
+
+    def __call__(self, r, k, v, w, u, s0=None, **kw):
+        from repro_torch.kernels import ops
+        route = ops.wkv6_route(r.shape[1], use_kernel=kw.get("use_kernel",
+                                                             True),
+                               matmul_chunks=kw.get("matmul_chunks", False))
+        key = (route, "decode" if r.shape[1] == 1 else "prefill")
+        if key not in self.best or r.numel() > self.best[key][0].numel():
+            self.best[key] = [None if x is None else x.clone()
+                              for x in (r, k, v, w, u, s0)]
+        return self.fn(r, k, v, w, u, s0, **kw)
+
+
+def rwkv_profile(model, params, tokens, steps: int = 8) -> None:
+    """An untimed, traced repeat (torch.profiler) of one prefill and
+    ``steps`` decode steps (none when 0): the device's busy share of the
+    wall clock and device time by kernel, for each half."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import print_profile
+    lens = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.int32,
+                      device="cuda")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, st = model.prefill(params, tokens, lens,
+                                   model.init_state(tokens.shape[0]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(f"rwkv profile ({model.tm_impl}), prefill:")
+    print_profile(prof, wall, top=8)
+    if not steps:
+        return
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        rwkv_decode(model, params, logits, st, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(f"rwkv profile ({model.tm_impl}), {steps} decode steps:")
+    print_profile(prof, wall, top=8)
+
+
+def rwkv_record(models, params, tokens):
+    """An untimed repeat of each run's prefill and first decode step with
+    ``ops.wkv6`` wrapped in a :class:`WkvTap`."""
+    import torch
+    from repro_torch.kernels import ops
+    tap = WkvTap(ops.wkv6)
+    saved, ops.wkv6 = ops.wkv6, tap
+    try:
+        lens = torch.full((tokens.shape[0],), tokens.shape[1],
+                          dtype=torch.int32, device="cuda")
+        for model in models.values():
+            logits, st = model.prefill(params, tokens, lens,
+                                       model.init_state(tokens.shape[0]))
+            model.decode_step(params, logits.argmax(-1).to(torch.int32), st)
+    finally:
+        ops.wkv6 = saved
+    return tap.best
+
+
+def bound_f32(nbytes: float, flops: float):
+    """Least time on the card for f32 work: bytes over HBM bandwidth or
+    operations over the f32 CUDA-core peak (67 TFLOP/s, H100 SXM data
+    sheet), whichever is longer."""
+    from repro_torch.core.costmodel import H100_HBM_BW, H100_PEAK_FLOPS_F32
+    tb = nbytes / H100_HBM_BW * 1e3
+    tf = flops / H100_PEAK_FLOPS_F32 * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def wkv_flops(chunked: bool, bh: int, t: int, n: int, c: int = 32) -> float:
+    """The f32 operations of each formulation on these shapes.
+    Sequential, per step and head: ``sum_i r_i S_ij`` (2 N^2), the bonus
+    ``(r . u k) v_j`` (3 N + N) and ``S = w S + k v^T`` (3 N^2).  Chunked,
+    per chunk of ``c`` and head: the log-decay cumsums (2 c N), the masked
+    ``att`` (5 N per pair j < i: subtract, exp, two products, add) and its
+    bonus diagonal (3 c N), the rescaled r and k (5 c N), the inter-chunk
+    ``(r a) @ S`` (2 c N^2), ``att @ v`` (2 N per pair j <= i) and the
+    state update (N^2 (2 c + 2))."""
+    if not chunked:
+        return float(bh * t * (5 * n * n + 4 * n))
+    pairs = c * (c - 1) // 2
+    per_chunk = (2 * c * n + 5 * n * pairs + 3 * c * n + 5 * c * n
+                 + 2 * c * n * n + 2 * n * (pairs + c) + n * n * (2 * c + 2))
+    return float(bh * -(-t // c) * per_chunk)
+
+
+def wkv_checks(best, counts) -> list[dict]:
+    """Each WKV kernel against its plain version at the largest input its
+    own run gave it, then timings.  f32 tolerance 1e-3 of the largest
+    output: up to 512-step f32 sums taken in another order.  The plain
+    sequential version is a Python loop over T and is timed with fewer
+    repeats."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.kernels.wkv6_chunked import wkv6_chunked
+
+    def chunked_plain(*a):
+        return ref.wkv6_chunked_matmul_ref(*a, chunk=32)
+
+    cases = (
+        ("wkv6", ("wkv6", "prefill"), wkv6, ref.wkv6_ref, False,
+         counts["sequential"]["wkv6"], dict(n=3, reps=3)),
+        ("wkv6_decode", ("wkv6", "decode"), wkv6, ref.wkv6_ref, False,
+         counts["chunked_matmul"]["wkv6"], {}),
+        ("wkv6_chunked", ("wkv6_chunked", "prefill"), wkv6_chunked,
+         chunked_plain, True, counts["chunked_matmul"]["wkv6_chunked"],
+         dict(n=3, reps=3)),
+    )
+    rows = []
+    for name, key, kern, plain, chunked, launches, plain_rep in cases:
+        require(key in best, f"{name}: no call recorded on its path")
+        args = best[key]
+        r, s0 = args[0], args[5]
+        got, want = kern(*args), plain(*args)
+        err = max(max_err(g_, w_) for g_, w_ in zip(got, want))
+        peak = max(float(w_.abs().max()) for w_ in want)
+        require(err <= 1e-3 * peak, f"{name} err {err} > 1e-3 * max|want| "
+                                    f"({peak}) at serve shapes")
+        bh, t, n = r.shape
+        nbytes = 4 * (5 * bh * t * n + bh * n + bh * n * n
+                      * (2 if s0 is not None else 1))
+        ms = time_ms(lambda: kern(*args))
+        plain_ms = time_ms(lambda: plain(*args), **plain_rep)
+        b_ms, b_by = bound_f32(nbytes, wkv_flops(chunked, bh, t, n))
+        rows.append(dict(name=name, shape=f"r {list(r.shape)} {r.dtype}, "
+                         f"initial state {'given' if s0 is not None else 'zero'}",
+                         max_abs_err=err, max_abs_want=peak, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None,
+                         library="none (no single PyTorch call computes a "
+                                 "recurrence)", launches=launches))
+    print_rows(rows)
+    return rows
+
+
+def print_rows(rows) -> None:
     for r in rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"kernel {r['name']}: {r['shape']}; err {r['max_abs_err']:.3g} "
@@ -1032,6 +1480,29 @@ def continuation_checks(rec, rec_pq, counts) -> list[dict]:
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{lib} ({r['library']}), bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), {r['launches']} serve launches")
+
+
+def dense_phases() -> list[dict]:
+    """The qwen2-7b phases (cold, int8, horizon, continuation) and their
+    kernel rows; the model and every recorded input are freed on return."""
+    cfg, model, params = full_model()
+    launches, launches_q = serve_phase(cfg, model, params)
+    counts = continuation_phase(cfg, model, params)
+    rec, rec_q, rec_pq = record_inputs(cfg, model, params)
+    rows = full_checks(rec, rec_q, launches, launches_q)
+    rows += continuation_checks(rec, rec_pq, counts)
+    return rows
+
+
+def rwkv_phases() -> list[dict]:
+    """The RWKV-6 serve runs, the long-context decode and the WKV rows."""
+    cfg, models, params, tokens = rwkv_models()
+    counts = rwkv_phase(cfg, models, params, tokens)
+    best = rwkv_record(models, params, tokens)
+    rows = wkv_checks(best, counts)
+    del best
+    for i, model in enumerate(models.values()):   # decode: the same code
+        rwkv_profile(model, params, tokens, steps=8 if i == 0 else 0)
     return rows
 
 
@@ -1055,22 +1526,25 @@ def main() -> int:
         probe()
         build()
         reduced_checks()
+        reduced_wkv_checks()
         reduced_engine_check()
+        reduced_rwkv_check()
         if quick:
             log("quick: stopping after the reduced checks")
             return 0
-        cfg, model, params = full_model()
-        launches, launches_q = serve_phase(cfg, model, params)
-        counts = continuation_phase(cfg, model, params)
-        rec, rec_q, rec_pq = record_inputs(cfg, model, params)
-        rows = full_checks(rec, rec_q, launches, launches_q)
-        rows += continuation_checks(rec, rec_pq, counts)
+        rows = dense_phases()
+        gc.collect()                   # free the qwen2-7b weights first
+        torch.cuda.empty_cache()
+        log(f"freed qwen2-7b: {torch.cuda.memory_allocated() / 1e9:.1f} GB "
+            "allocated")
+        rows += rwkv_phases()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     kernels = []
     for r in rows:
-        source, replaces = KERNELS[r["name"].removesuffix("_int8")]
+        source, replaces = KERNELS[
+            r["name"].removesuffix("_int8").removesuffix("_decode")]
         kernels.append(dict(
             name=r["name"], route="cuda", source=source, replaces=replaces,
             launches=r["launches"], max_abs_err=r["max_abs_err"],

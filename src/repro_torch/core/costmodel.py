@@ -114,3 +114,4 @@ class CostModel:
 
 H100_PEAK_FLOPS_BF16: float = 989e12    # tensor cores, dense
 H100_HBM_BW: float = 3.35e12            # bytes/s
+H100_PEAK_FLOPS_F32: float = 67e12      # CUDA cores, outside the tensor cores

@@ -26,7 +26,7 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_copy", "flash_attention", "paged_attention",
-           "paged_prefill_attention")
+           "paged_prefill_attention", "wkv6", "wkv6_chunked")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,6 +54,9 @@ SIGNATURES = {
         "paged_prefill_attention", "paged_prefill_attention_launch",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _LL,
          _F, _F, _I, _I, _P]),
+    "wkv6": ("wkv6", "wkv6_launch", [_P] * 8 + [_I, _I, _I, _P]),
+    "wkv6_chunked": ("wkv6_chunked", "wkv6_chunked_launch",
+                     [_P] * 8 + [_I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -30,6 +30,12 @@ from repro_torch.kernels.paged_prefill_attention import (
     check_paged_prefill_attention,
     paged_prefill_attention as _paged_prefill_kernel,
 )
+from repro_torch.kernels.wkv6 import check_wkv6, wkv6 as _wkv6_kernel
+from repro_torch.kernels.wkv6_chunked import (
+    CHUNK as WKV6_CHUNK,
+    check_wkv6_chunked,
+    wkv6_chunked as _wkv6_chunked_kernel,
+)
 
 #: the kernel wrappers whose ``launches`` counters a run reads
 KERNELS = {
@@ -38,6 +44,8 @@ KERNELS = {
     "paged_decode_attention": _paged_attn_kernel,
     "paged_copy_at": _paged_copy_at_kernel,
     "paged_prefill_attention": _paged_prefill_kernel,
+    "wkv6": _wkv6_kernel,
+    "wkv6_chunked": _wkv6_chunked_kernel,
 }
 
 
@@ -130,3 +138,49 @@ def paged_prefill_attention(q, k_pool, v_pool, page_table, starts, *,
     return _paged_prefill_kernel(
         q, k_pool, v_pool, page_table, starts, page_size=page_size,
         scale=scale, kv_scale=kv_scale)
+
+
+def wkv6_route(t: int, *, use_kernel: bool = True,
+               matmul_chunks: bool = False) -> str:
+    """Which computation :func:`wkv6` runs for ``t`` time steps — the rule
+    of JAX ``ops.wkv6`` (``src/repro/kernels/ops.py:565-588``):
+
+      * ``"wkv6_chunked"``: the chunked kernel, iff ``matmul_chunks and
+        use_kernel and t % 32 == 0``;
+      * ``"wkv6"``: the sequential kernel, for every other ``use_kernel``
+        call;
+      * ``"plain_chunked"``: ``use_kernel=False`` with ``matmul_chunks``,
+        the chunked plain version with chunk 32;
+      * ``"plain_sequential"``: ``use_kernel=False`` otherwise, the step
+        loop.
+
+    A kernel route on a CPU tensor runs that kernel's plain version."""
+    if matmul_chunks and use_kernel and t % WKV6_CHUNK == 0:
+        return "wkv6_chunked"
+    if not use_kernel:
+        return "plain_chunked" if matmul_chunks else "plain_sequential"
+    return "wkv6"
+
+
+def wkv6(r, k, v, w, u, initial_state=None, *, use_kernel: bool = True,
+         matmul_chunks: bool = False, out_state=None):
+    """RWKV-6 recurrence over ``[BH, T, N]``; returns (o, final state
+    ``[BH, N, N]`` f32).  ``out_state`` receives the final state in place
+    (on every route)."""
+    route = wkv6_route(r.shape[1], use_kernel=use_kernel,
+                       matmul_chunks=matmul_chunks)
+    if not _plain(r, route in ("wkv6", "wkv6_chunked")):
+        if route == "wkv6_chunked":
+            return _wkv6_chunked_kernel(r, k, v, w, u, initial_state,
+                                        out_state=out_state)
+        return _wkv6_kernel(r, k, v, w, u, initial_state, out_state=out_state)
+    if route in ("wkv6_chunked", "plain_chunked"):
+        check_wkv6_chunked(r, k, v, w, u, initial_state, out_state)
+        o, s = ref.wkv6_chunked_matmul_ref(r, k, v, w, u, initial_state,
+                                           chunk=WKV6_CHUNK)
+    else:
+        check_wkv6(r, k, v, w, u, initial_state, out_state)
+        o, s = ref.wkv6_ref(r, k, v, w, u, initial_state)
+    if out_state is not None:
+        s = out_state.copy_(s)
+    return o, s

@@ -167,3 +167,84 @@ def paged_prefill_attention_ref(
     p = torch.where(causal[:, :, None, None, :], p, 0.0)
     o = torch.einsum("bshgt,bthd->bshgd", p, v_log.float())
     return o.to(q.dtype)
+
+
+def wkv6_ref(
+    r: torch.Tensor,            # [BH, T, N]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,            # decay in (0, 1)
+    u: torch.Tensor,            # [BH, N] bonus
+    initial_state: torch.Tensor | None = None,   # [BH, N, N] f32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV-6 recurrence one step at a time: ``o_t = r_t^T (diag(u)
+    k_t v_t^T + S)``, then ``S = diag(w_t) S + k_t v_t^T``.  Returns
+    (o [BH, T, N] in r's dtype, final state [BH, N, N] f32)."""
+    bh, t, n = r.shape
+    s = (initial_state.float() if initial_state is not None
+         else torch.zeros((bh, n, n), dtype=torch.float32, device=r.device))
+    uf = u[:, :, None].float()
+    outs = []
+    for i in range(t):
+        kv = k[:, i, :, None] * v[:, i, None, :]              # [BH, N, N]
+        outs.append(torch.einsum("bi,bij->bj", r[:, i].float(), uf * kv + s))
+        s = w[:, i, :, None].float() * s + kv
+    return torch.stack(outs, dim=1).to(r.dtype), s
+
+
+def wkv6_chunked_matmul_ref(
+    r: torch.Tensor,            # [BH, T, N]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,            # decay in (0, 1)
+    u: torch.Tensor,            # [BH, N]
+    initial_state: torch.Tensor | None = None,
+    chunk: int = 64,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunk-parallel RWKV-6 (flash-linear-attention form), the plain
+    version of the chunked kernel.  T is padded to a multiple of ``chunk``
+    with identity steps (w = 1, k = 0).  Per chunk, with ``cum`` the
+    inclusive and ``cum_excl`` the exclusive cumsum of ``log(max(w,
+    1e-38))``:
+
+      o_i = (r_i exp(cum_excl_i)) S
+            + sum_{j<i} (sum_n r_in k_jn exp(cum_excl_in - cum_jn)) v_j
+            + (r_i . u k_i) v_i
+      S   = exp(cum_last) S + sum_j exp(cum_last - cum_j) k_j v_j^T
+
+    Every exponent is <= 0; the mask is applied in log space (-inf)
+    before the exp, so a masked entry never overflows."""
+    bh, t, n = r.shape
+    nc = -(-t // chunk)
+    pad = nc * chunk - t
+    out_dtype = r.dtype
+    r, k, v, w = r.float(), k.float(), v.float(), w.float()
+    if pad:
+        zp = (0, 0, 0, pad)
+        r = torch.nn.functional.pad(r, zp)
+        k = torch.nn.functional.pad(k, zp)
+        v = torch.nn.functional.pad(v, zp)
+        w = torch.nn.functional.pad(w, zp, value=1.0)
+    s = (initial_state.float() if initial_state is not None
+         else torch.zeros((bh, n, n), dtype=torch.float32, device=r.device))
+    uf = u.float()[:, None, :]
+    idx = torch.arange(chunk, device=r.device)
+    mask = (idx[:, None] > idx[None, :])[None, :, :, None]    # [1, C, C, 1]
+    outs = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        rr, kk, vv, ww = r[:, sl], k[:, sl], v[:, sl], w[:, sl]
+        logw = torch.log(torch.clamp(ww, min=1e-38))
+        cum = torch.cumsum(logw, dim=1)
+        cum_excl = cum - logw
+        o = torch.einsum("bcn,bnm->bcm", rr * torch.exp(cum_excl), s)
+        delta = cum_excl[:, :, None, :] - cum[:, None, :, :]  # [BH, C, C, N]
+        delta = torch.where(mask, delta, float("-inf"))
+        att = torch.einsum("bin,bjn,bijn->bij", rr, kk, torch.exp(delta))
+        o = o + torch.einsum("bij,bjm->bim", att, vv)
+        o = o + (rr * uf * kk).sum(-1, keepdim=True) * vv
+        tail = torch.exp(cum[:, -1:, :] - cum)                # [BH, C, N]
+        s = torch.exp(cum[:, -1, :])[:, :, None] * s + torch.einsum(
+            "bcn,bcm->bnm", kk * tail, vv)
+        outs.append(o)
+    return torch.cat(outs, dim=1)[:, :t].to(out_dtype), s

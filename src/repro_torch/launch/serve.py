@@ -14,7 +14,10 @@ random N-token shared prefix and submits every request as a
 ``share_prefix`` fork of it (continuation prefill through the executor).
 
 The model is the arch's reduced config unless ``--full`` asks for the
-published widths; ``--num-layers`` cuts depth only.  ``--device cpu``
+published widths; ``--num-layers`` cuts depth only.  Recurrent families
+(``rwkv6-7b``, ``recurrentgemma-9b``) are refused before a model is built,
+as the JAX launcher refuses them: they decode through the model's own
+``prefill`` / ``decode_step``.  ``--device cpu``
 runs the plain PyTorch versions of the kernels on the CPU.  The kernels
 are built and one short request is served before the timed run, so
 tokens/s and TTFT exclude the build and first-call costs; ``--profile``
@@ -36,6 +39,7 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.kernels import build
 from repro_torch.models import build_model
 from repro_torch.serve import Engine, ServeConfig, ServeRequest
+from repro_torch.serve.engine import RECURRENT_FAMILIES, RECURRENT_REFUSAL
 
 
 def device_name(device: torch.device) -> str:
@@ -95,6 +99,8 @@ def main() -> None:
     args = ap.parse_args()
 
     cfg = get_config(args.arch, reduced=not args.full)
+    if cfg.family in RECURRENT_FAMILIES:
+        raise SystemExit(f"{args.arch}: {RECURRENT_REFUSAL}")
     if args.num_layers:
         cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     model = build_model(cfg, device=args.device)

@@ -1,14 +1,12 @@
-"""Model zoo of the port: the dense GQA transformer (later slices add the
-MoE, VLM, audio, RG-LRU and RWKV-6 families)."""
+"""Model zoo of the port: the dense GQA transformer and the RWKV-6 family
+(later slices add the MoE, VLM, audio and RG-LRU families)."""
 
 from typing import Any
 
+from repro_torch.models import rwkv6, transformer
 from repro_torch.models.config import SHAPES, ModelConfig, ShapeConfig
-from repro_torch.models.transformer import (
-    PagedKVState,
-    TransformerLM,
-    params_from_jax,
-)
+from repro_torch.models.rwkv6 import RecurrentState, RWKV6LM
+from repro_torch.models.transformer import PagedKVState, TransformerLM
 
 #: the slice of the port that brings each family not ported yet
 _LATER = {
@@ -16,14 +14,15 @@ _LATER = {
     "vlm": "the VLM slice",
     "audio": "the audio slice",
     "hybrid_rglru": "the RG-LRU slice",
-    "rwkv6": "the RWKV-6 slice (wkv6 kernels)",
 }
 
 
-def build_model(cfg: ModelConfig, **kwargs: Any) -> TransformerLM:
-    """Factory: the dense family's LM (``device=None`` means the card)."""
+def build_model(cfg: ModelConfig, **kwargs: Any) -> TransformerLM | RWKV6LM:
+    """Factory: the family's LM (``device=None`` means the card)."""
     if cfg.family == "dense":
         return TransformerLM(cfg, **kwargs)
+    if cfg.family == "rwkv6":
+        return RWKV6LM(cfg, **kwargs)
     if cfg.family in _LATER:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; it comes "
@@ -31,10 +30,20 @@ def build_model(cfg: ModelConfig, **kwargs: Any) -> TransformerLM:
     raise ValueError(f"unknown family {cfg.family}")
 
 
+def params_from_jax(np_params: dict, cfg: ModelConfig, device) -> dict:
+    """Bridge: the JAX package's ``init`` pytree of ``cfg``'s family (as
+    numpy arrays) to the port's parameters on ``device``."""
+    if cfg.family == "rwkv6":
+        return rwkv6.params_from_jax(np_params, cfg, device)
+    return transformer.params_from_jax(np_params, cfg, device)
+
+
 __all__ = [
     "SHAPES",
     "ModelConfig",
     "PagedKVState",
+    "RWKV6LM",
+    "RecurrentState",
     "ShapeConfig",
     "TransformerLM",
     "build_model",

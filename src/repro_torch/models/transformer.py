@@ -60,9 +60,10 @@ class TransformerLM:
                  use_kernels: bool = True, kv_dtype: str = "native"):
         if cfg.family != "dense":
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: the MoE, VLM and "
-                "audio families, RG-LRU and RWKV-6 come in later slices of "
-                "the PyTorch port (ROADMAP.md)")
+                f"family {cfg.family!r} is not served by TransformerLM: the "
+                "MoE, VLM and audio families and RG-LRU come in later slices "
+                "of the PyTorch port (ROADMAP.md); RWKV-6 is RWKV6LM "
+                "(build_model picks it)")
         if kv_dtype not in ("native", "int8"):
             raise ValueError(f"kv_dtype must be 'native' or 'int8', got "
                              f"{kv_dtype!r}")
@@ -339,9 +340,11 @@ def params_from_jax(np_params: Params, cfg: ModelConfig, device) -> Params:
 
     The JAX pytree stacks each block leaf along a leading layer axis under
     ``params["blocks"]["sub0"]``; the port keeps one dict per layer.
-    Weights keep their ``[in, out]`` layout.  Dense family only."""
+    Weights keep their ``[in, out]`` layout.  Dense family only
+    (:func:`repro_torch.models.params_from_jax` dispatches by family)."""
     if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        raise NotImplementedError(f"family {cfg.family!r}: not the dense "
+                                  "family's pytree")
     dev = resolve_device(device)
 
     def t(a):

@@ -19,7 +19,9 @@ shares its whole pages and prefills only the divergent chunk), a
 preloaded shared prefix with ``share_prefix`` forks, and partial restore,
 all through the executor's batched continuation prefill.  The engine
 refuses, at construction, every config that would reach an unported path
-(AOT buckets, a serve mesh, non-dense families).
+(AOT buckets, a serve mesh, the MoE/VLM/audio families), and recurrent
+families, which the JAX engine does not serve either: they decode through
+their model's own ``prefill`` / ``decode_step``.
 """
 
 from __future__ import annotations
@@ -38,10 +40,20 @@ from repro_torch.serve.scheduler import Request, Scheduler, ServeConfig
 
 __all__ = ["Engine", "Request", "ServeConfig", "ServeRequest", "ServeResult"]
 
+#: families with a recurrent state instead of a paged KV cache; the engine
+#: does not serve them (nor does the JAX engine)
+RECURRENT_FAMILIES = ("rwkv6", "hybrid_rglru")
+#: the JAX launcher's words (``src/repro/launch/serve.py``)
+RECURRENT_REFUSAL = ("engine drives paged-KV transformers; recurrent "
+                     "families decode via model.decode_step (see examples/)")
+
 
 def check_ported(model: TransformerLM, cfg: ServeConfig) -> None:
-    """Raise ``NotImplementedError`` for any config that would reach a
-    path the port does not have yet."""
+    """Raise ``NotImplementedError`` for a recurrent family (which the
+    engine does not serve) and for any config that would reach a path the
+    port does not have yet."""
+    if model.cfg.family in RECURRENT_FAMILIES:
+        raise NotImplementedError(f"{model.cfg.name}: {RECURRENT_REFUSAL}")
     refused = []
     if cfg.aot_buckets:
         refused.append("aot_buckets (AOT-bucketed prefill: not ported)")

@@ -10,7 +10,9 @@ the machine with the card:
 Tolerances: f32 1e-5 (both sides accumulate in f32 in different orders);
 bf16 2e-2 (outputs round to bf16, one ulp is 2^-8 relative), and for the
 continuation attention four bf16 steps of the largest output
-(``4 * 2^-8 * max|want|``); the copies are bit-identical on the whole pool.
+(``4 * 2^-8 * max|want|``); the copies are bit-identical on the whole pool;
+the WKV recurrences (f32) 1e-4 sequential and 3e-4 chunked, 1e-3 at a
+decay of 1e-6, as their CPU tests against the Pallas kernels.
 """
 
 import pytest
@@ -157,3 +159,61 @@ def test_paged_prefill_attention(gen, quant, dtype, hkv, g, d, page):
         else:
             err = float((g_ - w_).abs().max())
             assert err <= 4 * 2**-8 * float(w_.abs().max()), (i, err)
+
+
+def wkv_operands(gen, bh, t, n, *, state, decay=None):
+    """f32 r, k, v (scale 0.5), w = sigmoid(z - 1) or a constant decay,
+    u, and an optional state (scale 0.1), contiguous on the card."""
+    def f(*shape, sc=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * sc
+    r, k, v = f(bh, t, n, sc=0.5), f(bh, t, n, sc=0.5), f(bh, t, n, sc=0.5)
+    w = (torch.sigmoid(f(bh, t, n) - 1.0) if decay is None
+         else torch.full((bh, t, n), decay, device="cuda"))
+    return r, k, v, w, f(bh, n, sc=0.5), (f(bh, n, n, sc=0.1) if state
+                                          else None)
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("n", [16, 64])
+@pytest.mark.parametrize("t", [1, 27, 64, 96])
+@pytest.mark.parametrize("state", [False, True])
+def test_wkv6_kernels(gen, chunked, n, t, state):
+    """Each WKV kernel against its plain version (f32 sums in another
+    order: 1e-4 sequential, 3e-4 chunked, as the CPU tests)."""
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.kernels.wkv6_chunked import wkv6_chunked
+    args = wkv_operands(gen, 6, t, n, state=state)
+    if chunked:
+        got = wkv6_chunked(*args)
+        want = ref.wkv6_chunked_matmul_ref(*args, chunk=32)
+        tol = 3e-4
+    else:
+        got, want, tol = wkv6(*args), ref.wkv6_ref(*args), 1e-4
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_wkv6_state_handoff_and_in_place_state(gen, chunked):
+    """Two calls with the state handed over (written in place into the
+    caller's state) equal one call; a decay of 1e-6 stays finite."""
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.kernels.wkv6_chunked import wkv6_chunked
+    fn = wkv6_chunked if chunked else wkv6
+    r, k, v, w, u, _ = wkv_operands(gen, 4, 96, 64, state=False)
+    o_full, s_full = fn(r, k, v, w, u)
+    s = torch.zeros_like(s_full)
+    o1, _ = fn(*(x[:, :64].contiguous() for x in (r, k, v, w)), u, s,
+               out_state=s)
+    o2, s2 = fn(*(x[:, 64:].contiguous() for x in (r, k, v, w)), u, s,
+                out_state=s)
+    assert s2.data_ptr() == s.data_ptr()
+    torch.testing.assert_close(torch.cat([o1, o2], 1), o_full, atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(s, s_full, atol=1e-4, rtol=1e-4)
+    r, k, v, w, u, _ = wkv_operands(gen, 4, 64, 16, state=False, decay=1e-6)
+    o, s = fn(r, k, v, w, u)
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    want_o, want_s = ref.wkv6_ref(r, k, v, w, u)
+    torch.testing.assert_close(o, want_o, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(s, want_s, atol=1e-3, rtol=1e-3)

@@ -20,7 +20,7 @@ import torch
 import repro_torch
 from repro_torch.configs import get_config
 from repro_torch.core import VirtualMemory, VMemConfig
-from repro_torch.models import TransformerLM, build_model
+from repro_torch.models import RWKV6LM, TransformerLM, build_model
 
 pytestmark = pytest.mark.torch_port
 
@@ -81,6 +81,11 @@ def test_model_without_device_raises_on_a_machine_with_no_card(no_cuda):
         TransformerLM(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(cfg)
+    rwkv = get_config("rwkv6-7b", reduced=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RWKV6LM(rwkv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(rwkv)
     vm = VirtualMemory(VMemConfig(page_size=4, num_pages=4,
                                   max_pages_per_seq=2, max_seqs=1))
     with pytest.raises(RuntimeError, match="CUDA"):

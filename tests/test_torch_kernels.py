@@ -231,10 +231,14 @@ def test_cpu_dispatch_launches_no_kernel():
                                page_size=4)
     x = torch.zeros(1, 2, 8, 14)
     ops.flash_attention(x, x, x)
+    y, u = torch.full((2, 32, 16), 0.5), torch.full((2, 16), 0.5)
+    for chunks in (False, True):
+        ops.wkv6(y, y, y, y, u, matmul_chunks=chunks)
     assert ops.launch_counts() == {"paged_copy": 0, "flash_attention": 0,
                                    "paged_decode_attention": 0,
                                    "paged_copy_at": 0,
-                                   "paged_prefill_attention": 0}
+                                   "paged_prefill_attention": 0,
+                                   "wkv6": 0, "wkv6_chunked": 0}
 
 
 def test_jax_side_runs_on_cpu():

@@ -298,8 +298,8 @@ class TestServePaths:
 
 
 def test_non_dense_family_names_its_slice():
-    cfg = get_config("rwkv6-7b", reduced=True)
-    with pytest.raises(NotImplementedError, match="RWKV-6 slice"):
+    cfg = get_config("recurrentgemma-9b", reduced=True)
+    with pytest.raises(NotImplementedError, match="RG-LRU slice"):
         build_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="MoE slice"):
         build_model(get_config("granite-moe-1b-a400m", reduced=True),
