@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port serves on the card.
 
-    python3 chip_smoke.py            # one CUDA card, ~2 minutes
+    python3 chip_smoke.py            # one CUDA card, ~1.5 minutes
     python3 chip_smoke.py --quick    # build and the reduced checks only
 
 Imports nothing of JAX and nothing of the JAX package (``src/repro``); it
@@ -60,7 +60,26 @@ printing its lines; any failure exits non-zero before the last line:
    (the CUDA-core peak: the kernels compute in f32); then a traced,
    untimed repeat of each run's prefill and of 8 decode steps prints the
    device's busy share and device time by kernel;
-9. the kernel JSON line, then the device JSON line, last.
+9. the paper's VM loop (after the reduced checks above, which also hold
+   ``paged_gather`` bit-identical to its plain version over f32/bf16/int8,
+   W 4/14/512, page 8/16, any order with repeats, -1 entries, positions
+   past the reach and N = 1, and ``matmul`` within 1e-4 of the largest
+   output, four bf16 steps for a bf16 output, on the JAX kernel tests'
+   shapes and the paper's n = 45/90/181): the quickstart
+   (``repro_torch.launch.quickstart``) on the card and on the CPU must
+   print the same lines, with ``paged_copy`` 1 and ``paged_gather`` 1
+   launches; then one layer of qwen2-7b's K pool (W = 512, bf16, page 16,
+   2,304 frames) holds a 32,768-token sequence in scrambled frames, and
+   four streams (unit stride, stride 4, random with repeats, sorted
+   random) are gathered bit-identical through the kernel, the plain
+   version and the coalesced route, with each stream's translation counts
+   and 16-entry DTLB report (host numpy); the random stream is timed;
+10. the paper's matmul: n = 45, 90, 181 in f32 and qwen2-7b's gate
+   projection for a 2,048-token prefill (bf16 [2048, 3584] @ [3584,
+   18944] -> bf16) through ``ops.matmul`` with the launch counts zeroed
+   before and read after, each against its plain version, then the
+   largest and the n = 181 product timed beside ``torch.matmul``;
+11. the kernel JSON line, then the device JSON line, last.
 """
 
 from __future__ import annotations
@@ -96,6 +115,10 @@ KERNELS = {
              "src/repro/kernels/wkv6.py:61"),
     "wkv6_chunked": ("src/repro_torch/kernels/csrc/wkv6_chunked.cu",
                      "src/repro/kernels/wkv6_chunked.py:84"),
+    "paged_gather": ("src/repro_torch/kernels/csrc/paged_gather.cu",
+                     "src/repro/kernels/paged_gather.py:35"),
+    "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
+               "src/repro/kernels/matmul.py:49"),
 }
 
 
@@ -1472,6 +1495,308 @@ def wkv_checks(best, counts) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the paper's VM loop: per-element translated gather, DTLB, matmul
+# ---------------------------------------------------------------------------
+
+
+def gather_operands(gen, dev, dtype, w, page, n, *, frames=40, max_pages=8):
+    """A pool, one table row with a -1 entry, ``n`` positions in random
+    order with a repeat and (for n > 4) two past the table's reach."""
+    import torch
+    shape = (frames, page, w)
+    if dtype == torch.int8:
+        pool = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int32).to(dtype)
+    else:
+        pool = torch.randn(shape, generator=gen, device=dev).mul(50).to(dtype)
+    row = torch.randperm(frames, generator=gen, device=dev)[:max_pages].int()
+    row[1] = -1
+    pos = torch.randint(0, max_pages * page, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pos[-1] = pos[0]
+    if n > 4:
+        pos[:2] = torch.tensor([max_pages * page + 3, max_pages * page * 5],
+                               dtype=torch.int32, device=dev)
+    return pool, row, pos
+
+
+#: the matmul shapes of tests/test_kernels.py and the paper's three problems
+#: (benchmarks/bench_tlb_sweep.PROBLEMS: datasets of 6, 24 and 96 pages)
+MATMUL_SHAPES = ((128, 128, 128), (256, 384, 128), (128, 512, 256),
+                 (100, 70, 50), (1, 128, 128), (8, 1024, 8))
+PAPER_N = (45, 90, 181)
+
+
+def matmul_err(tag, got, want, tol) -> float:
+    """``max|got - want|``; fails beyond ``tol * max|want|``."""
+    err, peak = max_err(got, want), float(want.float().abs().max())
+    require(err <= tol * peak, f"{tag}: err {err} > {tol} * max|want| "
+                               f"({peak})")
+    return err
+
+
+def reduced_vm_checks() -> None:
+    """``paged_gather`` bit-identical to its plain version over dtypes,
+    widths, pages, orders, -1 entries, positions past the reach and N = 1;
+    ``matmul`` against its plain version on the JAX tests' shapes in f32
+    and bf16 with f32 output (within 1e-4 of the largest output: f32 sums
+    in another order), a bf16 output (four bf16 steps) and the paper's
+    sizes in f32."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.kernels.paged_gather import paged_gather
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for w in (4, 14, 512):
+            for page in (8, 16):
+                for n in (1, 300):
+                    pool, row, pos = gather_operands(gen, dev, dtype, w,
+                                                     page, n)
+                    got = paged_gather(pool, row, pos, page_size=page)
+                    want = ref.paged_gather_ref(pool, row, pos,
+                                                page_size=page)
+                    require(got.dtype == dtype and torch.equal(got, want),
+                            f"paged_gather {dtype} W={w} page={page} N={n} "
+                            "differs")
+    torch.cuda.synchronize()
+    log("check reduced: paged_gather f32/bf16/int8, W in (4, 14, 512), "
+        "page 8/16, N 1/300, random order with repeats, -1 entries, past "
+        "the reach: bit-identical")
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, k, n in MATMUL_SHAPES:
+            x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+            y = torch.randn((k, n), generator=gen, device=dev).to(dtype)
+            got = matmul(x, y, out_dtype=torch.float32)
+            worst = max(worst, matmul_err(
+                f"matmul {dtype} [{m},{k}]x[{k},{n}]", got,
+                ref.matmul_ref(x, y, torch.float32), 1e-4))
+            if dtype == torch.bfloat16:
+                matmul_err(f"matmul bf16 -> bf16 [{m},{k}]x[{k},{n}]",
+                           matmul(x, y), ref.matmul_ref(x, y), 4 * 2**-8)
+    for n in PAPER_N:
+        x, y = (torch.randn((n, n), generator=gen, device=dev)
+                for _ in range(2))
+        worst = max(worst, matmul_err(f"matmul f32 n={n}", matmul(x, y),
+                                      ref.matmul_ref(x, y), 1e-4))
+    torch.cuda.synchronize()
+    log(f"check reduced: matmul f32/bf16 on the JAX test shapes (f32 and "
+        f"bf16 outputs) and n = 45/90/181 f32 within 1e-4 of the largest "
+        f"output (largest |err| {worst:.3g}), bf16 outputs within four bf16 "
+        f"steps")
+    ops.reset_launch_counts()
+
+
+def quickstart_phase() -> dict[str, int]:
+    """The port's quickstart on the card, launch counts zeroed just before
+    and read just after, then on the CPU: the same printed lines."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import quickstart
+
+    def lines(device):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            quickstart.main(device=device)
+        return buf.getvalue().splitlines()
+
+    ops.reset_launch_counts()
+    card = lines("cuda")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    cpu = lines("cpu")
+    require(card == cpu, f"quickstart: the card printed {card}, the CPU {cpu}")
+    want = {"paged_copy": 1, "paged_gather": 1}
+    require(launches == {**dict.fromkeys(launches, 0), **want},
+            f"quickstart launches {launches}, expected {want}")
+    for line in card:
+        log(f"quickstart | {line}")
+    log("quickstart: card == cpu, line for line; launches "
+        + json.dumps({k: launches[k] for k in want}))
+    return launches
+
+
+#: one layer of qwen2-7b's K pool (Hkv 4 x head_dim 128 = 512, bf16, page
+#: 16, 2,304 frames) and a 32,768-token sequence (2,048 pages)
+GATHER = dict(page=16, frames=2304, tokens=32768, w=512)
+
+
+def gather_phase(launches) -> list[dict]:
+    """Map the sequence in scrambled frames, gather the four streams of
+    ``benchmarks/bench_translation.py`` at 32,768 tokens through the
+    kernel, the plain version and the coalesced route (bit-identical),
+    print each stream's translation counts and 16-entry DTLB reports, and
+    time the random stream.  The bound counts what the random stream
+    needs: each distinct pool row and table entry read once, every output
+    row written once, the positions read once."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (
+        VECTOR,
+        AccessEvent,
+        SharedMMUSimulator,
+        VMemConfig,
+        VirtualMemory,
+        burst_trace,
+        element_trace,
+    )
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_gather import paged_gather
+    page, frames, tokens, w = (GATHER[k] for k in ("page", "frames",
+                                                    "tokens", "w"))
+    vm = VirtualMemory(VMemConfig(page_size=page, num_pages=frames,
+                                  max_pages_per_seq=tokens // page,
+                                  max_seqs=frames + 1))
+    # one-page decoys fill the pool and leave in a random order, so the
+    # LIFO free list hands the sequence scrambled frames
+    decoys = frames
+    for i in range(decoys):
+        vm.map_seq(i + 1, page)
+    for i in np.random.default_rng(6).permutation(decoys):
+        vm.unmap_seq(int(i) + 1)
+    seq = vm.map_seq(0, tokens)
+    adjacent = int(np.sum(np.abs(np.diff(seq.pages)) == 1))
+    dev = torch.device("cuda")
+    row = vm.device_page_table("cpu")[seq.slot].to(dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    pool = torch.randn((frames, page, w), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    log(f"gather: pool {list(pool.shape)} bf16 ({pool.numel() * 2 / 1e6:.1f} "
+        f"MB, one layer of qwen2-7b's K pool), {tokens} tokens in {len(seq.pages)} "
+        f"frames ({adjacent} of {len(seq.pages) - 1} neighbours in adjacent "
+        f"frames after {decoys} decoys)")
+    srng = np.random.default_rng(0)
+    streams = {
+        "unit_stride": np.arange(tokens),
+        "strided_4": np.arange(0, tokens, 4),
+        "random": srng.integers(0, tokens, size=tokens),
+        "sorted_random": np.sort(srng.integers(0, tokens, size=tokens)),
+    }
+    for name, pos in streams.items():
+        p = torch.as_tensor(pos.astype(np.int32), device=dev)
+        got = paged_gather(pool, row, p, page_size=page)
+        want = ref.paged_gather_ref(pool, row, p, page_size=page)
+        coal = ops.paged_gather_coalesced(pool, row, p, page_size=page)
+        require(torch.equal(got, want) and torch.equal(got, coal),
+                f"gather {name}: kernel, plain and coalesced routes differ")
+        reps = {}
+        for label, tr in (("burst", burst_trace(pos, page)),
+                          ("element", element_trace(pos, page)),
+                          ("coalesced", burst_trace(np.sort(pos), page))):
+            rep = SharedMMUSimulator(16).run(
+                [AccessEvent(VECTOR, int(v), slack=4.0) for v in tr])
+            reps[label] = (tr.size, rep)
+        log(f"gather {name}: N {pos.size}, bit-identical (kernel, plain, "
+            f"coalesced); translations and 16-entry DTLB (host numpy): "
+            + "; ".join(f"{label} tx {n} misses {r.misses} stall "
+                        f"{r.total_cycles:.0f} cyc"
+                        for label, (n, r) in reps.items()))
+    p = torch.as_tensor(streams["random"].astype(np.int32), device=dev)
+    vpn = (p.long() // page).clamp(max=row.numel() - 1)
+    flat_rows = row.long()[vpn].clamp(min=0) * page + p.long() % page
+    flat = pool.view(-1, w)
+    n = p.numel()
+    distinct_rows = int(torch.unique(p).numel())
+    distinct_pages = int(torch.unique(vpn).numel())
+    nbytes = (distinct_rows + n) * w * 2 + 4 * n + 4 * distinct_pages
+    ms = time_ms(lambda: paged_gather(pool, row, p, page_size=page))
+    plain = time_ms(lambda: ref.paged_gather_ref(pool, row, p,
+                                                 page_size=page))
+    lib = time_ms(lambda: flat.index_select(0, flat_rows))
+    coal_ms = time_ms(lambda: ops.paged_gather_coalesced(pool, row, p,
+                                                         page_size=page))
+    b_ms, b_by = bound(nbytes, 0)
+    log(f"gather random: coalesced route {coal_ms:.4f} ms; the bound counts "
+        f"{distinct_rows} distinct rows of {n} ({nbytes} B; every row read "
+        f"would be {2 * n * w * 2 + 8 * n} B, "
+        f"{bound(2 * n * w * 2 + 8 * n, 0)[0]:.4f} ms)")
+    return [dict(name="paged_gather", shape=f"pool {list(pool.shape)} bf16, "
+                 f"{n} random positions with repeats", max_abs_err=0.0,
+                 max_abs_want=float(pool.float().abs().max()), ms=ms,
+                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=lib, library="index_select on precomputed rows",
+                 launches=launches["paged_gather"])]
+
+
+#: qwen2-7b's gate projection for a 2,048-token prefill (d_model 3584,
+#: d_ff 18944)
+MATMUL_FULL = (2048, 3584, 18944)
+
+
+def matmul_phase() -> list[dict]:
+    """The paper's matmul through ``ops.matmul`` (launch counts zeroed just
+    before, read just after): n = 45, 90, 181 in f32 and the full-width
+    bf16 product; each against its plain version; then the full-width and
+    the n = 181 products timed beside ``torch.matmul`` and their bounds
+    (bf16 operations at the tensor-core peak; f32 at the CUDA-core peak)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.matmul import matmul
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    paper = {n: tuple(torch.randn((n, n), generator=gen, device=dev)
+                      for _ in range(2)) for n in PAPER_N}
+    m, k, n = MATMUL_FULL
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    y = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    outs = {nn: ops.matmul(*paper[nn]) for nn in PAPER_N}
+    big = ops.matmul(x, y)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    require(launches == {**dict.fromkeys(launches, 0), "matmul": 4},
+            f"matmul phase launches {launches}, expected matmul 4")
+    errs, rel = {}, {}
+    for nn in PAPER_N:
+        want = ref.matmul_ref(*paper[nn])
+        errs[nn] = matmul_err(f"matmul f32 n={nn}", outs[nn], want, 1e-4)
+        rel[nn] = f"{errs[nn] / float(want.abs().max()):.3g}"
+    want = ref.matmul_ref(x, y)
+    err, peak = bf16_check("matmul", big, want)
+    require(big.shape == (m, n) and big.dtype == torch.bfloat16
+            and bool(torch.isfinite(big).all()), "matmul: wrong output")
+    log(f"matmul: n = 45/90/181 f32 err / max|want| {rel} (within 1e-4); "
+        f"[{m},{k}]x[{k},{n}] bf16 err {err:.3g} (max|want| {peak:.3g}); "
+        f"launches {launches['matmul']}")
+    del want, outs
+    rows = []
+    ms = time_ms(lambda: matmul(x, y), n=5, reps=3)
+    plain = time_ms(lambda: ref.matmul_ref(x, y), n=5, reps=3)
+    lib = time_ms(lambda: torch.matmul(x, y), n=5, reps=3)
+    b_ms, b_by = bound(2 * (m * k + k * n + m * n), 2.0 * m * n * k)
+    rows.append(dict(name="matmul", shape=f"x [{m}, {k}] @ y [{k}, {n}] "
+                     "bf16 -> bf16", max_abs_err=err, max_abs_want=peak,
+                     ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lib, library="torch.matmul bf16",
+                     launches=launches["matmul"]))
+    x, y = paper[181]
+    ms = time_ms(lambda: matmul(x, y))
+    plain = time_ms(lambda: ref.matmul_ref(x, y))
+    lib = time_ms(lambda: torch.matmul(x, y))
+    b_ms, b_by = bound_f32(4 * 3 * 181 * 181, 2.0 * 181 ** 3)
+    rows.append(dict(name="matmul_f32", shape="x [181, 181] @ y [181, 181] "
+                     "f32 (the paper's 96-page problem)", max_abs_err=errs[181],
+                     max_abs_want=float(ref.matmul_ref(x, y).abs().max()),
+                     ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lib, library="torch.matmul f32 (TF32 off)",
+                     launches=launches["matmul"]))
+    return rows
+
+
+def vm_phases() -> list[dict]:
+    """The quickstart, the full-size gather and the paper's matmul."""
+    launches = quickstart_phase()
+    rows = gather_phase(launches)
+    rows += matmul_phase()
+    print_rows(rows)
+    return rows
+
+
 def print_rows(rows) -> None:
     for r in rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -1479,7 +1804,7 @@ def print_rows(rows) -> None:
             f"(max|want| {r['max_abs_want']:.3g}); "
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{lib} ({r['library']}), bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), {r['launches']} serve launches")
+            f"({r['bound_by']}), {r['launches']} launches on its path")
 
 
 def dense_phases() -> list[dict]:
@@ -1529,6 +1854,7 @@ def main() -> int:
         reduced_wkv_checks()
         reduced_engine_check()
         reduced_rwkv_check()
+        reduced_vm_checks()
         if quick:
             log("quick: stopping after the reduced checks")
             return 0
@@ -1538,13 +1864,15 @@ def main() -> int:
         log(f"freed qwen2-7b: {torch.cuda.memory_allocated() / 1e9:.1f} GB "
             "allocated")
         rows += rwkv_phases()
+        rows += vm_phases()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     kernels = []
     for r in rows:
-        source, replaces = KERNELS[
-            r["name"].removesuffix("_int8").removesuffix("_decode")]
+        source, replaces = KERNELS[r["name"].removesuffix("_int8")
+                                   .removesuffix("_decode")
+                                   .removesuffix("_f32")]
         kernels.append(dict(
             name=r["name"], route="cuda", source=source, replaces=replaces,
             launches=r["launches"], max_abs_err=r["max_abs_err"],

@@ -2,6 +2,7 @@
 
 Layers:
   vmem            page tables, frame allocator, translation, traces
+  tlb             tree-PLRU TLB + shared-MMU trace simulator (numpy)
   faults          precise page faults, vstart resume protocol
   context_switch  preemption spill/restore of KV pages
   counters        perf counters + snapshot FIFO
@@ -16,6 +17,15 @@ from repro_torch.core.context_switch import (
 from repro_torch.core.costmodel import CostModel
 from repro_torch.core.counters import PerfCounters
 from repro_torch.core.faults import OutOfPagesError, PageFault, ResumeCursor
+from repro_torch.core.tlb import (
+    SCALAR,
+    VECTOR,
+    AccessEvent,
+    OverheadReport,
+    SharedMMUSimulator,
+    TLB,
+    interleave,
+)
 from repro_torch.core.vmem import (
     INVALID_PAGE,
     PagePool,
@@ -29,21 +39,28 @@ from repro_torch.core.vmem import (
 )
 
 __all__ = [
+    "AccessEvent",
     "ContextSwitcher",
     "CostModel",
     "INVALID_PAGE",
     "OutOfPagesError",
+    "OverheadReport",
     "PageFault",
     "PagePool",
     "PerfCounters",
     "ResumeCursor",
+    "SCALAR",
     "SeqState",
+    "SharedMMUSimulator",
     "SpilledState",
     "SwitchStats",
+    "TLB",
+    "VECTOR",
     "VMemConfig",
     "VirtualMemory",
     "burst_trace",
     "element_trace",
     "gather_pages",
+    "interleave",
     "logical_to_physical",
 ]

@@ -1,4 +1,4 @@
-"""Dispatch for the serve-path kernels.
+"""Dispatch for the port's kernels.
 
 Every function here routes by where its tensors lie: a CPU tensor goes to
 the plain PyTorch version (:mod:`repro_torch.kernels.ref`), a CUDA tensor
@@ -11,11 +11,14 @@ path refuses what the kernel would refuse.
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (
     check_flash_attention,
     flash_attention as _flash_kernel,
 )
+from repro_torch.kernels.matmul import check_matmul, matmul as _matmul_kernel
 from repro_torch.kernels.paged_attention import (
     check_paged_decode_attention,
     paged_decode_attention as _paged_attn_kernel,
@@ -25,6 +28,10 @@ from repro_torch.kernels.paged_copy import (
     check_paged_copy_at,
     paged_copy as _paged_copy_kernel,
     paged_copy_at as _paged_copy_at_kernel,
+)
+from repro_torch.kernels.paged_gather import (
+    check_paged_gather,
+    paged_gather as _paged_gather_kernel,
 )
 from repro_torch.kernels.paged_prefill_attention import (
     check_paged_prefill_attention,
@@ -46,6 +53,8 @@ KERNELS = {
     "paged_prefill_attention": _paged_prefill_kernel,
     "wkv6": _wkv6_kernel,
     "wkv6_chunked": _wkv6_chunked_kernel,
+    "paged_gather": _paged_gather_kernel,
+    "matmul": _matmul_kernel,
 }
 
 
@@ -66,6 +75,15 @@ def _plain(t, use_kernel: bool) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"no kernel for device {t.device}")
     return False
+
+
+def matmul(x, y, *, out_dtype=None, use_kernel: bool = True):
+    """``x @ y`` with an f32 accumulator, as ``out_dtype`` (default x's
+    dtype), for any ``[M, K] @ [K, N]``."""
+    if _plain(x, use_kernel):
+        check_matmul(x, y, out_dtype)
+        return ref.matmul_ref(x, y, out_dtype)
+    return _matmul_kernel(x, y, out_dtype=out_dtype)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -115,6 +133,34 @@ def paged_copy_at(src, pool, page_table, starts, lens, *, page_size: int,
                                      page_size=page_size)
     return _paged_copy_at_kernel(src, pool, page_table, starts, lens,
                                  page_size=page_size)
+
+
+def paged_gather(pool, page_table_row, positions, *, page_size: int,
+                 use_kernel: bool = True):
+    """Indexed gather, one translation per element (the paper's C2 cost):
+    ``pool`` rows at logical ``positions``, ``[N, W]``."""
+    if _plain(pool, use_kernel):
+        check_paged_gather(pool, page_table_row, positions, page_size)
+        return ref.paged_gather_ref(pool, page_table_row, positions,
+                                    page_size=page_size)
+    return _paged_gather_kernel(pool, page_table_row, positions,
+                                page_size=page_size)
+
+
+def paged_gather_coalesced(pool, page_table_row, positions, *,
+                           page_size: int):
+    """Beyond-paper: sort-coalesced indexed gather (per-PAGE translation).
+
+    Sorting the positions turns runs within a page into single bursts, so
+    the translation count drops from N to the pages touched, at the cost
+    of a sort and an unpermute.  The same function as :func:`paged_gather`;
+    as in the JAX package it is plain tensor code on every device (JAX
+    computes it with XLA ops, no Pallas kernel)."""
+    check_paged_gather(pool, page_table_row, positions, page_size)
+    order = torch.argsort(positions, stable=True)
+    gathered = ref.paged_gather_ref(pool, page_table_row, positions[order],
+                                    page_size=page_size)
+    return gathered[torch.argsort(order)]
 
 
 def kernel_route(t, use_kernel: bool = True) -> bool:

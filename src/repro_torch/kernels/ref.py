@@ -14,6 +14,13 @@ import torch
 _NEG_INF = -1e30
 
 
+def matmul_ref(x: torch.Tensor, y: torch.Tensor,
+               out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x @ y`` with f32 products and sums, cast to ``out_dtype`` (default
+    x's dtype).  bf16 inputs widen to f32 exactly."""
+    return (x.float() @ y.float()).to(out_dtype or x.dtype)
+
+
 def flash_attention_ref(
     q: torch.Tensor,      # [B, Hq, Sq, D]
     k: torch.Tensor,      # [B, Hkv, Sk, D]
@@ -129,6 +136,26 @@ def paged_copy_at_ref(
     rows = entry.long() * page_size + pos % page_size
     pool.view(-1, w)[rows[valid]] = src[valid].to(pool.dtype)
     return pool
+
+
+def paged_gather_ref(
+    pool: torch.Tensor,            # [P, page, W]
+    page_table_row: torch.Tensor,  # [max_pages] int32 — one sequence
+    positions: torch.Tensor,       # [N] int32, any order, repeats allowed
+    *,
+    page_size: int,
+) -> torch.Tensor:
+    """Rows of ``pool`` at logical ``positions``, ``[N, W]``, one translation
+    per element.  As the JAX oracle (whose jnp indexing clamps): a position
+    past the table's reach reads the table's last entry and a ``-1`` entry
+    reads frame 0.  Positions are non-negative; an entry ``>= P`` (a
+    corrupt table) reads the last frame, so nothing outside the pool is
+    read."""
+    max_pages = page_table_row.shape[0]
+    pos = positions.long()
+    vpn = (pos // page_size).clamp(0, max_pages - 1)
+    frames = page_table_row.long()[vpn].clamp(0, pool.shape[0] - 1)
+    return pool[frames, pos % page_size]
 
 
 def paged_prefill_attention_ref(

@@ -217,3 +217,75 @@ def test_wkv6_state_handoff_and_in_place_state(gen, chunked):
     want_o, want_s = ref.wkv6_ref(r, k, v, w, u)
     torch.testing.assert_close(o, want_o, atol=1e-3, rtol=1e-3)
     torch.testing.assert_close(s, want_s, atol=1e-3, rtol=1e-3)
+
+
+def gather_operands(gen, dtype, w, page, n, *, frames=40, max_pages=8):
+    """A pool, one table row with a -1 entry, ``n`` positions in random
+    order with a repeat and (for n > 4) two past the table's reach."""
+    shape = (frames, page, w)
+    if dtype == torch.int8:
+        pool = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int32).to(dtype)
+    else:
+        pool = torch.randn(shape, generator=gen, device="cuda").mul(50).to(dtype)
+    row = torch.randperm(frames, generator=gen, device="cuda")[
+        :max_pages].int()
+    row[1] = -1
+    pos = torch.randint(0, max_pages * page, (n,), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    pos[-1] = pos[0]
+    if n > 4:
+        pos[:2] = torch.tensor([max_pages * page + 3, max_pages * page * 5],
+                               dtype=torch.int32, device="cuda")
+    return pool, row, pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("w", [4, 14, 512])
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("n", [1, 300])
+def test_paged_gather_bit_identical(gen, dtype, w, page, n):
+    pool, row, pos = gather_operands(gen, dtype, w, page, n)
+    ops.reset_launch_counts()
+    got = ops.paged_gather(pool, row, pos, page_size=page)
+    assert ops.launch_counts()["paged_gather"] == 1
+    want = ref.paged_gather_ref(pool, row, pos, page_size=page)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(ops.paged_gather_coalesced(pool, row, pos,
+                                                  page_size=page), want)
+
+
+def test_paged_gather_strided_frames(gen):
+    """A pool whose frames are not adjacent (every other frame of a larger
+    pool) and an odd row width take the narrow copy units."""
+    pool, row, pos = gather_operands(gen, torch.bfloat16, 7, 8, 257,
+                                     frames=80)
+    view = pool[::2]
+    row = row.clamp(max=39)
+    got = ops.paged_gather(view, row, pos, page_size=8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.paged_gather_ref(view, row, pos, page_size=8))
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (128, 128, 128), (256, 384, 128), (128, 512, 256),
+    (100, 70, 50), (1, 128, 128), (8, 1024, 8),
+    (45, 45, 45), (90, 90, 90), (181, 181, 181),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_matmul(gen, m, k, n, dtype, out_dtype):
+    """f32 sums in another order: within 1e-4 of the largest output; a bf16
+    output within four bf16 steps of it."""
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    y = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+    ops.reset_launch_counts()
+    got = ops.matmul(x, y, out_dtype=out_dtype)
+    assert ops.launch_counts()["matmul"] == 1
+    want = ref.matmul_ref(x, y, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    peak = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= (1e-4 if out_dtype == torch.float32 else 4 * 2**-8) * peak

@@ -99,6 +99,15 @@ def test_serve_launcher_without_device_raises(no_cuda, monkeypatch):
         serve.main()
 
 
+def test_quickstart_without_device_raises(no_cuda, monkeypatch):
+    from repro_torch.launch import quickstart
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.main()
+    monkeypatch.setattr(sys, "argv", ["quickstart"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart._cli()
+
+
 def test_chip_smoke_fails_without_a_card(no_cuda, capsys):
     sys.path.insert(0, str(ROOT))
     try:

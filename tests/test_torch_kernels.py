@@ -238,7 +238,8 @@ def test_cpu_dispatch_launches_no_kernel():
                                    "paged_decode_attention": 0,
                                    "paged_copy_at": 0,
                                    "paged_prefill_attention": 0,
-                                   "wkv6": 0, "wkv6_chunked": 0}
+                                   "wkv6": 0, "wkv6_chunked": 0,
+                                   "paged_gather": 0, "matmul": 0}
 
 
 def test_jax_side_runs_on_cpu():
