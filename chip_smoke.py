@@ -11,7 +11,8 @@ printing its lines; any failure exits non-zero before the last line:
 1. probe: the card's name and power limit (``nvidia-smi``), torch/CUDA
    versions, the TF32 switches (both set off: the f32 checks are f32);
 2. build: every CUDA kernel of the serve path from ``src/repro_torch/
-   kernels/csrc`` (one nvcc per source, in parallel), with its time;
+   kernels/csrc`` (one nvcc per source, in parallel), with its time and
+   each kernel function's ptxas registers and spills;
 3. reduced check: each kernel against its plain PyTorch version on the
    card at the reduced qwen2-7b shapes in f32 (D=14, G=2), with ragged
    lengths, -1 table entries, an empty sequence, a window, unaligned and
@@ -29,7 +30,8 @@ printing its lines; any failure exits non-zero before the last line:
    generator) serves 8 requests (64-512-token prompts, 32 new tokens,
    page 16, horizon 8) cold, in a pool tight enough to preempt; launch
    counts are zeroed just before and read just after, and every kernel of
-   the cold path must have launched; then a short int8-pool run, and a
+   the cold path must have launched, every ``flash_attention`` launch on
+   its tensor-core (``wgmma``) route; then a short int8-pool run, and a
    short workload that must give the same greedy tokens at horizon 8 and 1;
 5. continuation serve: the default policy (radix prefix cache, partial
    restore) at full width — a radix run (8 prompts sharing 0, 128 or 256
@@ -45,7 +47,8 @@ printing its lines; any failure exits non-zero before the last line:
    call that computes the same function (a yardstick the port never
    calls), from CUDA events around 50 back-to-back calls with a cold L2,
    beside the least time the card could take (bytes / 3.35 TB/s or
-   operations / 989 TFLOP/s bf16);
+   operations / 989 TFLOP/s bf16); ``flash_attention`` is also timed at
+   a 4,096-token qwen2-7b prefill (q [1, 28, 4096, 128]) beside SDPA;
 7. RWKV-6 serve: the qwen2-7b weights are freed, rwkv6-7b at full width
    (32 layers, d_model 4096, 64 heads of 64, bf16, random weights, depth
    not cut) prefills 8 prompts of 512 tokens and decodes 32 greedy tokens,
@@ -77,8 +80,9 @@ printing its lines; any failure exits non-zero before the last line:
 10. the paper's matmul: n = 45, 90, 181 in f32 and qwen2-7b's gate
    projection for a 2,048-token prefill (bf16 [2048, 3584] @ [3584,
    18944] -> bf16) through ``ops.matmul`` with the launch counts zeroed
-   before and read after, each against its plain version, then the
-   largest and the n = 181 product timed beside ``torch.matmul``;
+   before and read after (the f32 products on the CUDA-core route, the
+   gate projection on ``wgmma``), each against its plain version, then
+   the largest and the n = 181 product timed beside ``torch.matmul``;
 11. the kernel JSON line, then the device JSON line, last.
 """
 
@@ -216,6 +220,33 @@ def bf16_check(tag, got, want) -> tuple[float, float]:
     return err, peak
 
 
+def bf16_rows_check(tag, got, want) -> tuple[float, float]:
+    """``(max|got - want|, max|want|)`` of attention outputs ``[..., S, D]``;
+    fails where a row's error passes four bf16 steps of that row's largest
+    output, ``4 * 2**-8 * max_d |want[..., s, d]|``.  A row that averages
+    thousands of keys is ~100x smaller than one that sees a few, so a
+    tolerance on the largest output of all would pass a dropped key tile
+    or a wrong rescale on the long rows."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    row_peak = want.float().abs().amax(-1)
+    excess = diff - 4 * 2**-8 * row_peak
+    worst = int(excess.argmax())
+    if float(excess.flatten()[worst]) > 0:
+        idx = tuple(int(i) for i in unravel(worst, excess.shape))
+        raise SmokeFailure(
+            f"{tag}: row {idx} err {float(diff[idx])} > 4 * 2^-8 * its "
+            f"max|want| ({float(row_peak[idx])})")
+    return float(diff.max()), float(row_peak.max())
+
+
+def unravel(flat: int, shape) -> list[int]:
+    out = []
+    for n in reversed(shape):
+        out.append(flat % n)
+        flat //= n
+    return out[::-1]
+
+
 class Recorder:
     """Wraps an ``ops`` function; keeps a clone of the inputs of the call
     with the most work, so the kernel checks and timings run at the shapes
@@ -270,9 +301,26 @@ def build() -> None:
     log(f"build: {len(B.SOURCES)} kernels in {time.perf_counter() - t0:.1f}s "
         f"into {B.build_dir()}")
     for name, text in B.build_logs.items():
+        fn = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif any(w in line for w in ("registers", "spill", "arning",
+                                         "Performance")):
+                log(f"  ptxas {name} {short_name(fn)}: {line.strip()}")
+
+
+def short_name(mangled: str) -> str:
+    """A kernel's demangled name without its namespaces' prefix and
+    parameter list, e.g. ``tc::matmul_wgmma_kernel<__nv_bfloat16>``
+    (``c++filt``; the mangled name where it is missing)."""
+    try:
+        out = subprocess.run(["c++filt", mangled], capture_output=True,
+                             text=True, timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return mangled
+    name = (out or mangled).replace("(anonymous namespace)::", "")
+    return name.removeprefix("void ").split("(")[0]
 
 
 def paged_inputs(gen, dev, *, b, hkv, g, d, page, n_frames, max_pages, lens,
@@ -737,6 +785,11 @@ def serve_phase(cfg, model, params):
     c, st = eng.counters, eng.stats()["switch_stats"]
     for n in COLD_KERNELS:
         require(launches[n] > 0, f"{n} was never launched on the serve path")
+    routes = ops.route_counts()
+    log("serve routes: " + json.dumps(routes))
+    require(routes["flash_attention"] == {
+        "wgmma": launches["flash_attention"], "simt": 0},
+        f"flash_attention off the tensor-core route: {routes}")
     require(c.get("ref_path_dispatches") == 0, "plain-path dispatches")
     require(c.get("preemptions") > 0, "the pool never preempted")
     require(st["bytes_spilled"] == st["bytes_restored"] > 0,
@@ -991,7 +1044,7 @@ def full_checks(rec, rec_q, launches, launches_q) -> list[dict]:
     (q, k, v), kw = rec["flash_attention"].best
     got = flash_attention(q, k, v, causal=True)
     want = ref.flash_attention_ref(q, k, v, causal=True)
-    err, peak = bf16_check("flash_attention", got, want)
+    err, peak = bf16_rows_check("flash_attention", got, want)
     b, hq, s, d = q.shape
     flops = 4.0 * b * hq * d * s * (s + 1) / 2
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -1010,6 +1063,7 @@ def full_checks(rec, rec_q, launches, launches_q) -> list[dict]:
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                      library_ms=lib, library=lib_name,
                      launches=launches["flash_attention"]))
+    print_rows([flash_long_row()])
 
     # paged decode attention (bf16 pools, then int8 pools)
     for tag, r, counts in (("paged_decode_attention", rec, launches),
@@ -1041,6 +1095,48 @@ def full_checks(rec, rec_q, launches, launches_q) -> list[dict]:
                          launches=counts["paged_decode_attention"]))
     print_rows(rows)
     return rows
+
+
+#: a 4,096-token qwen2-7b prefill: the shape where the tensor cores, not
+#: launch latency, set flash_attention's time
+FLASH_LONG = (1, 4096, 28, 4, 128)
+
+
+def flash_long_row() -> dict:
+    """``flash_attention`` at :data:`FLASH_LONG` (the serve path's
+    transposed views, random bf16 from a seed) against its plain version
+    row by row, timed beside SDPA.  No path launches this shape, so the
+    row is printed but stays off the kernels line (``launches`` None)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    b, s, hq, hkv, d = FLASH_LONG
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+               .bfloat16().transpose(1, 2) for h in (hq, hkv, hkv))
+    ops.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=True)
+    require(ops.route_counts()["flash_attention"]["wgmma"] == 1,
+            "4096-token flash_attention off the tensor-core route")
+    err, peak = bf16_rows_check("flash_attention 4096", got,
+                                ref.flash_attention_ref(q, k, v,
+                                                        causal=True))
+    del got
+    flops = 4.0 * b * hq * d * s * (s + 1) / 2
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True), n=20, reps=3)
+    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True),
+                    n=5, reps=3)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), n=20, reps=3)
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(name="flash_attention_4096", shape=f"q {list(q.shape)} "
+                f"k {list(k.shape)} {q.dtype} (a 4,096-token prefill)",
+                max_abs_err=err, max_abs_want=peak, ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                library="F.scaled_dot_product_attention(is_causal, "
+                "enable_gqa)", launches=None)
 
 
 def continuation_checks(rec, rec_pq, counts) -> list[dict]:
@@ -1751,6 +1847,10 @@ def matmul_phase() -> list[dict]:
     launches = ops.launch_counts()
     require(launches == {**dict.fromkeys(launches, 0), "matmul": 4},
             f"matmul phase launches {launches}, expected matmul 4")
+    routes = ops.route_counts()["matmul"]
+    require(routes == {"wgmma": 1, "simt": 3},
+            f"matmul routes {routes}: the f32 products take the CUDA cores, "
+            "the gate projection wgmma")
     errs, rel = {}, {}
     for nn in PAPER_N:
         want = ref.matmul_ref(*paper[nn])
@@ -1762,7 +1862,7 @@ def matmul_phase() -> list[dict]:
             and bool(torch.isfinite(big).all()), "matmul: wrong output")
     log(f"matmul: n = 45/90/181 f32 err / max|want| {rel} (within 1e-4); "
         f"[{m},{k}]x[{k},{n}] bf16 err {err:.3g} (max|want| {peak:.3g}); "
-        f"launches {launches['matmul']}")
+        f"launches {launches['matmul']}, routes {routes}")
     del want, outs
     rows = []
     ms = time_ms(lambda: matmul(x, y), n=5, reps=3)
@@ -1794,7 +1894,54 @@ def vm_phases() -> list[dict]:
     rows = gather_phase(launches)
     rows += matmul_phase()
     print_rows(rows)
+    matmul_tile_times()
     return rows
+
+
+#: f32 products on each side of the CUDA-core tile choice, with and
+#: without 16-byte copies (K not a multiple of 4)
+TILE_SHAPES = ((181, 181, 181), (384, 384, 384), (384, 383, 384),
+               (1024, 1024, 1024), (1024, 1022, 1024), (1536, 1536, 1536),
+               (1536, 1534, 1536))
+
+
+def matmul_tile_times() -> None:
+    """The CUDA-core ``matmul`` in f32 at :data:`TILE_SHAPES`, launched at
+    every tile size (the C launcher called directly, so no launch counts)
+    beside ``torch.matmul`` f32: whether :func:`simt_config`'s choice is
+    the fastest tile.  Each forced tile is checked within 1e-4 of the
+    largest output before it is timed."""
+    import torch
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.matmul import SIMT_TILES, simt_config
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fn = B.launcher("matmul")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for m, k, n in TILE_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=dev)
+        y = torch.randn((k, n), generator=gen, device=dev)
+        out = torch.empty((m, n), device=dev)
+        chosen, vec = simt_config(x, y, sms)
+        want = ref.matmul_ref(x, y)
+
+        def forced(tile):
+            B.check(fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k,
+                       k, n, n, 0, 0, 0, tile, int(vec), stream), "matmul")
+        times = {}
+        for tile in SIMT_TILES:
+            forced(tile)
+            matmul_err(f"matmul f32 [{m},{k},{n}] tile {tile}", out, want,
+                       1e-4)
+            times[tile] = time_ms(lambda: forced(tile), n=20, reps=3)
+        lib = time_ms(lambda: torch.matmul(x, y), n=20, reps=3)
+        best = min(times, key=times.get)
+        log(f"matmul f32 tiles [{m},{k}]x[{k},{n}] vec {vec}: "
+            + ", ".join(f"{t}: {times[t]:.4f} ms" for t in SIMT_TILES)
+            + f"; chosen {chosen} ({times[chosen]:.4f} ms), fastest {best}; "
+            f"torch.matmul f32 {lib:.4f} ms")
 
 
 def print_rows(rows) -> None:
@@ -1804,7 +1951,9 @@ def print_rows(rows) -> None:
             f"(max|want| {r['max_abs_want']:.3g}); "
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{lib} ({r['library']}), bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), {r['launches']} launches on its path")
+            f"({r['bound_by']}), " + ("not a shape of any path"
+                                      if r["launches"] is None else
+                                      f"{r['launches']} launches on its path"))
 
 
 def dense_phases() -> list[dict]:

@@ -47,7 +47,7 @@ SIGNATURES = {
                        _LL, _LL, _LL, _I, _P]),
     "flash_attention": ("flash_attention", "flash_attention_launch",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-                         _P, _P]),
+                         _P, _I, _P]),
     "paged_attention": ("paged_attention", "paged_decode_attention_launch",
                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _LL, _I, _F, _F, _I, _I, _I, _I, _I, _P]),
@@ -62,7 +62,8 @@ SIGNATURES = {
                      [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
                       _P]),
     "matmul": ("matmul", "matmul_launch",
-               [_P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _I, _P]),
+               [_P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I, _I, _I,
+                _P]),
 }
 
 _lock = threading.Lock()
@@ -156,6 +157,13 @@ def launcher(name: str):
 
 
 def check(err: int, name: str) -> None:
-    """Raise when a launch returned a non-zero ``cudaError_t``."""
+    """Raise when a launch returned a non-zero ``cudaError_t``, or a
+    negative code from encoding a TMA tensor map (``csrc/hopper.cuh``)."""
+    if err == -1:
+        raise RuntimeError(f"{name}: the CUDA driver has no "
+                           "cuTensorMapEncodeTiled")
+    if err < 0:
+        raise RuntimeError(f"{name}: TMA tensor map encode failed with "
+                           f"CUresult {-1000 - err}")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")

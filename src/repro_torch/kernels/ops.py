@@ -59,12 +59,23 @@ KERNELS = {
 
 
 def reset_launch_counts() -> None:
+    """Zero every wrapper's ``launches`` and, where a kernel has two
+    routes, its per-route ``routes`` counts."""
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "routes"):
+            fn.routes = dict.fromkeys(fn.routes, 0)
 
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def route_counts() -> dict[str, dict[str, int]]:
+    """Launches per route of the kernels that have two (``matmul``:
+    ``matmul_route``; ``flash_attention``: ``flash_route``)."""
+    return {name: dict(fn.routes) for name, fn in KERNELS.items()
+            if hasattr(fn, "routes")}
 
 
 def _plain(t, use_kernel: bool) -> bool:

@@ -9,8 +9,9 @@ the machine with the card:
 
 Tolerances: f32 1e-5 (both sides accumulate in f32 in different orders);
 bf16 2e-2 (outputs round to bf16, one ulp is 2^-8 relative), and for the
-continuation attention four bf16 steps of the largest output
-(``4 * 2^-8 * max|want|``); the copies are bit-identical on the whole pool;
+continuation attention and the tensor-core routes four bf16 steps of the
+largest output (``4 * 2^-8 * max|want|``); the integer-valued layout
+probes of the tensor-core routes are exact; the copies are bit-identical on the whole pool;
 the WKV recurrences (f32) 1e-4 sequential and 3e-4 chunked, 1e-3 at a
 decay of 1e-6, as their CPU tests against the Pallas kernels.
 """
@@ -289,3 +290,202 @@ def test_matmul(gen, m, k, n, dtype, out_dtype):
     peak = float(want.float().abs().max())
     err = float((got.float() - want.float()).abs().max())
     assert err <= (1e-4 if out_dtype == torch.float32 else 4 * 2**-8) * peak
+
+
+def bf16_steps(got, want, steps=4):
+    """``max|got - want| <= steps * 2^-8 * max|want|``."""
+    err = float((got.float() - want.float()).abs().max())
+    peak = float(want.float().abs().max())
+    assert err <= steps * 2**-8 * peak, (err, peak)
+
+
+@pytest.mark.parametrize("m,k,n,route", [
+    (1, 4096, 4096, "wgmma"), (129, 200, 264, "wgmma"),
+    (2048, 3584, 18944, "wgmma"), (100, 70, 50, "simt")])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_matmul_bf16_routes(gen, m, k, n, route, out_dtype):
+    """bf16 operands reach the tensor-core route when TMA can address them
+    (ragged M, N and K at (129, 200, 264)), the CUDA-core route when N and
+    K are not multiples of 8; f32 output within 1e-4 of the largest
+    output, bf16 output within four bf16 steps."""
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    y = torch.randn((k, n), generator=gen, device="cuda").bfloat16()
+    ops.reset_launch_counts()
+    got = ops.matmul(x, y, out_dtype=out_dtype)
+    assert ops.route_counts()["matmul"] == {**{"wgmma": 0, "simt": 0},
+                                            route: 1}
+    want = ref.matmul_ref(x, y, out_dtype)
+    torch.cuda.synchronize()
+    if out_dtype == torch.float32:
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max())
+    else:
+        bf16_steps(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(200, 136, 520), (64, 64, 256),
+                                   (300, 1000, 72)])
+def test_matmul_wgmma_exact_layout_probe(gen, m, k, n):
+    """Small integers in bf16 make every product and sum exact, so a wrong
+    swizzle, descriptor offset or fragment map shows as a mismatch, not as
+    noise: the tensor-core route must equal the f32 product exactly."""
+    x = torch.randint(-8, 9, (m, k), generator=gen, device="cuda").bfloat16()
+    y = torch.randint(-8, 9, (k, n), generator=gen, device="cuda").bfloat16()
+    ops.reset_launch_counts()
+    got = ops.matmul(x, y, out_dtype=torch.float32)
+    assert ops.route_counts()["matmul"]["wgmma"] == 1
+    assert torch.equal(got, x.float() @ y.float())
+
+
+def test_matmul_simt_f32_tiles(gen):
+    """f32 takes the CUDA-core route at every tile size (n = 45 and 181
+    get small tiles, 1536 the largest), within 1e-4 of the largest output,
+    and a misaligned view takes it too."""
+    for n in (45, 181, 1536):
+        x = torch.randn((n, n), generator=gen, device="cuda")
+        y = torch.randn((n, n), generator=gen, device="cuda")
+        ops.reset_launch_counts()
+        got = ops.matmul(x, y)
+        assert ops.route_counts()["matmul"] == {"wgmma": 0, "simt": 1}
+        want = ref.matmul_ref(x, y)
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+    base = torch.randn(64 * 72 + 1, generator=gen, device="cuda").bfloat16()
+    x = base[1:].view(64, 72)
+    y = torch.randn((72, 128), generator=gen, device="cuda").bfloat16()
+    ops.reset_launch_counts()
+    got = ops.matmul(x, y, out_dtype=torch.float32)
+    assert ops.route_counts()["matmul"]["simt"] == 1
+    want = ref.matmul_ref(x, y, torch.float32)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+#: (m, k, n, dtype, tile, vec) reaching every instantiation of the
+#: CUDA-core kernel on a 132-SM H100 (as ``test_torch_routes.SIMT_CASES``)
+SIMT_CASES = [
+    (128, 128, 128, torch.float32, 16, True),
+    (181, 181, 181, torch.float32, 16, False),
+    (384, 384, 384, torch.float32, 32, True),
+    (384, 383, 384, torch.float32, 32, False),
+    (1024, 1024, 1024, torch.float32, 64, True),
+    (1024, 1022, 1024, torch.float32, 64, False),
+    (1536, 1536, 1536, torch.float32, 128, True),
+    (1536, 1534, 1536, torch.float32, 128, False),
+    (100, 70, 50, torch.bfloat16, 16, False),
+    (384, 383, 384, torch.bfloat16, 32, False),
+    (1000, 1002, 1002, torch.bfloat16, 64, False),
+    (1536, 1534, 1536, torch.bfloat16, 128, False),
+]
+
+
+@pytest.mark.parametrize("m,k,n,dtype,tile,vec", SIMT_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_matmul_simt_tiles(gen, m, k, n, dtype, tile, vec, out_dtype):
+    """Each tile size of the CUDA-core route, with and without 16-byte
+    copies, for both operand and output types, on this card's SM count:
+    f32 output within 1e-4 of the largest output, bf16 output within four
+    bf16 steps."""
+    from repro_torch.kernels.matmul import simt_config
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    y = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if sms != 132:
+        pytest.skip(f"the cases pick tiles for 132 SMs, this card has {sms}")
+    assert simt_config(x, y, sms) == (tile, vec)
+    ops.reset_launch_counts()
+    got = ops.matmul(x, y, out_dtype=out_dtype)
+    assert ops.route_counts()["matmul"] == {"wgmma": 0, "simt": 1}
+    want = ref.matmul_ref(x, y, out_dtype)
+    torch.cuda.synchronize()
+    if out_dtype == torch.float32:
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max())
+    else:
+        bf16_steps(got, want)
+
+
+def serve_views(gen, b, sq, sk, hq, hkv, d):
+    """bf16 q/k/v as the serve path passes them: ``[B, S, H, D]`` memory
+    seen as ``[B, H, S, D]``."""
+    def t(s, h):
+        return torch.randn((b, s, h, d), generator=gen,
+                           device="cuda").bfloat16().transpose(1, 2)
+    return t(sq, hq), t(sk, hkv), t(sk, hkv)
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 368, 1000])
+@pytest.mark.parametrize("hq,hkv", [(28, 4), (4, 4)])
+def test_flash_attention_wgmma(gen, s, hq, hkv):
+    """The serve path's views take the tensor-core route at every length
+    around the 64- and 128-row tiles and on ragged tails, within four bf16
+    steps of the plain version."""
+    q, k, v = serve_views(gen, 2, s, s, hq, hkv, 128)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v)
+    assert ops.route_counts()["flash_attention"] == {"wgmma": 1, "simt": 0}
+    bf16_steps(got, ref.flash_attention_ref(q, k, v))
+
+
+@pytest.mark.parametrize("sq,sk,d,causal", [
+    (100, 300, 128, True), (130, 130, 64, True), (77, 200, 80, False)])
+def test_flash_attention_wgmma_shapes(gen, sq, sk, d, causal):
+    """Sq < Sk (the diagonal anchored at the end), D = 64 and a D of 80
+    padded to 128 by the zero fill, contiguous ``[B, H, S, D]`` views and
+    a non-causal call."""
+    q = torch.randn((2, 8, sq, d), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((2, 2, sk, d), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((2, 2, sk, d), generator=gen, device="cuda").bfloat16()
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.route_counts()["flash_attention"]["wgmma"] == 1
+    bf16_steps(got, ref.flash_attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("sq,sk", [(200, 200), (65, 300)])
+def test_flash_attention_wgmma_exact_layout_probe(gen, sq, sk):
+    """Every query row picks one visible key: q and k are pairs of one-hot
+    entries of 64 (``j % 64`` and ``64 + j // 64``), so the chosen key
+    scores 256 and every other at most 128; with scale 1 the others'
+    weights (e^-128) underflow to zero in f32 and the output is that key's
+    value row, exactly, for integer-valued v.  A wrong Q/K layout picks the
+    wrong key, a wrong P or V layout moves the values."""
+    b, hq, hkv, d, big = 2, 8, 2, 128, 128.0
+    g = hq // hkv
+    offset = sk - sq
+    j = torch.randint(0, 1 << 30, (b, hq, sq), generator=gen, device="cuda")
+    rows = torch.arange(sq, device="cuda")
+    j = j % (rows + offset + 1)                       # a visible key per row
+    q = torch.zeros((b, sq, hq, d), device="cuda")
+    bi, hi, ri = torch.meshgrid(torch.arange(b, device="cuda"),
+                                torch.arange(hq, device="cuda"), rows,
+                                indexing="ij")
+    q[bi, ri, hi, j % 64] = big
+    q[bi, ri, hi, 64 + j // 64] = big
+    keys = torch.arange(sk, device="cuda")
+    k = torch.zeros((b, sk, hkv, d), device="cuda")
+    k[:, keys, :, keys % 64] = 1.0
+    k[:, keys, :, 64 + keys // 64] = 1.0
+    v = torch.randint(-100, 101, (b, sk, hkv, d), generator=gen,
+                      device="cuda").float()
+    qt, kt, vt = (t.bfloat16().transpose(1, 2) for t in (q, k, v))
+    ops.reset_launch_counts()
+    got = ops.flash_attention(qt, kt, vt, scale=1.0)
+    assert ops.route_counts()["flash_attention"]["wgmma"] == 1
+    want = vt[bi, hi // g, j]                        # [B, Hq, Sq, D]
+    assert torch.equal(ref.flash_attention_ref(qt, kt, vt, scale=1.0), want)
+    assert torch.equal(got, want)
+
+
+def test_flash_attention_misaligned_view_takes_simt(gen):
+    """A bf16 view whose base is not 16-byte aligned takes the CUDA-core
+    route, within four bf16 steps."""
+    b, s, h, d = 1, 70, 4, 128
+    base = torch.randn(b * s * h * d + 1, generator=gen,
+                       device="cuda").bfloat16()
+    q = base[1:].view(b, s, h, d).transpose(1, 2)
+    k = torch.randn((b, h, s, d), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((b, h, s, d), generator=gen, device="cuda").bfloat16()
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v)
+    assert ops.route_counts()["flash_attention"] == {"wgmma": 0, "simt": 1}
+    bf16_steps(got, ref.flash_attention_ref(q, k, v))
