@@ -388,6 +388,7 @@ def reduced_checks() -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     tol = 1e-5
+    ops.reset_launch_counts()
     # paged_copy: partial tail page, unmapped trailing bursts, int8 and f32
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         b, s, w, page, frames, maxp = 3, 20, 28, 4, 24, 6
@@ -473,6 +474,12 @@ def reduced_checks() -> None:
                             f"err {err}")
     log(f"check reduced: paged_prefill_attention f32/int8, unaligned and "
         f"aligned starts, 1-token chunk, padded rows within {tol}")
+    routes = ops.route_counts()
+    require(routes["paged_decode_attention"] == {"mma": 0, "simt": 4}
+            and routes["paged_prefill_attention"] == {"wgmma": 0, "simt": 2},
+            f"reduced f32 paged attention off the CUDA-core routes: {routes}")
+    log("check reduced: f32 paged attention on the CUDA-core routes: "
+        + json.dumps({k: routes[k] for k in PAGED_TC}))
     ops.reset_launch_counts()
 
 
@@ -690,6 +697,21 @@ SHORT = dict(n=4, lo=64, hi=256, max_new=16, seed=1)
 COLD_KERNELS = ("paged_copy", "flash_attention", "paged_decode_attention")
 #: the continuation kernels (radix hits, forks, partial restores)
 CONT_KERNELS = ("paged_copy_at", "paged_prefill_attention")
+#: the paged attention kernels and their tensor-core routes
+PAGED_TC = {"paged_decode_attention": "mma",
+            "paged_prefill_attention": "wgmma"}
+
+
+def require_tensor_core_routes(tag, launches) -> dict:
+    """Every launch of both paged attention kernels in a full-width run is
+    on its tensor-core route; returns the route counts."""
+    from repro_torch.kernels import ops
+    routes = ops.route_counts()
+    for name, tc in PAGED_TC.items():
+        require(routes[name] == {**dict.fromkeys(routes[name], 0),
+                                 tc: launches[name]},
+                f"{tag}: {name} off its tensor-core route: {routes[name]}")
+    return routes
 
 #: the continuation phase: the default policy (radix prefix cache on,
 #: partial restore after 6 blocked restore passes), page 16, horizon 8, 4
@@ -790,6 +812,7 @@ def serve_phase(cfg, model, params):
     require(routes["flash_attention"] == {
         "wgmma": launches["flash_attention"], "simt": 0},
         f"flash_attention off the tensor-core route: {routes}")
+    require_tensor_core_routes("serve", launches)
     require(c.get("ref_path_dispatches") == 0, "plain-path dispatches")
     require(c.get("preemptions") > 0, "the pool never preempted")
     require(st["bytes_spilled"] == st["bytes_restored"] > 0,
@@ -810,6 +833,8 @@ def serve_phase(cfg, model, params):
     launches_q = ops.launch_counts()
     report("serve int8", eng, res, dt)
     log("serve int8 launches: " + json.dumps(launches_q))
+    log("serve int8 routes: " + json.dumps(
+        require_tensor_core_routes("serve int8", launches_q)))
     require(all(r.status == "done" for r in res.values()),
             "int8 run did not finish")
     require(launches_q["paged_decode_attention"] > 0,
@@ -855,16 +880,27 @@ def continuation_phase(cfg, model, params) -> dict[str, dict[str, int]]:
     flip a near-tie under random weights."""
     import numpy as np
     from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_prefill_attention import query_block
 
     counts = {}
     for tag, scfg, prefix, reqs in continuation_runs(cfg):
         ops.reset_launch_counts()
-        eng, res, dt = run_engine(model, params, scfg, reqs, prefix)
+        with GatherTap() as tap:
+            eng, res, dt = run_engine(model, params, scfg, reqs, prefix)
         launches = ops.launch_counts()
         counts[tag] = launches
         report(tag, eng, res, dt, CONT_KEYS)
         log(f"{tag} launches: " + json.dumps(launches))
+        log(f"{tag} routes: " + json.dumps(
+            require_tensor_core_routes(tag, launches)))
         c = eng.counters
+        require(tap.counted == c.get("prefill_bytes_gathered"),
+                f"{tag}: the gather tap missed a continuation call")
+        log(f"{tag}: prefill_bytes_gathered on the card {tap.counted} with "
+            f"the tensor-core route's block (bq "
+            f"{query_block(cfg.q_per_kv, 'wgmma')}); {tap.simt} with the "
+            f"CUDA-core block (bq {query_block(cfg.q_per_kv, 'simt')}) that "
+            "counted it through PR 15")
         require(all(r.status == "done" for r in res.values()),
                 f"{tag}: a request did not finish")
         require(all(len(r.tokens) == reqs[0].max_new_tokens
@@ -903,6 +939,36 @@ def continuation_phase(cfg, model, params) -> dict[str, dict[str, int]]:
             "not required)")
         del eng
     return counts
+
+
+class GatherTap:
+    """Within ``with``: the executor's continuation gather count is also
+    taken with the CUDA-core route's query block (its own method, the
+    route rule forced to ``"simt"``), summed in ``simt`` beside the
+    counted total in ``counted``."""
+
+    def __enter__(self):
+        import repro_torch.serve.executor as X
+        self.mod, self.orig = X, X.Executor._continuation_gather_bytes
+        self.counted = self.simt = 0
+        tap = self
+
+        def counted(ex, *args):
+            got = tap.orig(ex, *args)
+            rule = X.prefill_route_rule
+            X.prefill_route_rule = lambda *a: "simt"
+            try:
+                tap.simt += tap.orig(ex, *args)
+            finally:
+                X.prefill_route_rule = rule
+            tap.counted += got
+            return got
+
+        X.Executor._continuation_gather_bytes = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.Executor._continuation_gather_bytes = self.orig
 
 
 class ChunkTap:
@@ -1007,7 +1073,7 @@ def full_checks(rec, rec_q, launches, launches_q) -> list[dict]:
     step; a dropped page or head moves outputs by far more."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.paged_copy import paged_copy
@@ -1072,23 +1138,32 @@ def full_checks(rec, rec_q, launches, launches_q) -> list[dict]:
                                    if r is not None else rec_q.best)
         kw = dict(kw)
         kw.pop("use_kernel", None)
+        ops.reset_launch_counts()
         got = paged_decode_attention(q, kp, vp, pt, sl, **kw)
+        require(ops.route_counts()["paged_decode_attention"]["mma"] == 1,
+                f"{tag}: the recorded call is off the tensor-core route")
         want = ref.paged_decode_attention_ref(q, kp, vp, pt, sl, **kw)
-        err, peak = bf16_check(tag, got, want)
+        err, peak = bf16_rows_check(tag, got, want)
         bsz, hkv, g, d = q.shape
         n_tok = int(sl[:bsz].sum())
         flops = 4.0 * g * d * hkv * n_tok
         n_pages = int(((sl[:bsz] + kw["page_size"] - 1)
                        // kw["page_size"]).sum())
-        nbytes = (2 * n_tok * hkv * d * kp.element_size()
+        kv_tok = 2 * hkv * d * kp.element_size()       # one token, K + V
+        nbytes = (n_tok * kv_tok
                   + 2 * q.numel() * q.element_size() + bsz * 4 + n_pages * 4)
+        # the tensor-core route copies the rows [lo, len) of each sequence
+        # and nothing past len; lo = 0 without a window
+        fetched = n_tok * kv_tok
         ms = time_ms(lambda: paged_decode_attention(q, kp, vp, pt, sl, **kw))
         plain = time_ms(lambda: ref.paged_decode_attention_ref(
             q, kp, vp, pt, sl, **kw))
         b_ms, b_by = bound(nbytes, flops)
         rows.append(dict(name=tag, shape=f"q {list(q.shape)} {q.dtype}, "
                          f"pool {list(kp.shape)} {kp.dtype}, {n_tok} cached "
-                         f"tokens", max_abs_err=err, max_abs_want=peak,
+                         f"tokens; kernel fetches {fetched} B of K/V, the "
+                         f"bound counts {n_tok * kv_tok} B",
+                         max_abs_err=err, max_abs_want=peak,
                          ms=ms, plain_ms=plain,
                          bound_ms=b_ms, bound_by=b_by, library_ms=None,
                          library=None,
@@ -1147,11 +1222,12 @@ def continuation_checks(rec, rec_pq, counts) -> list[dict]:
     query, once (the kernel fetches a page once per query block; it prints
     those bytes too)."""
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.paged_copy import paged_copy_at
     from repro_torch.kernels.paged_prefill_attention import (
         paged_prefill_attention,
         pages_touched,
+        prefill_route,
         query_block,
     )
     rows = []
@@ -1203,22 +1279,27 @@ def continuation_checks(rec, rec_pq, counts) -> list[dict]:
         b, s, hkv, g, d = q.shape
         chunks = r.extra[:b].tolist()
         st = starts[:b].tolist()
+        ops.reset_launch_counts()
         got = paged_prefill_attention(q, kp, vp, pt, starts, **kw)
+        require(ops.route_counts()["paged_prefill_attention"]["wgmma"] == 1,
+                f"{tag}: the recorded call is off the tensor-core route")
         want = ref.paged_prefill_attention_ref(q, kp, vp, pt, starts, **kw)
-        real = torch.cat([(got[i, :c] - want[i, :c]).flatten()
-                          for i, c in enumerate(chunks)])
-        peak = max(float(want[i, :c].float().abs().max())
-                   for i, c in enumerate(chunks) if c)
-        err = float(real.float().abs().max())
-        require(err <= 4 * 2**-8 * peak,
-                f"{tag} err {err} > 4 * 2^-8 * max|want| ({peak}) at serve "
-                "shapes")
+        # each real row (token, head) within four bf16 steps of its own
+        # largest output
+        checked = [bf16_rows_check(f"{tag} row {i}", got[i, :c], want[i, :c])
+                   for i, c in enumerate(chunks) if c]
+        err = max(e for e, _ in checked)
+        peak = max(p for _, p in checked)
         max_pages = pt.shape[1]
         kv_row = page * hkv * d * 2 * kp.element_size()   # one page, K + V
         needed = sum(min(-(-(x + c) // page), max_pages)
                      for x, c in zip(st, chunks))
+        route = prefill_route(q, kp, vp, page)
         fetched = sum(pages_touched(x, s, max_pages, page_size=page,
-                                    bq=query_block(g)) for x in st)
+                                    bq=query_block(g, route)) for x in st)
+        fetched_simt = sum(pages_touched(x, s, max_pages, page_size=page,
+                                         bq=query_block(g, "simt"))
+                           for x in st)
         # q read and o written for the real chunk rows (padded rows are
         # don't-care), each reached K/V page once, the starts and entries
         nbytes = (2 * sum(chunks) * hkv * g * d * q.element_size()
@@ -1232,8 +1313,11 @@ def continuation_checks(rec, rec_pq, counts) -> list[dict]:
         rows.append(dict(name=tag, shape=f"q {list(q.shape)} {q.dtype}, "
                          f"pool {list(kp.shape)} {kp.dtype}, starts {st}, "
                          f"chunks {chunks}; kernel fetches "
-                         f"{fetched * kv_row} B of K/V, the bound counts "
-                         f"{needed * kv_row} B", max_abs_err=err,
+                         f"{fetched * kv_row} B of K/V (bq "
+                         f"{query_block(g, route)}; {fetched_simt * kv_row} B "
+                         f"at the CUDA-core bq {query_block(g, 'simt')}), "
+                         f"the bound counts {needed * kv_row} B",
+                         max_abs_err=err,
                          max_abs_want=peak, ms=ms, plain_ms=plain,
                          bound_ms=b_ms, bound_by=b_by, library_ms=None,
                          library=None, launches=n_launch))

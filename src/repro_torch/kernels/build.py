@@ -50,11 +50,11 @@ SIGNATURES = {
                          _P, _I, _P]),
     "paged_attention": ("paged_attention", "paged_decode_attention_launch",
                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _LL, _I, _F, _F, _I, _I, _I, _I, _I, _P]),
+                         _I, _LL, _I, _F, _F, _I, _I, _I, _I, _I, _I, _P]),
     "paged_prefill_attention": (
         "paged_prefill_attention", "paged_prefill_attention_launch",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _LL,
-         _F, _F, _I, _I, _P]),
+         _F, _F, _I, _I, _I, _I, _P]),
     "wkv6": ("wkv6", "wkv6_launch", [_P] * 8 + [_I, _I, _I, _P]),
     "wkv6_chunked": ("wkv6_chunked", "wkv6_chunked_launch",
                      [_P] * 8 + [_I, _I, _I, _P]),

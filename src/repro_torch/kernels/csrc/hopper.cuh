@@ -1,6 +1,7 @@
 // Hopper building blocks of the tensor-core kernels (matmul.cu,
-// flash_attention.cu): TMA tensor maps encoded on the host, mbarriers, the
-// TMA tile load, wgmma shared-memory descriptors and instructions, and
+// flash_attention.cu, paged_prefill_attention.cu): TMA tensor maps encoded
+// on the host, mbarriers, the TMA tile load, proxy fences and named
+// barriers, wgmma shared-memory descriptors and instructions, and
 // setmaxnreg.  Every tile lives in shared memory in the 128-byte swizzle
 // that TMA writes (CU_TENSOR_MAP_SWIZZLE_128B) and wgmma reads (layout type
 // 1): rows of 128 bytes, 8-row atoms of 1024 bytes, each atom 1024-aligned.
@@ -41,13 +42,13 @@ static inline EncodeTiledFn encode_tiled_fn()
 constexpr int TMA_NO_DRIVER = -1;
 constexpr int TMA_ENCODE_BASE = -1000;
 
-// A bf16 tensor map of rank `rank` with 128-byte swizzle and zero fill
-// out of bounds.  dims and box innermost first (dims[0] has unit stride);
-// strides[i] is the element stride of dims[i + 1].
-static inline int make_bf16_map(CUtensorMap* map, const void* ptr, int rank,
-                                const long long* dims,
-                                const long long* strides,
-                                const int* box)
+// A tensor map of rank `rank` over elements of `elem_bytes` bytes, zero
+// fill out of bounds.  dims and box innermost first (dims[0] has unit
+// stride); strides[i] is the element stride of dims[i + 1].
+static inline int make_map(CUtensorMap* map, CUtensorMapDataType dtype,
+                           int elem_bytes, const void* ptr, int rank,
+                           const long long* dims, const long long* strides,
+                           const int* box, CUtensorMapSwizzle swizzle)
 {
     EncodeTiledFn fn = encode_tiled_fn();
     if (!fn) return TMA_NO_DRIVER;
@@ -58,15 +59,24 @@ static inline int make_bf16_map(CUtensorMap* map, const void* ptr, int rank,
         bdim[i] = (cuuint32_t)box[i];
         estride[i] = 1;
     }
-    for (int i = 0; i + 1 < rank; ++i) gstride[i] = (cuuint64_t)strides[i] * 2;
-    const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                          (cuuint32_t)rank, const_cast<void*>(ptr), gdim,
-                          gstride, bdim, estride,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B,
+    for (int i = 0; i + 1 < rank; ++i)
+        gstride[i] = (cuuint64_t)strides[i] * elem_bytes;
+    const CUresult r = fn(map, dtype, (cuuint32_t)rank,
+                          const_cast<void*>(ptr), gdim, gstride, bdim,
+                          estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? 0 : TMA_ENCODE_BASE - (int)r;
+}
+
+// A bf16 tensor map with the 128-byte swizzle that wgmma reads.
+static inline int make_bf16_map(CUtensorMap* map, const void* ptr, int rank,
+                                const long long* dims,
+                                const long long* strides,
+                                const int* box)
+{
+    return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rank,
+                    dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ---------------------------------------------------------------------------
@@ -134,6 +144,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
         : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2)
+{
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3)
@@ -144,6 +166,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
         :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
            "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
         : "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory writes before later
+// async-proxy accesses (TMA writes, wgmma reads) of the same bytes.
+__device__ __forceinline__ void fence_proxy_async()
+{
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `count` threads, whole warps.
+__device__ __forceinline__ void named_bar_sync(int id, int count)
+{
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
 // ---------------------------------------------------------------------------

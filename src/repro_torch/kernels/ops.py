@@ -73,7 +73,9 @@ def launch_counts() -> dict[str, int]:
 
 def route_counts() -> dict[str, dict[str, int]]:
     """Launches per route of the kernels that have two (``matmul``:
-    ``matmul_route``; ``flash_attention``: ``flash_route``)."""
+    ``matmul_route``; ``flash_attention``: ``flash_route``;
+    ``paged_decode_attention``: ``decode_route``;
+    ``paged_prefill_attention``: ``prefill_route``)."""
     return {name: dict(fn.routes) for name, fn in KERNELS.items()
             if hasattr(fn, "routes")}
 

@@ -4,12 +4,23 @@ One decode step: each sequence's query token attends to its KV cache in
 physical pages of the shared pool.  The CUDA kernels
 (``csrc/paged_attention.cu``) split each sequence's page range over blocks
 ``(KV head, sequence, split)``, each serving all ``G`` query heads of the
-group, and merge the splits' partial softmax states in a second pass.  A
-block reads each page-table entry itself before the page's burst (one
-translation per burst), clamps -1 to frame 0, masks positions outside
+group.  A block reads each page-table entry itself before the page's burst
+(one translation per burst), clamps -1 to frame 0, masks positions outside
 ``[max(len - window, 0), len)``; an empty sequence gives zeros.  int8
 pools (``kv_scale``) are a compile-time variant that dequantizes each page
-after its load.
+after its load.  :func:`decode_route` picks one of two kernels before the
+launch:
+
+* ``"mma"``: bf16 q with bf16 or int8 pools, D a multiple of 16 up to
+  128, pages of a multiple of 8, G <= 16, 16-byte-aligned bases — the
+  serve path's operands — on the tensor cores (``mma.sync`` with the G
+  heads as rows, 16-key slices through per-warp ``cp.async`` rings, each
+  split sized by its own sequence's pages, one launch: the splits of a
+  (sequence, KV head) are one thread block cluster of at most
+  :data:`MMA_SPLITS_MAX` blocks and merge through distributed shared
+  memory, with no scratch);
+* ``"simt"``: f32, other shapes and misaligned views, on the CUDA cores
+  (splits of the table's width, f32 staging, a second merge launch).
 
 Replaces the TPU kernel ``paged_decode_attention`` of
 ``src/repro/kernels/paged_attention.py``.
@@ -30,6 +41,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 D_MAX = 128
 G_MAX = 16
 PAGE_MAX = 64
+ROUTES = ("mma", "simt")
+#: the ``mma`` route's splits of one (sequence, KV head) form a cluster,
+#: whose portable size is at most 8 blocks
+MMA_SPLITS_MAX = 8
 
 
 #: tokens a block stages in shared memory at once (whole pages)
@@ -45,12 +60,36 @@ def split_plan(b: int, hkv: int, max_pages: int, page_size: int,
                sms: int) -> tuple[int, int, int]:
     """``(pages_per_split, n_split, tile_pages)``: enough splits that the
     ``b * hkv * n_split`` blocks cover every SM about twice, no split
-    shorter than one page, and tiles of whole pages up to 64 tokens."""
+    shorter than one page, and tiles of whole pages up to 64 tokens.  The
+    ``simt`` route cuts the table's width into ``n_split`` ranges of
+    ``pages_per_split``; the ``mma`` route takes ``min(n_split,
+    MMA_SPLITS_MAX)`` and cuts each sequence's own reached pages evenly.
+    A pure host function, so a captured launch keeps its grid."""
     n_split = max(1, min(max_pages, -(-2 * sms // max(b * hkv, 1))))
     pps = -(-max_pages // n_split)
     n_split = -(-max_pages // pps)
     tile_pages = max(1, min(pps, TILE_TOKENS // page_size))
     return pps, n_split, tile_pages
+
+
+def decode_route(q, k_pool, v_pool, page_size: int) -> str:
+    """Which kernel a call launches:
+
+      * ``"mma"``: bf16 q with bf16 or int8 pools, D a multiple of 16 up
+        to 128, ``page_size`` a multiple of 8, G <= 16, and 16-byte-aligned
+        bases of q and both pools;
+      * ``"simt"``: every other call (f32, D = 14, page 4, a misaligned
+        view).
+
+    A pure function of dtype, shape and alignment."""
+    g, d = q.shape[2], q.shape[3]
+    if (q.dtype != torch.bfloat16
+            or k_pool.dtype not in (torch.bfloat16, torch.int8)
+            or d % 16 or d > D_MAX or page_size % 8 or g > G_MAX):
+        return "simt"
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        return "simt"
+    return "mma"
 
 
 def check_paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens,
@@ -93,7 +132,8 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens, *,
                            page_size: int, scale: float | None = None,
                            window: int | None = None,
                            kv_scale: float | None = None):
-    """Launch the CUDA kernels (split pass, then merge); returns
+    """Launch the CUDA kernel of :func:`decode_route` (the ``mma`` route in
+    one launch, the ``simt`` route as a split pass and a merge); returns
     ``[B, Hkv, G, D]``.  CUDA tensors only."""
     check_paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens,
                                  page_size, kv_scale, window)
@@ -105,13 +145,18 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens, *,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    route = decode_route(q, k_pool, v_pool, page_size)
     max_pages = page_table.shape[1]
     pps, n_split, tile_pages = split_plan(
         b, hkv, max_pages, page_size, _sm_count(q.device.index or 0))
-    part_acc = torch.empty((b, hkv, n_split, g, d), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((b, hkv, n_split, g, 2), dtype=torch.float32,
-                          device=q.device)
+    if route == "mma":                  # a cluster per (b, h), no scratch
+        n_split = min(n_split, MMA_SPLITS_MAX)
+        part_acc = part_ml = out
+    else:
+        part_acc = torch.empty((b, hkv, n_split, g, d), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((b, hkv, n_split, g, 2), dtype=torch.float32,
+                              device=q.device)
     fn = build.launcher("paged_attention")
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
@@ -120,11 +165,13 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens, *,
              window if window is not None else 0, float(scale),
              float(kv_scale if kv_scale is not None else 1.0),
              pps, n_split, tile_pages, _DTYPES[q.dtype],
-             int(kv_scale is not None),
+             int(kv_scale is not None), int(route == "mma"),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
+    paged_decode_attention.routes[route] += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.routes = dict.fromkeys(ROUTES, 0)

@@ -1,8 +1,8 @@
 """Chunked-prefill paged attention — streaming KV pages per query block.
 
 Continuation prefill extends a sequence that already holds ``start`` tokens
-in the paged KV cache by a chunk of new tokens.  The CUDA kernel
-(``csrc/paged_prefill_attention.cu``) runs one block per ``(query block,
+in the paged KV cache by a chunk of new tokens.  The CUDA kernels
+(``csrc/paged_prefill_attention.cu``) run one block per ``(query block,
 KV head, row)``: a query block is ``bq`` whole chunk tokens times the
 ``G`` query heads of the group, and the block walks the KV pages it can
 causally reach — ``0 .. min(last_reachable_page, max_pages - 1)`` — reading
@@ -10,13 +10,22 @@ each page-table entry right before the page's burst, with an online
 softmax in f32.  Pages above the block's causal diagonal are neither
 loaded nor computed; -1 entries clamp to frame 0.  int8 pools
 (``kv_scale``) are a compile-time variant that dequantizes each page after
-its load.
+its load.  :func:`prefill_route` picks one of two kernels before the
+launch:
+
+* ``"wgmma"``: bf16 q with bf16 or int8 pools, D a multiple of 16 up to
+  128, pages of a multiple of 8 up to 64, G <= 16, and q rows and pools
+  that 16-byte loads and TMA can address — the serve path's operands — on
+  the tensor cores (128 query rows a block, pages as TMA boxes through an
+  mbarrier ring, ``S = Q K^T`` and ``O += P V`` on ``wgmma``);
+* ``"simt"``: f32, other shapes and misaligned views, on the CUDA cores
+  (64 query rows a block, f32 FMAs from shared memory).
 
 Replaces the TPU kernel ``paged_prefill_attention`` of
 ``src/repro/kernels/paged_prefill_attention.py``.  The TPU kernel takes
-``bq = 32`` query tokens per block; this one takes :func:`query_block`
-(``64 // G``: 9 at qwen2-7b's G = 7), and :func:`pages_touched` counts
-what it fetches with that block size.
+``bq = 32`` query tokens per block; these take :func:`query_block` of
+their route (``128 // G`` or ``64 // G``: 18 or 9 at qwen2-7b's G = 7),
+and :func:`pages_touched` counts what a route fetches with its block size.
 
 Layouts: q ``[B, S, Hkv, G, D]`` (any strides, unit stride along D);
 pools ``[P, page, Hkv, D]`` in ``q.dtype`` or int8; page_table
@@ -35,13 +44,47 @@ from repro_torch.kernels import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 D_MAX = 128
 PAGE_MAX = 64
-#: query rows (tokens x group heads) a block holds
-ROWS = 64
+G_MAX_WGMMA = 16
+ROUTES = ("wgmma", "simt")
+#: query rows (tokens x group heads) a block holds, by route
+ROWS = {"wgmma": 128, "simt": 64}
 
 
-def query_block(group: int) -> int:
-    """Query tokens per kernel block for a GQA group of ``group`` heads."""
-    return max(1, ROWS // group)
+def prefill_route_rule(q_dtype, pool_dtype, group: int, head_dim: int,
+                       page_size: int) -> str:
+    """The route by dtype and shape alone (for aligned operands):
+    ``"wgmma"`` for bf16 q with bf16 or int8 pools, ``head_dim`` a
+    multiple of 16 up to 128, ``page_size`` a multiple of 8 up to 64 and
+    ``group <= 16``; ``"simt"`` otherwise.  The executor counts the bytes
+    the card fetches with it."""
+    if (q_dtype != torch.bfloat16 or pool_dtype not in (torch.bfloat16,
+                                                         torch.int8)
+            or head_dim % 16 or head_dim > D_MAX or page_size % 8
+            or page_size > PAGE_MAX or group > G_MAX_WGMMA):
+        return "simt"
+    return "wgmma"
+
+
+def prefill_route(q, k_pool, v_pool, page_size: int) -> str:
+    """Which kernel a call launches: :func:`prefill_route_rule`, and
+    ``"simt"`` where q's base or its batch, token, head or group stride
+    is not a multiple of 16 bytes (q is read with 16-byte loads), or a
+    pool's base is not 16-byte aligned (TMA).  A pure function of dtype,
+    shape, strides and alignment."""
+    b, s, hkv, g, d = q.shape
+    rule = prefill_route_rule(q.dtype, k_pool.dtype, g, d, page_size)
+    if rule == "wgmma":
+        if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+            return "simt"
+        if any(q.stride(i) % 8 for i in range(4)):
+            return "simt"
+    return rule
+
+
+def query_block(group: int, route: str) -> int:
+    """Query tokens per block of ``route``'s kernel for a GQA group of
+    ``group`` heads."""
+    return max(1, ROWS[route] // group)
 
 
 def last_reachable_page(start, qb, *, page_size: int, bq: int):
@@ -76,8 +119,8 @@ def check_paged_prefill_attention(q, k_pool, v_pool, page_table, starts,
     if k_pool.shape[1] != page_size or k_pool.shape[2:] != (hkv, d):
         raise ValueError(f"pool {tuple(k_pool.shape)} does not match q "
                          f"{tuple(q.shape)} at page_size={page_size}")
-    if d > D_MAX or g > ROWS or page_size > PAGE_MAX:
-        raise ValueError(f"kernel takes D <= {D_MAX}, G <= {ROWS}, "
+    if d > D_MAX or g > ROWS["simt"] or page_size > PAGE_MAX:
+        raise ValueError(f"kernel takes D <= {D_MAX}, G <= {ROWS['simt']}, "
                          f"page <= {PAGE_MAX}; got {d}, {g}, {page_size}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be one of {tuple(_DTYPES)}, got {q.dtype}")
@@ -103,8 +146,8 @@ def check_paged_prefill_attention(q, k_pool, v_pool, page_table, starts,
 def paged_prefill_attention(q, k_pool, v_pool, page_table, starts, *,
                             page_size: int, scale: float | None = None,
                             kv_scale: float | None = None):
-    """Launch the CUDA kernel; returns ``[B, S, Hkv, G, D]``.  CUDA tensors
-    only."""
+    """Launch the CUDA kernel of :func:`prefill_route`; returns
+    ``[B, S, Hkv, G, D]``.  CUDA tensors only."""
     check_paged_prefill_attention(q, k_pool, v_pool, page_table, starts,
                                   page_size, kv_scale)
     if q.device.type != "cuda":
@@ -115,7 +158,8 @@ def paged_prefill_attention(q, k_pool, v_pool, page_table, starts, *,
     out = torch.empty((b, s, hkv, g, d), dtype=q.dtype, device=q.device)
     if b == 0 or s == 0:
         return out
-    bq = max(1, min(query_block(g), s))
+    route = prefill_route(q, k_pool, v_pool, page_size)
+    bq = max(1, min(query_block(g, route), s))
     strides = (ctypes.c_longlong * 4)(*(q.stride(i) for i in range(4)))
     fn = build.launcher("paged_prefill_attention")
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -123,11 +167,14 @@ def paged_prefill_attention(q, k_pool, v_pool, page_table, starts, *,
              ctypes.cast(strides, ctypes.c_void_p), b, s, hkv, g, d,
              page_size, page_table.shape[1], bq, page_table.stride(0),
              float(scale), float(kv_scale if kv_scale is not None else 1.0),
-             _DTYPES[q.dtype], int(kv_scale is not None),
+             _DTYPES[q.dtype], int(kv_scale is not None), k_pool.shape[0],
+             int(route == "wgmma"),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_prefill_attention")
     paged_prefill_attention.launches += 1
+    paged_prefill_attention.routes[route] += 1
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.routes = dict.fromkeys(ROUTES, 0)

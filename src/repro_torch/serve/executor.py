@@ -51,6 +51,7 @@ from repro_torch.core import (
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_prefill_attention import (
     pages_touched,
+    prefill_route_rule,
     query_block,
 )
 from repro_torch.models.transformer import PagedKVState, TransformerLM, sample
@@ -213,14 +214,18 @@ class Executor:
     def _continuation_gather_bytes(self, start_lens, smax: int,
                                    nrows: int) -> int:
         """K+V bytes the continuation attention reads per layer stack, by
-        the route that ran: the kernel fetches ``pages_touched`` pages per
-        row (its own query block), the plain version gathers every row's
-        full table reach."""
+        the route that ran: a kernel fetches ``pages_touched`` pages per
+        row with its route's query block (the serve path's views are
+        aligned, so the route follows from dtypes and shapes), the plain
+        version gathers every row's full table reach."""
         cfg = self.model.cfg
         per_tok = (2 * cfg.num_kv_heads * cfg.head_dim
                    * self.kv.k_pools.element_size())
         if ops.kernel_route(self.kv.k_pools, self._step_model.use_kernels):
-            bq = query_block(cfg.q_per_kv)
+            route = prefill_route_rule(
+                self._step_model.dtype, self.kv.k_pools.dtype,
+                cfg.q_per_kv, cfg.head_dim, self.cfg.page_size)
+            bq = query_block(cfg.q_per_kv, route)
             pages = sum(pages_touched(st, smax, self.cfg.max_pages_per_seq,
                                       page_size=self.cfg.page_size, bq=bq)
                         for st in start_lens)

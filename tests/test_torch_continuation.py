@@ -223,11 +223,14 @@ class TestPagedPrefillAttention:
         check_attention(case, 4, pallas=pallas, kv_scale=KV_SCALE)
 
     def test_pages_touched_matches_jax(self):
+        """The port's page count equals JAX's at the TPU kernel's bq = 32
+        and at every query block the port's routes take (9 and 18 at
+        qwen2-7b's G = 7, 16 and 32 at G = 4 and 8)."""
         for start in (0, 3, 16, 37):
             for chunk in (0, 1, 9, 32, 100):
                 for max_pages in (2, 8, 40):
                     for page in (4, 16):
-                        for bq in (1, 9, 32):
+                        for bq in (1, 9, 16, 18, 32, 128):
                             kw = dict(page_size=page, bq=bq)
                             assert ppa.pages_touched(
                                 start, chunk, max_pages, **kw) == \
@@ -237,7 +240,11 @@ class TestPagedPrefillAttention:
                                 assert ppa.last_reachable_page(
                                     start, qb, **kw) == \
                                     jppa.last_reachable_page(start, qb, **kw)
-        assert ppa.query_block(7) == 9 and ppa.query_block(2) == 32
+        assert ppa.query_block(7, "simt") == 9
+        assert ppa.query_block(2, "simt") == 32
+        assert ppa.query_block(7, "wgmma") == 18
+        assert ppa.query_block(2, "wgmma") == 64
+        assert ppa.query_block(16, "wgmma") == 8
 
     def test_checks(self):
         q, kp, vp, table, starts, _ = attn_case(4, [2], [5], seed=1)

@@ -489,3 +489,334 @@ def test_flash_attention_misaligned_view_takes_simt(gen):
     got = ops.flash_attention(q, k, v)
     assert ops.route_counts()["flash_attention"] == {"wgmma": 0, "simt": 1}
     bf16_steps(got, ref.flash_attention_ref(q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core routes of the paged attention kernels
+# ---------------------------------------------------------------------------
+
+
+def rows_within(got, want, steps=4):
+    """Every output row ``[..., D]`` within ``steps`` bf16 steps of that
+    row's largest value (a row that averages many keys is far smaller than
+    one that sees a few)."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    peak = want.float().abs().amax(-1)
+    bad = diff > steps * 2**-8 * peak
+    assert not bool(bad.any()), (float(diff.max()), int(bad.sum()))
+
+
+def pools(gen, frames, page, hkv, d, quant):
+    shape = (frames, page, hkv, d)
+    if quant:
+        return tuple(torch.randint(-127, 128, shape, generator=gen,
+                                   device="cuda", dtype=torch.int32)
+                     .to(torch.int8) for _ in range(2))
+    return tuple(torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                 for _ in range(2))
+
+
+def mapped_table(gen, b, maxp, frames, n_pages):
+    """Distinct shuffled frames for each row's first ``n_pages[i]`` pages,
+    -1 beyond."""
+    perm = torch.randperm(frames, generator=gen, device="cuda").int()
+    table = torch.full((b, maxp), -1, dtype=torch.int32, device="cuda")
+    for i, n in enumerate(n_pages):
+        table[i, :n] = perm[i * maxp: i * maxp + n]
+    return table
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("page", [8, 16, 32, 64])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 7, 8, 16])
+def test_paged_decode_attention_mma(gen, quant, page, d, g):
+    """The tensor-core route at every G up to 16, D 64 and 128, pages of
+    8-64, bf16 and int8 pools: ragged lengths, an empty sequence, a
+    1-token sequence, a full table, -1 entries past each sequence's pages,
+    with and without a window; each output row within four bf16 steps of
+    its largest value."""
+    b, hkv, maxp = 5, 2, 12
+    frames = b * maxp
+    lens = [page * 5 + 3, 0, 1, page * maxp, 2 * page]
+    q = torch.randn((b, hkv, g, d), generator=gen, device="cuda").bfloat16()
+    kp, vp = pools(gen, frames, page, hkv, d, quant)
+    table = mapped_table(gen, b, maxp, frames, [-(-n // page) for n in lens])
+    sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kvs = 1 / 24 if quant else None
+    for window in (None, page + 2):
+        ops.reset_launch_counts()
+        got = ops.paged_decode_attention(q, kp, vp, table, sl, page_size=page,
+                                         window=window, kv_scale=kvs)
+        assert ops.route_counts()["paged_decode_attention"] == {
+            "mma": 1, "simt": 0}
+        want = ref.paged_decode_attention_ref(q, kp, vp, table, sl,
+                                              page_size=page, window=window,
+                                              kv_scale=kvs)
+        torch.cuda.synchronize()
+        rows_within(got, want)
+        assert float(got[1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_decode_attention_mma_d80_and_repeats(gen, quant):
+    """D = 80 (a multiple of 16, on the tensor-core route) at the serve
+    batch, and 20 calls in a row at lengths that move every split's page
+    range, including empty sequences."""
+    b, hkv, g, d, page, maxp = 4, 4, 7, 80, 16, 36
+    frames = b * maxp
+    q = torch.randn((b, hkv, g, d), generator=gen, device="cuda").bfloat16()
+    kp, vp = pools(gen, frames, page, hkv, d, quant)
+    kvs = 1 / 24 if quant else None
+    for step in range(20):
+        lens = [(37 * step + 11 * i) % (page * maxp) for i in range(b)]
+        table = mapped_table(gen, b, maxp, frames,
+                             [-(-n // page) for n in lens])
+        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        ops.reset_launch_counts()
+        got = ops.paged_decode_attention(q, kp, vp, table, sl, page_size=page,
+                                         kv_scale=kvs)
+        assert ops.route_counts()["paged_decode_attention"]["mma"] == 1
+        rows_within(got, ref.paged_decode_attention_ref(
+            q, kp, vp, table, sl, page_size=page, kv_scale=kvs))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("page", [8, 16, 32, 64])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 7, 8, 16])
+def test_paged_prefill_attention_wgmma(gen, quant, page, d, g):
+    """The tensor-core route at every G up to 16, D 64 and 128, pages of
+    8-64, bf16 and int8 pools: a mid-page start with a chunk longer than
+    the block (``128 // G`` tokens; S = 150), a page-aligned start with a
+    1-token chunk, a zero start, and a row whose chunk runs past the
+    table; -1 entries past each row's pages (inside the causal reach of
+    its padded rows); q the strided view of the projection."""
+    b, hkv, maxp = 4, 2, 8
+    frames = b * maxp
+    s = 150
+    starts_l = [page + 3, 2 * page, 0, maxp * page - 20]
+    chunks = [s, 1, 37, 60]
+    q = torch.randn((b, s, hkv * g * d), generator=gen,
+                    device="cuda").bfloat16().view(b, s, hkv, g, d)
+    kp, vp = pools(gen, frames, page, hkv, d, quant)
+    table = mapped_table(gen, b, maxp, frames, [
+        min(-(-(st + c) // page), maxp) for st, c in zip(starts_l, chunks)])
+    starts = torch.tensor(starts_l, dtype=torch.int32, device="cuda")
+    kvs = 1 / 24 if quant else None
+    ops.reset_launch_counts()
+    got = ops.paged_prefill_attention(q, kp, vp, table, starts,
+                                      page_size=page, kv_scale=kvs)
+    assert ops.route_counts()["paged_prefill_attention"] == {
+        "wgmma": 1, "simt": 0}
+    want = ref.paged_prefill_attention_ref(q, kp, vp, table, starts,
+                                           page_size=page, kv_scale=kvs)
+    torch.cuda.synchronize()
+    for i, c in enumerate(chunks):
+        rows_within(got[i, :c], want[i, :c])
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_prefill_attention_wgmma_serve_shape_d80(gen, quant):
+    """The radix serve shape (G = 7, 18 tokens a block, 240-token chunks
+    at start 200) and D = 80 (zero-filled past D by TMA) on the
+    tensor-core route."""
+    for d in (128, 80):
+        b, s, hkv, g, page, maxp = 3, 240, 4, 7, 16, 36
+        frames = 64
+        starts_l, chunks = [200, 200, 200], [238, 108, 118]
+        q = torch.randn((b, s, hkv * g * d), generator=gen,
+                        device="cuda").bfloat16().view(b, s, hkv, g, d)
+        kp, vp = pools(gen, frames, page, hkv, d, quant)
+        perm = torch.randperm(frames, generator=gen, device="cuda").int()
+        table = perm[: maxp].repeat(b, 1).contiguous()   # a shared prefix
+        starts = torch.tensor(starts_l, dtype=torch.int32, device="cuda")
+        kvs = 1 / 24 if quant else None
+        ops.reset_launch_counts()
+        got = ops.paged_prefill_attention(q, kp, vp, table, starts,
+                                          page_size=page, kv_scale=kvs)
+        assert ops.route_counts()["paged_prefill_attention"]["wgmma"] == 1
+        want = ref.paged_prefill_attention_ref(q, kp, vp, table, starts,
+                                               page_size=page, kv_scale=kvs)
+        for i, c in enumerate(chunks):
+            rows_within(got[i, :c], want[i, :c])
+
+
+def test_paged_attention_simt_routes_still_launch(gen):
+    """f32 operands and a misaligned bf16 view launch the CUDA-core
+    kernels of both paged attention wrappers, within their tolerances."""
+    b, hkv, g, maxp = 2, 2, 2, 6
+    frames = b * maxp
+    for dtype in (torch.float32, torch.bfloat16):
+        # f32 at the reduced shape; bf16 at a shape the tensor cores take,
+        # but with q one element off a 16-byte boundary
+        dd, page = (14, 4) if dtype == torch.float32 else (128, 16)
+        base = torch.randn(b * hkv * g * dd + 1, generator=gen,
+                           device="cuda").to(dtype)
+        q = base[:-1].view(b, hkv, g, dd) if dtype == torch.float32 \
+            else base[1:].view(b, hkv, g, dd)
+        kp = torch.randn((frames, page, hkv, dd), generator=gen,
+                         device="cuda").to(dtype)
+        vp = torch.randn((frames, page, hkv, dd), generator=gen,
+                         device="cuda").to(dtype)
+        lens = [13, 22]
+        table = mapped_table(gen, b, maxp, frames, [-(-n // page)
+                                                    for n in lens])
+        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        ops.reset_launch_counts()
+        got = ops.paged_decode_attention(q, kp, vp, table, sl, page_size=page)
+        assert ops.route_counts()["paged_decode_attention"] == {
+            "mma": 0, "simt": 1}
+        want = ref.paged_decode_attention_ref(q, kp, vp, table, sl,
+                                              page_size=page)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        else:
+            rows_within(got, want)
+        s = 9
+        qbase = torch.randn(b * s * hkv * g * dd + 8, generator=gen,
+                            device="cuda").to(dtype)
+        qp = qbase[1: 1 + b * s * hkv * g * dd].view(b, s, hkv, g, dd)
+        starts = torch.tensor([3, 10], dtype=torch.int32, device="cuda")
+        ops.reset_launch_counts()
+        got = ops.paged_prefill_attention(qp, kp, vp, table, starts,
+                                          page_size=page)
+        assert ops.route_counts()["paged_prefill_attention"] == {
+            "wgmma": 0, "simt": 1}
+        want = ref.paged_prefill_attention_ref(qp, kp, vp, table, starts,
+                                               page_size=page)
+        chunks = [9, 9]
+        for i, c in enumerate(chunks):
+            if dtype == torch.float32:
+                torch.testing.assert_close(got[i, :c], want[i, :c],
+                                           atol=1e-5, rtol=1e-5)
+            else:
+                rows_within(got[i, :c], want[i, :c])
+
+
+def one_hot_keys(pos, big):
+    """``[N, 128]`` rows with ``big`` at ``pos % 64`` and ``64 + pos //
+    64``: two such rows score ``2 big^2`` when equal and at most ``big^2``
+    otherwise (positions < 4096)."""
+    x = torch.zeros((pos.numel(), 128), device="cuda")
+    idx = torch.arange(pos.numel(), device="cuda")
+    x[idx, pos % 64] = big
+    x[idx, 64 + pos // 64] = big
+    return x
+
+
+def probe_pools(gen, frames, page, hkv, maxp, b, quant):
+    """K rows one-hot by logical position (1.0 after dequantization: int8
+    24 at kv_scale 1/24), V integer-valued; the table maps logical page p
+    of row i to a frame from a shuffled order and moves page 1 of row 0
+    to the last frame."""
+    kvs = 1 / 24 if quant else None
+    perm = torch.randperm(frames, generator=gen, device="cuda").int()
+    table = perm[: b * maxp].view(b, maxp).contiguous()
+    last = frames - 1
+    where = (table == last).nonzero()
+    if where.numel():
+        table[where[0, 0], where[0, 1]] = table[0, 1]
+    table[0, 1] = last
+    kp = torch.zeros((frames, page, hkv, 128), device="cuda")
+    for i in range(b):
+        pos = torch.arange(maxp * page, device="cuda")
+        rows = one_hot_keys(pos, 1.0)
+        fr = table[i].long()[pos // page]
+        for h in range(hkv):
+            kp[fr, pos % page, h] = rows
+    vp = torch.randint(-100, 101, (frames, page, hkv, 128), generator=gen,
+                       device="cuda").float()
+    if quant:
+        return (kp * 24).to(torch.int8), vp.to(torch.int8), table, kvs
+    return kp.bfloat16(), vp.bfloat16(), table, kvs
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_decode_attention_mma_exact_layout_probe(gen, quant):
+    """Every query head picks one visible key: q is one-hot pairs of 128
+    at the chosen position, so with scale 1 the chosen key scores 256 and
+    every other at most 128; the others' weights (e^-128) vanish in f32
+    and the output is that key's value row, exactly.  Heads of a group
+    pick different keys (a wrong head row or key column picks the wrong
+    row, a wrong V fragment moves values); one head of row 0 picks a key
+    on logical page 1, which lives in the pool's last frame."""
+    b, hkv, g, page, maxp = 3, 2, 7, 16, 20
+    frames = b * maxp
+    kp, vp, table, kvs = probe_pools(gen, frames, page, hkv, maxp, b, quant)
+    lens = torch.tensor([300, 100, 17], dtype=torch.int32, device="cuda")
+    j = torch.randint(0, 1 << 30, (b, hkv, g), generator=gen, device="cuda")
+    j = j % lens.long()[:, None, None]
+    j[0, 0, 0] = page + 5                          # page 1 -> the last frame
+    assert int(table[0, 1]) == frames - 1
+    q = one_hot_keys(j.flatten(), 128.0).view(b, hkv, g, 128).bfloat16()
+    ops.reset_launch_counts()
+    got = ops.paged_decode_attention(q, kp, vp, table, lens, page_size=page,
+                                     scale=1.0, kv_scale=kvs)
+    assert ops.route_counts()["paged_decode_attention"]["mma"] == 1
+    want = ref.paged_decode_attention_ref(q, kp, vp, table, lens,
+                                          page_size=page, scale=1.0,
+                                          kv_scale=kvs)
+    bi = torch.arange(b, device="cuda")[:, None, None]
+    hi = torch.arange(hkv, device="cuda")[None, :, None]
+    fr = table.long()[bi, j // page]
+    v = vp[fr, j % page, hi]
+    v = (v.float() * kvs).bfloat16() if quant else v
+    assert torch.equal(want, v)
+    assert torch.equal(got, v)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_prefill_attention_wgmma_exact_layout_probe(gen, quant):
+    """As the decode probe, for the continuation chunk: every (token,
+    head) row picks one key it can causally see, at a mid-page start over
+    several 128-key tiles, with row 0's first token on the scrambled page
+    1; 18-token blocks at G = 7 put rows 126-127 of each block in
+    padding."""
+    b, s, hkv, g, page, maxp = 2, 40, 2, 7, 16, 20
+    frames = b * maxp
+    kp, vp, table, kvs = probe_pools(gen, frames, page, hkv, maxp, b, quant)
+    starts = torch.tensor([250, 21], dtype=torch.int32, device="cuda")
+    reach = starts.long()[:, None] + torch.arange(s, device="cuda") + 1
+    j = torch.randint(0, 1 << 30, (b, s, hkv, g), generator=gen,
+                      device="cuda") % reach[:, :, None, None]
+    j[0, 0, 0, 0] = page + 5
+    assert int(table[0, 1]) == frames - 1
+    q = one_hot_keys(j.flatten(), 128.0).view(b, s, hkv, g, 128).bfloat16()
+    ops.reset_launch_counts()
+    got = ops.paged_prefill_attention(q, kp, vp, table, starts,
+                                      page_size=page, scale=1.0, kv_scale=kvs)
+    assert ops.route_counts()["paged_prefill_attention"]["wgmma"] == 1
+    want = ref.paged_prefill_attention_ref(q, kp, vp, table, starts,
+                                           page_size=page, scale=1.0,
+                                           kv_scale=kvs)
+    bi = torch.arange(b, device="cuda")[:, None, None, None]
+    hi = torch.arange(hkv, device="cuda")[None, None, :, None]
+    fr = table.long()[bi, j // page]
+    v = vp[fr, j % page, hi]
+    v = (v.float() * kvs).bfloat16() if quant else v
+    assert torch.equal(want, v)
+    assert torch.equal(got, v)
+
+
+@pytest.mark.parametrize("b,hkv", [(40, 8), (33, 4), (12, 4), (4, 4), (1, 1)])
+def test_paged_decode_attention_mma_cluster_sizes(gen, b, hkv):
+    """Batches whose split plan gives clusters of 1, 2, 6 and 8 splits
+    (the plan's 12 and 36 capped at 8) on a 132-SM card, each sequence's
+    pages cut over its own cluster."""
+    from repro_torch.kernels.paged_attention import MMA_SPLITS_MAX, split_plan
+    g, d, page, maxp = 7, 128, 16, 36
+    frames = b * maxp
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_split = min(split_plan(b, hkv, maxp, page, sms)[1], MMA_SPLITS_MAX)
+    q = torch.randn((b, hkv, g, d), generator=gen, device="cuda").bfloat16()
+    kp, vp = pools(gen, frames, page, hkv, d, False)
+    lens = [(97 * i + 5) % (page * maxp) for i in range(b)]
+    table = mapped_table(gen, b, maxp, frames, [-(-n // page) for n in lens])
+    sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    ops.reset_launch_counts()
+    got = ops.paged_decode_attention(q, kp, vp, table, sl, page_size=page)
+    assert ops.route_counts()["paged_decode_attention"]["mma"] == 1
+    rows_within(got, ref.paged_decode_attention_ref(q, kp, vp, table, sl,
+                                                    page_size=page))
+    assert 1 <= n_split <= MMA_SPLITS_MAX

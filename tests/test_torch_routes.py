@@ -1,10 +1,11 @@
-"""The route rules of the two kernels that have a tensor-core and a
+"""The route rules of the four kernels that have a tensor-core and a
 CUDA-core kernel, on the CPU.
 
-``matmul_route`` and ``flash_route`` are pure functions of dtype, shape,
-strides and alignment, decided before the launch; here they are held to
-their rules on CPU tensors of the same layouts the card sees (the kernels
-themselves run in ``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
+``matmul_route``, ``flash_route``, ``decode_route`` and ``prefill_route``
+are pure functions of dtype, shape, strides and alignment, decided before
+the launch; here they are held to their rules on CPU tensors of the same
+layouts the card sees (the kernels themselves run in
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
 The wrappers' input checks still refuse what they refused, on both the
 plain route and the kernel wrapper, and a refused call moves no counter.
 """
@@ -21,6 +22,16 @@ from repro_torch.kernels.matmul import (
     matmul as matmul_kernel,
     matmul_route,
     simt_config,
+)
+from repro_torch.kernels.paged_attention import (
+    decode_route,
+    paged_decode_attention as decode_kernel,
+)
+from repro_torch.kernels.paged_prefill_attention import (
+    paged_prefill_attention as prefill_kernel,
+    prefill_route,
+    prefill_route_rule,
+    query_block,
 )
 
 pytestmark = pytest.mark.torch_port
@@ -251,7 +262,172 @@ def test_route_counts_reset_with_launch_counts():
     matmul_kernel.routes["wgmma"] += 3
     flash_kernel.routes["simt"] += 2
     assert ops.route_counts()["matmul"]["wgmma"] >= 3
+    decode_kernel.routes["mma"] += 1
+    prefill_kernel.routes["wgmma"] += 4
+    assert ops.route_counts()["paged_prefill_attention"]["wgmma"] >= 4
     ops.reset_launch_counts()
     assert ops.route_counts() == {
         "flash_attention": {"wgmma": 0, "simt": 0},
+        "paged_decode_attention": {"mma": 0, "simt": 0},
+        "paged_prefill_attention": {"wgmma": 0, "simt": 0},
         "matmul": {"wgmma": 0, "simt": 0}}
+
+
+# ---------------------------------------------------------------------------
+# decode_route and prefill_route (the paged attention kernels)
+# ---------------------------------------------------------------------------
+
+
+def decode_operands(b=4, hkv=4, g=7, d=128, page=16, frames=72,
+                    dtype=BF16, pool_dtype=None):
+    """Decode operands as ``models/transformer.py`` passes them: q
+    ``[B, Hkv, G, D]`` contiguous, one layer's pools ``[P, page, Hkv, D]``
+    (a view into the layer stack)."""
+    pool_dtype = pool_dtype or dtype
+    q = aligned((b, hkv, g, d), dtype)
+    pools = aligned((2, frames, page, hkv, d), pool_dtype)
+    return q, pools[1], pools[0]
+
+
+def prefill_q(b=3, s=240, hkv=4, g=7, d=128, dtype=BF16, width=None):
+    """The ``[B, S, Hkv, G, D]`` view of the ``[B, S, Hq * D]`` projection
+    (``width`` pads the row to another stride)."""
+    width = width or hkv * g * d
+    return aligned((b, s, width), dtype)[..., : hkv * g * d].view(
+        b, s, hkv, g, d)
+
+
+@pytest.mark.parametrize("pool_dtype", [BF16, torch.int8])
+@pytest.mark.parametrize("b,hkv,g,d,page", [
+    (4, 4, 7, 128, 16), (1, 4, 7, 128, 16), (2, 2, 1, 64, 8),
+    (2, 2, 16, 64, 64), (2, 2, 8, 128, 32), (2, 2, 4, 80, 16)])
+def test_decode_serve_operands_take_mma(pool_dtype, b, hkv, g, d, page):
+    """bf16 queries over bf16 or int8 pools at the serve shapes and every
+    G up to 16, pages of 8-64, D = 64, 80 (supported: a multiple of 16)
+    and 128."""
+    q, kp, vp = decode_operands(b, hkv, g, d, page, pool_dtype=pool_dtype)
+    assert decode_route(q, kp, vp, page) == "mma"
+
+
+@pytest.mark.parametrize("kw,why", [
+    (dict(dtype=torch.float32), "f32"),
+    (dict(d=14), "D = 14, the reduced configs'"),
+    (dict(d=72), "D not a multiple of 16"),
+    (dict(page=4), "page 4"),
+    (dict(page=12), "page not a multiple of 8"),
+    (dict(g=28, hkv=1), "G > 16"),
+])
+def test_decode_other_operands_take_simt(kw, why):
+    args = dict(b=2, hkv=2, g=7, d=128, page=16)
+    args.update(kw)
+    dtype = args.pop("dtype", BF16)
+    q, kp, vp = decode_operands(**args, dtype=dtype)
+    assert decode_route(q, kp, vp, args["page"]) == "simt", why
+
+
+def test_decode_misaligned_views_take_simt():
+    q, kp, vp = decode_operands()
+    assert decode_route(q, kp, vp, 16) == "mma"
+    assert decode_route(misaligned(tuple(q.shape)), kp, vp, 16) == "simt"
+    assert decode_route(q, misaligned(tuple(kp.shape)), vp, 16) == "simt"
+    assert decode_route(q, kp, misaligned(tuple(vp.shape)), 16) == "simt"
+
+
+@pytest.mark.parametrize("pool_dtype", [BF16, torch.int8])
+@pytest.mark.parametrize("b,s,hkv,g,d,page", [
+    (3, 240, 4, 7, 128, 16), (1, 80, 4, 7, 128, 16), (1, 1, 4, 7, 128, 16),
+    (2, 37, 2, 1, 64, 8), (2, 37, 2, 16, 64, 64), (2, 37, 2, 8, 128, 32),
+    (2, 37, 2, 4, 80, 16)])
+def test_prefill_serve_views_take_wgmma(pool_dtype, b, s, hkv, g, d, page):
+    """The ``[B, S, Hkv, G, D]`` view of the projection over bf16 or int8
+    pools, every G up to 16, pages of 8-64, D = 64, 80 (supported: TMA
+    zero-fills past D) and 128."""
+    q = prefill_q(b, s, hkv, g, d)
+    _, kp, vp = decode_operands(1, hkv, g, d, page, pool_dtype=pool_dtype)
+    assert prefill_route(q, kp, vp, page) == "wgmma"
+    assert prefill_route_rule(BF16, pool_dtype, g, d, page) == "wgmma"
+
+
+@pytest.mark.parametrize("kw,why", [
+    (dict(dtype=torch.float32), "f32"),
+    (dict(d=14), "D = 14, the reduced configs'"),
+    (dict(d=72), "D not a multiple of 16"),
+    (dict(page=4), "page 4"),
+    (dict(page=12), "page not a multiple of 8"),
+    (dict(g=28, hkv=1), "G > 16"),
+    (dict(g=32, hkv=1), "G > 16"),
+])
+def test_prefill_other_operands_take_simt(kw, why):
+    args = dict(hkv=2, g=7, d=128, page=16)
+    args.update(kw)
+    dtype = args.pop("dtype", BF16)
+    page = args.pop("page")
+    q = prefill_q(2, 20, dtype=dtype, **args)
+    _, kp, vp = decode_operands(1, page=page, dtype=dtype, **args)
+    assert prefill_route(q, kp, vp, page) == "simt", why
+
+
+def test_prefill_misaligned_views_take_simt():
+    """A base off a 16-byte boundary on q or a pool; a token stride that
+    is not a multiple of 8 elements."""
+    q = prefill_q(2, 20, 2, 7, 128)
+    _, kp, vp = decode_operands(1, 2, 7, 128, 16)
+    assert prefill_route(q, kp, vp, 16) == "wgmma"
+    mq = misaligned((2, 20, 2 * 7 * 128)).view(2, 20, 2, 7, 128)
+    assert prefill_route(mq, kp, vp, 16) == "simt"
+    assert prefill_route(q, misaligned(tuple(kp.shape)), vp, 16) == "simt"
+    assert prefill_route(q, kp, misaligned(tuple(vp.shape)), 16) == "simt"
+    odd = prefill_q(2, 20, 2, 7, 128, width=2 * 7 * 128 + 4)
+    assert odd.stride(1) % 8 == 4
+    assert prefill_route(odd, kp, vp, 16) == "simt"
+
+
+@pytest.mark.parametrize("g,simt,wgmma", [
+    (7, 9, 18), (4, 16, 32), (1, 64, 128), (8, 8, 16), (16, 4, 8),
+    (2, 32, 64)])
+def test_query_block_per_route(g, simt, wgmma):
+    """Rows per block, 64 (CUDA cores) or 128 (tensor cores), as whole
+    query tokens of the group."""
+    assert query_block(g, "simt") == simt
+    assert query_block(g, "wgmma") == wgmma
+
+
+def test_executor_counts_with_the_route_rule():
+    """The serve path's dtypes: full-width bf16 qwen2-7b (G = 7, D = 128,
+    page 16) counts with the tensor-core block, native and int8 pools;
+    the reduced f32 configs with the CUDA-core block."""
+    assert prefill_route_rule(BF16, BF16, 7, 128, 16) == "wgmma"
+    assert prefill_route_rule(BF16, torch.int8, 7, 128, 16) == "wgmma"
+    assert prefill_route_rule(torch.float32, torch.float32, 2, 14, 4) \
+        == "simt"
+    assert prefill_route_rule(torch.float32, torch.int8, 2, 14, 4) == "simt"
+
+
+def test_paged_attention_checks_unchanged():
+    """Both wrappers still refuse what they refused, on both routes, and a
+    refused call moves no counter."""
+    q, kp, vp = decode_operands(2, 2, 7, 128, 16)
+    table = torch.zeros((2, 4), dtype=torch.int32)
+    lens = torch.tensor([3, 5], dtype=torch.int32)
+    qp = prefill_q(2, 20, 2, 7, 128)
+    before = (decode_kernel.launches, dict(decode_kernel.routes),
+              prefill_kernel.launches, dict(prefill_kernel.routes))
+    with pytest.raises(TypeError):                       # int8 needs kv_scale
+        ops.paged_decode_attention(q, kp.to(torch.int8), vp.to(torch.int8),
+                                   table, lens, page_size=16)
+    with pytest.raises(ValueError):                      # G > 16
+        ops.paged_decode_attention(*decode_operands(2, 1, 28, 128, 16),
+                                   table, lens, page_size=16)
+    with pytest.raises(ValueError):                      # pool page
+        ops.paged_decode_attention(q, kp, vp, table, lens, page_size=8)
+    with pytest.raises(ValueError):                      # CUDA only
+        decode_kernel(q, kp, vp, table, lens, page_size=16)
+    with pytest.raises(TypeError):                       # int8 needs kv_scale
+        ops.paged_prefill_attention(qp, kp.to(torch.int8), vp.to(torch.int8),
+                                    table, lens, page_size=16)
+    with pytest.raises(ValueError):                      # pool page
+        ops.paged_prefill_attention(qp, kp, vp, table, lens, page_size=8)
+    with pytest.raises(ValueError):                      # CUDA only
+        prefill_kernel(qp, kp, vp, table, lens, page_size=16)
+    assert (decode_kernel.launches, dict(decode_kernel.routes),
+            prefill_kernel.launches, dict(prefill_kernel.routes)) == before
