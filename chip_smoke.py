@@ -17,9 +17,12 @@ printing its lines; any failure exits non-zero before the last line:
    card at the reduced qwen2-7b shapes in f32 (D=14, G=2), with ragged
    lengths, -1 table entries, an empty sequence, a window, unaligned and
    page-aligned chunk starts, a 1-token chunk, tokens past the table and
-   int8 pools; both WKV kernels in f32 at N = 16 and 64, T = 1, 27, 64
-   and 96, with and without an initial state, a state handed over between
-   two calls, a decay of 1e-6; then the reduced engine on the card against
+   int8 pools; both WKV kernels in f32 at N = 8, 16, 32 and 64, T = 1,
+   27, 64, 96 and 512, with and without an initial state, the per-channel
+   extreme decays {1e-6, 0.5, 1 - 1e-6, 1}, a state handed over between
+   two calls, a decay of 1e-6 (and ``wkv6_chunked``'s launch shape at each
+   N: threads, shared memory, blocks resident a SM); then the reduced
+   engine on the card against
    the same engine on the CPU: the cold workload, the default-policy
    workload (radix prefix hits and partial restores) and a fork workload,
    with identical greedy tokens and counters; and the reduced rwkv6-7b
@@ -490,16 +493,26 @@ def close_err(got, want, tol) -> float:
                   - tol * want.float().abs()).max())
 
 
+#: a per-channel mix of extreme decays, repeated over the channels
+MIXED_DECAYS = (1e-6, 0.5, 1 - 1e-6, 1.0)
+
+
 def wkv_operands(gen, dev, bh, t, n, *, state, decay=None):
-    """f32 r, k, v (scale 0.5), w = sigmoid(z - 1) or a constant decay, u,
-    and an optional initial state (scale 0.1), as the CPU tests draw them."""
+    """f32 r, k, v (scale 0.5), w = sigmoid(z - 1), a constant decay or
+    (``decay="mixed"``) the per-channel :data:`MIXED_DECAYS`, u, and an
+    optional initial state (scale 0.1), as the CPU tests draw them."""
     import torch
 
     def f(*shape, sc=1.0):
         return torch.randn(shape, generator=gen, device=dev) * sc
     r, k, v = f(bh, t, n, sc=0.5), f(bh, t, n, sc=0.5), f(bh, t, n, sc=0.5)
-    w = (torch.sigmoid(f(bh, t, n) - 1.0) if decay is None
-         else torch.full((bh, t, n), decay, device=dev))
+    if decay is None:
+        w = torch.sigmoid(f(bh, t, n) - 1.0)
+    elif decay == "mixed":
+        row = torch.tensor(MIXED_DECAYS, device=dev).repeat(n // 4)
+        w = row.expand(bh, t, n).contiguous()
+    else:
+        w = torch.full((bh, t, n), decay, device=dev)
     return r, k, v, w, f(bh, n, sc=0.5), (f(bh, n, n, sc=0.1) if state
                                           else None)
 
@@ -508,27 +521,45 @@ def reduced_wkv_checks() -> None:
     """Both WKV kernels against their plain versions on the card, f32, at
     the tolerances of their CPU tests against the Pallas kernels: 1e-4
     sequential, 3e-4 chunked (the chunked form takes every decay as an exp
-    of a cumsum of logs), 1e-3 at a decay of 1e-6."""
+    of a cumsum of logs), 1e-3 at a decay of 1e-6; every head size the
+    kernels take, T up to 512, the sigmoid draw and the per-channel
+    extreme decays (:data:`MIXED_DECAYS`, also within 1e-3 of the step
+    loop)."""
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.wkv6 import wkv6
-    from repro_torch.kernels.wkv6_chunked import wkv6_chunked
+    from repro_torch.kernels.wkv6 import HEAD_SIZES, wkv6
+    from repro_torch.kernels.wkv6_chunked import launch_config, wkv6_chunked
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     kernels = (("wkv6", wkv6, ref.wkv6_ref, 1e-4),
                ("wkv6_chunked", wkv6_chunked,
                 lambda *a: ref.wkv6_chunked_matmul_ref(*a, chunk=32), 3e-4))
+    for n in HEAD_SIZES:
+        cfg = launch_config(n)
+        log(f"wkv6_chunked launch at N={n}: one block of {cfg['threads']} "
+            f"threads a head, {cfg['smem_bytes']} B shared memory, "
+            f"{cfg['blocks_per_sm']} blocks resident a SM")
     for name, kern, plain, tol in kernels:
         worst = 0.0
-        for n in (16, 64):
-            for t in (1, 27, 64, 96):
-                for state in (False, True):
-                    args = wkv_operands(gen, dev, 6, t, n, state=state)
-                    for g_, w_ in zip(kern(*args), plain(*args)):
+        for n in HEAD_SIZES:
+            for t in (1, 27, 64, 96, 512):
+                for state, decay in ((False, None), (True, None),
+                                     (True, "mixed")):
+                    args = wkv_operands(gen, dev, 6, t, n, state=state,
+                                        decay=decay)
+                    got = kern(*args)
+                    for g_, w_ in zip(got, plain(*args)):
                         err = close_err(g_, w_, tol)
                         require(err <= tol, f"{name} N={n} T={t} "
-                                            f"state={state}: off by {err}")
+                                            f"state={state} decay={decay}: "
+                                            f"off by {err}")
                         worst = max(worst, max_err(g_, w_))
+                    if decay == "mixed":
+                        require(all(bool(torch.isfinite(x).all())
+                                    and close_err(x, y, 1e-3) <= 1e-3
+                                    for x, y in zip(got, ref.wkv6_ref(*args))),
+                                f"{name} N={n} T={t}: extreme decays off "
+                                "the step loop")
         # a state handed over between two calls (written in place into
         # the caller's state) equals one call
         r, k, v, w, u, _ = wkv_operands(gen, dev, 4, 96, 64, state=False)
@@ -550,9 +581,9 @@ def reduced_wkv_checks() -> None:
                     for g_, w_ in zip(got, want)),
                 f"{name}: off at a decay of 1e-6")
         torch.cuda.synchronize()
-        log(f"check reduced: {name} f32 N in (16, 64), T in (1, 27, 64, 96), "
-            f"with and without a state, handoff, decay 1e-6 within {tol} "
-            f"(largest |err| {worst:.3g})")
+        log(f"check reduced: {name} f32 N in {HEAD_SIZES}, T in (1, 27, "
+            f"64, 96, 512), with and without a state, extreme decays, "
+            f"handoff, decay 1e-6 within {tol} (largest |err| {worst:.3g})")
     ops.reset_launch_counts()
 
 

@@ -58,6 +58,8 @@ SIGNATURES = {
     "wkv6": ("wkv6", "wkv6_launch", [_P] * 8 + [_I, _I, _I, _P]),
     "wkv6_chunked": ("wkv6_chunked", "wkv6_chunked_launch",
                      [_P] * 8 + [_I, _I, _I, _P]),
+    "wkv6_chunked_config": ("wkv6_chunked", "wkv6_chunked_config",
+                            [_I, _P]),
     "paged_gather": ("paged_gather", "paged_gather_launch",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
                       _P]),

@@ -1,28 +1,38 @@
 """Chunk-parallel RWKV-6 (flash-linear-attention form, ``csrc/
-wkv6_chunked.cu``), chunks of 32 tokens.
+wkv6_chunked.cu``), chunks of 32 tokens, exact f32 on the CUDA cores.
 
-The CUDA kernel runs one block per ``(b, h)`` head and loops over the
-chunks; the ``[N, N]`` f32 state, the chunk's r/k/v, the cumulative log
-decays and the ``[32, 32]`` masked attention stay in shared memory, so
-device memory sees only the r/k/v/w/o streams and the state once.  Every
-exponent is <= 0 (the mask is applied before the exp), so a decay of 1e-6
-underflows instead of overflowing.  A ragged last chunk is padded in shared
-memory with identity steps (w = 1, k = 0), so any T >= 1 is taken, though
-the model's dispatch sends it only ``T % 32 == 0``.
+The CUDA kernel runs one block per ``(b, h)`` head; each thread keeps a
+4 x 4 tile of the ``[N, N]`` f32 state (channels x value columns, at
+N = 64) in registers for the whole sequence.  Each chunk is cut into four
+sub-blocks of 8 rows, and the decay between two sub-blocks factors as
+``exp(ce_i - b_I) * exp(b_I - cum_j)``: the off-diagonal blocks of the
+masked attention are plain f32 products with no exp inside, and only the
+diagonal sub-blocks keep the mask-before-exp form.  Every exponent is a
+non-positive difference of cumulative log decays, so a decay of 1e-6
+underflows instead of overflowing.  The inter-chunk product, the
+intra-chunk ``A v`` and the state update are register-tiled, and the next
+chunk's r, k, w, v are staged by ``cp.async`` while the current one
+computes.  A ragged last chunk is zero-filled with identity steps (w = 1,
+k = 0), so any T >= 1 is taken, though the model's dispatch sends it only
+``T % 32 == 0``.
 
 Replaces the TPU kernel ``wkv6_chunked`` of
 ``src/repro/kernels/wkv6_chunked.py``.  Operands, outputs and
-``out_state`` as in :mod:`repro_torch.kernels.wkv6`.
+``out_state`` as in :mod:`repro_torch.kernels.wkv6`; r, k, v and w must
+also be 16-byte aligned on the card (the staging copies are 16 bytes).
 """
 
 from __future__ import annotations
 
+import ctypes
+
+from repro_torch.kernels import build
 from repro_torch.kernels.wkv6 import check_wkv6, launch
 
 #: the chunk length (JAX ``ops.wkv6`` dispatches the Pallas kernel with 32)
 CHUNK = 32
-#: head sizes the chunked kernel takes (the state must fit shared memory)
-HEAD_SIZES = tuple(range(1, 65))
+#: head sizes the chunked kernel is compiled for (those of ``wkv6``)
+HEAD_SIZES = (8, 16, 32, 64)
 
 
 def check_wkv6_chunked(r, k, v, w, u, initial_state=None,
@@ -36,9 +46,26 @@ def wkv6_chunked(r, k, v, w, u, initial_state=None, *, out_state=None):
     """Launch the chunked CUDA kernel.  Returns (o [BH, T, N], final state
     [BH, N, N]).  CUDA tensors only."""
     check_wkv6_chunked(r, k, v, w, u, initial_state, out_state)
+    bad = [name for name, x in zip("rkvw", (r, k, v, w))
+           if x.data_ptr() % 16]
+    if bad and r.device.type == "cuda":
+        raise ValueError(f"wkv6_chunked stages 16-byte copies: {bad} not "
+                         "16-byte aligned")
     out = launch("wkv6_chunked", r, k, v, w, u, initial_state, out_state)
     wkv6_chunked.launches += 1
     return out
 
 
 wkv6_chunked.launches = 0
+
+
+def launch_config(n: int) -> dict[str, int]:
+    """The kernel's launch shape at head size ``n`` on the current card:
+    threads a block (one block a head), dynamic shared memory and the
+    blocks resident on one SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Needs the card
+    and ``nvcc``."""
+    out = (ctypes.c_int * 3)()
+    build.check(build.launcher("wkv6_chunked_config")(n, out),
+                "wkv6_chunked_config")
+    return dict(threads=out[0], smem_bytes=out[1], blocks_per_sm=out[2])

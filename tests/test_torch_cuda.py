@@ -162,25 +162,37 @@ def test_paged_prefill_attention(gen, quant, dtype, hkv, g, d, page):
             assert err <= 4 * 2**-8 * float(w_.abs().max()), (i, err)
 
 
+#: a per-channel mix of extreme decays, repeated over the channels
+MIXED_DECAYS = (1e-6, 0.5, 1 - 1e-6, 1.0)
+
+
 def wkv_operands(gen, bh, t, n, *, state, decay=None):
-    """f32 r, k, v (scale 0.5), w = sigmoid(z - 1) or a constant decay,
-    u, and an optional state (scale 0.1), contiguous on the card."""
+    """f32 r, k, v (scale 0.5), w = sigmoid(z - 1), a constant decay or
+    (``decay="mixed"``) the per-channel :data:`MIXED_DECAYS`, u, and an
+    optional state (scale 0.1), contiguous on the card."""
     def f(*shape, sc=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * sc
     r, k, v = f(bh, t, n, sc=0.5), f(bh, t, n, sc=0.5), f(bh, t, n, sc=0.5)
-    w = (torch.sigmoid(f(bh, t, n) - 1.0) if decay is None
-         else torch.full((bh, t, n), decay, device="cuda"))
+    if decay is None:
+        w = torch.sigmoid(f(bh, t, n) - 1.0)
+    elif decay == "mixed":
+        row = torch.tensor(MIXED_DECAYS, device="cuda").repeat(n // 4)
+        w = row.expand(bh, t, n).contiguous()
+    else:
+        w = torch.full((bh, t, n), decay, device="cuda")
     return r, k, v, w, f(bh, n, sc=0.5), (f(bh, n, n, sc=0.1) if state
                                           else None)
 
 
 @pytest.mark.parametrize("chunked", [False, True])
-@pytest.mark.parametrize("n", [16, 64])
-@pytest.mark.parametrize("t", [1, 27, 64, 96])
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+@pytest.mark.parametrize("t", [1, 27, 64, 96, 512])
 @pytest.mark.parametrize("state", [False, True])
 def test_wkv6_kernels(gen, chunked, n, t, state):
     """Each WKV kernel against its plain version (f32 sums in another
-    order: 1e-4 sequential, 3e-4 chunked, as the CPU tests)."""
+    order: 1e-4 sequential, 3e-4 chunked, as the CPU tests), at every head
+    size the kernels take (the chunked kernel's value-column split and
+    channel quarters change with it)."""
     from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.kernels.wkv6_chunked import wkv6_chunked
     args = wkv_operands(gen, 6, t, n, state=state)
@@ -218,6 +230,63 @@ def test_wkv6_state_handoff_and_in_place_state(gen, chunked):
     want_o, want_s = ref.wkv6_ref(r, k, v, w, u)
     torch.testing.assert_close(o, want_o, atol=1e-3, rtol=1e-3)
     torch.testing.assert_close(s, want_s, atol=1e-3, rtol=1e-3)
+    # the per-channel extreme decays, handed over at an unaligned split
+    r, k, v, w, u, s0 = wkv_operands(gen, 4, 96, 64, state=True,
+                                     decay="mixed")
+    o_full, s_full = fn(r, k, v, w, u, s0)
+    assert torch.isfinite(o_full).all() and torch.isfinite(s_full).all()
+    s = s0.clone()
+    o1, _ = fn(*(x[:, :40].contiguous() for x in (r, k, v, w)), u, s,
+               out_state=s)
+    o2, _ = fn(*(x[:, 40:].contiguous() for x in (r, k, v, w)), u, s,
+               out_state=s)
+    torch.testing.assert_close(torch.cat([o1, o2], 1), o_full, atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(s, s_full, atol=1e-4, rtol=1e-4)
+    want_o, want_s = ref.wkv6_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(o_full, want_o, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(s_full, want_s, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+@pytest.mark.parametrize("t", [64, 512])
+def test_wkv6_kernels_extreme_decays(gen, chunked, n, t):
+    """The per-channel decays {1e-6, 0.5, 1 - 1e-6, 1} with a state: finite,
+    within each kernel's tolerance of its plain version (1e-4 sequential,
+    3e-4 chunked) and within 1e-3 of the step loop (the chunked form takes
+    a decay of 1e-6 as an exp of a cumsum of logs)."""
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.kernels.wkv6_chunked import wkv6_chunked
+    args = wkv_operands(gen, 6, t, n, state=True, decay="mixed")
+    if chunked:
+        got = wkv6_chunked(*args)
+        plain = ref.wkv6_chunked_matmul_ref(*args, chunk=32)
+        tol = 3e-4
+    else:
+        got, plain, tol = wkv6(*args), ref.wkv6_ref(*args), 1e-4
+    step = ref.wkv6_ref(*args)
+    for g_, p_, s_ in zip(got, plain, step):
+        assert torch.isfinite(g_).all()
+        torch.testing.assert_close(g_, p_, atol=tol, rtol=tol)
+        torch.testing.assert_close(g_, s_, atol=1e-3, rtol=1e-3)
+
+
+def test_wkv6_chunked_launch_shape_and_alignment(gen):
+    """The chunked kernel's launch shape fits the card (at least one block
+    resident a SM at every head size), and a view that is not 16-byte
+    aligned is refused before the launch."""
+    from repro_torch.kernels.wkv6_chunked import (HEAD_SIZES, launch_config,
+                                                  wkv6_chunked)
+    for n in HEAD_SIZES:
+        cfg = launch_config(n)
+        assert cfg["blocks_per_sm"] >= 1, (n, cfg)
+    r, k, v, w, u, _ = wkv_operands(gen, 2, 33, 16, state=False)
+    shifted = torch.empty(r.numel() + 1, device="cuda")[1:].view(r.shape)
+    shifted.copy_(r)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        wkv6_chunked(shifted, k, v, w, u)
 
 
 def gather_operands(gen, dtype, w, page, n, *, frames=40, max_pages=8):

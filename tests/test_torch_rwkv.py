@@ -182,6 +182,118 @@ class TestWKV6Chunked:
 
 
 # ---------------------------------------------------------------------------
+# the card kernel's algebra: sub-chunks with factored decays
+# ---------------------------------------------------------------------------
+
+
+def decay(x):
+    """exp of a difference of cumulative log decays, clamped at 0 as the
+    kernel clamps it (it is <= 0 in exact arithmetic)."""
+    return torch.exp(torch.clamp(x, max=0.0))
+
+
+def subchunk_wkv6(r, k, v, w, u, s0=None, chunk=32, sub=8):
+    """The chunked recurrence as ``csrc/wkv6_chunked.cu`` computes it, in
+    plain torch (f32).  Per chunk, ``cumx`` is the exclusive cumsum of
+    ``log(max(w, 1e-38))`` with a leading 0 (``cumx[i] = ce_i``,
+    ``cumx[j + 1] = cum_j``) and ``b_I = cumx[I sub]`` is ce at sub-block
+    I's first row.  Each row is decayed to its own sub-block's boundaries
+    only, ``rd_i = r_i exp(ce_i - b_I)`` and ``kf_j = k_j exp(b_{J+1} -
+    cum_j)``; everything else is a per-channel factor between two
+    boundaries.  An off-diagonal block (J < I) is ``rd_I (kf_J exp(b_I -
+    b_{J+1}))^T``, a product with no exp inside; a diagonal block keeps one
+    exp per (i, j, n), j < i; the bonus ``r_i . u k_i`` sits on A's
+    diagonal; ``r_i exp(ce_i) = rd_i exp(b_I)`` and ``k_j exp(cum_last -
+    cum_j) = kf_j exp(cum_last - b_{J+1})``.  T is padded with identity
+    steps (w = 1, r = k = v = 0)."""
+    bh, t, n = r.shape
+    nc = -(-t // chunk)
+    pad = nc * chunk - t
+    f = lambda x, val=0.0: torch.nn.functional.pad(  # noqa: E731
+        x.float(), (0, 0, 0, pad), value=val)
+    r, k, v, w = f(r), f(k), f(v), f(w, 1.0)
+    s = (s0.float().clone() if s0 is not None
+         else torch.zeros((bh, n, n), dtype=torch.float32))
+    nb = chunk // sub
+    blk = torch.arange(chunk) // sub                       # row -> sub-block
+    outs = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        rr, kk, vv = r[:, sl], k[:, sl], v[:, sl]
+        lw = torch.log(torch.clamp(w[:, sl], min=1e-38))
+        cumx = torch.cat([torch.zeros_like(lw[:, :1]),
+                          torch.cumsum(lw, 1)], 1)        # [BH, C + 1, N]
+        b = cumx[:, ::sub]                                # b_0 .. b_nb
+        rd = rr * decay(cumx[:, :chunk] - b[:, blk])
+        kf = kk * decay(b[:, blk + 1] - cumx[:, 1:])
+        a = torch.zeros((bh, chunk, chunk), dtype=torch.float32)
+        for bi in range(nb):
+            rows = slice(bi * sub, (bi + 1) * sub)
+            for ii in range(bi * sub, (bi + 1) * sub):     # mask before exp
+                for jj in range(bi * sub, ii):
+                    a[:, ii, jj] = (rr[:, ii] * kk[:, jj] * decay(
+                        cumx[:, ii] - cumx[:, jj + 1])).sum(-1)
+                a[:, ii, ii] = (rr[:, ii] * u.float() * kk[:, ii]).sum(-1)
+            for bj in range(bi):
+                cols = slice(bj * sub, (bj + 1) * sub)
+                pair = decay(b[:, bi] - b[:, bj + 1])[:, None]
+                a[:, rows, cols] = torch.einsum("bin,bjn->bij",
+                                                rd[:, rows] * pair,
+                                                kf[:, cols])
+        ri = rd * decay(b[:, blk])
+        ks = kf * decay(cumx[:, chunk:] - b[:, blk + 1])
+        outs.append(torch.einsum("bin,bnm->bim", ri, s)
+                    + torch.einsum("bij,bjm->bim", a, vv))
+        s = decay(cumx[:, chunk])[:, :, None] * s + torch.einsum(
+            "bjn,bjm->bnm", ks, vv)
+    return torch.cat(outs, 1)[:, :t], s
+
+
+def mixed_decays(bh, tt, n):
+    """A per-channel mix of the extreme decays {1e-6, 0.5, 1 - 1e-6, 1}."""
+    row = np.resize(np.array([1e-6, 0.5, 1 - 1e-6, 1.0], np.float32), n)
+    return np.broadcast_to(row, (bh, tt, n)).copy()
+
+
+@pytest.mark.parametrize("decays", ["sigmoid", "1e-6", "mixed"])
+@pytest.mark.parametrize("n,tt", [(16, 96), (64, 64)])
+def test_subchunk_factoring_vs_pallas_and_oracle(decays, n, tt):
+    """The kernel's sub-chunk factoring against JAX ``wkv6_chunked``
+    (interpret) and the step loop, with a carried state.  Tolerance 3e-4,
+    the chunked tolerance: every decay is taken as an exp of a difference
+    of f32 cumsums of logs, which rounds differently from the step loop's
+    products; the factored form multiplies two such exps where the
+    unfactored one takes one.  At decays of 1e-6 the factors underflow to
+    0 and must stay finite."""
+    r, k, v, w, u, s0 = wkv_inputs(2, tt, n, seed=8 + n, decay_shift=-1.0,
+                                   state=True)
+    if decays == "1e-6":
+        w = np.full_like(w, 1e-6)
+    elif decays == "mixed":
+        w = mixed_decays(2, tt, n)
+    arrs = (r, k, v, w, u, s0)
+    j_in = [jnp.asarray(a) for a in arrs]
+    o, s = subchunk_wkv6(*port_args(*arrs))
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    o_k, s_k = jax_wkv6_chunked(*j_in, chunk=32)        # Pallas, interpret
+    o_r, s_r = jref.wkv6_ref(*j_in)
+    for want_o, want_s in ((o_k, s_k), (o_r, s_r)):
+        close(o.numpy(), want_o, 3e-4)
+        close(s.numpy(), want_s, 3e-4)
+
+
+def test_subchunk_factoring_pads_a_ragged_chunk():
+    """T = 27 and T = 45: identity steps pad the last chunk, as the
+    kernel's zero-filled stage does; against the step loop."""
+    for tt in (27, 45):
+        arrs = wkv_inputs(3, tt, 8, seed=tt, state=True)
+        o, s = subchunk_wkv6(*port_args(*arrs))
+        o_r, s_r = jref.wkv6_ref(*(jnp.asarray(a) for a in arrs))
+        close(o.numpy(), o_r, 3e-4)
+        close(s.numpy(), s_r, 3e-4)
+
+
+# ---------------------------------------------------------------------------
 # the dispatch rule
 # ---------------------------------------------------------------------------
 
