@@ -18,9 +18,9 @@ printing its lines; any failure exits non-zero before the last line:
    lengths, -1 table entries, an empty sequence, a window, unaligned and
    page-aligned chunk starts, a 1-token chunk, tokens past the table and
    int8 pools; both WKV kernels in f32 at N = 8, 16, 32 and 64, T = 1,
-   27, 64, 96 and 512, with and without an initial state, the per-channel
+   17, 27, 64, 96 and 512, with and without an initial state, the per-channel
    extreme decays {1e-6, 0.5, 1 - 1e-6, 1}, a state handed over between
-   two calls, a decay of 1e-6 (and ``wkv6_chunked``'s launch shape at each
+   two calls, a decay of 1e-6 (and both WKV kernels' launch shapes at each
    N: threads, shared memory, blocks resident a SM); then the reduced
    engine on the card against
    the same engine on the CPU: the cold workload, the default-policy
@@ -65,7 +65,8 @@ printing its lines; any failure exits non-zero before the last line:
    timed as in 6, beside bytes / 3.35 TB/s or f32 operations / 67 TFLOP/s
    (the CUDA-core peak: the kernels compute in f32); then a traced,
    untimed repeat of each run's prefill and of 8 decode steps prints the
-   device's busy share and device time by kernel;
+   device's busy share and device time by kernel, and each prefill's
+   ``wkv6`` and ``wkv6_chunked`` time and share of device time;
 9. the paper's VM loop (after the reduced checks above, which also hold
    ``paged_gather`` bit-identical to its plain version over f32/bf16/int8,
    W 4/14/512, page 8/16, any order with repeats, -1 entries, positions
@@ -527,22 +528,25 @@ def reduced_wkv_checks() -> None:
     loop)."""
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.wkv6 import HEAD_SIZES, wkv6
-    from repro_torch.kernels.wkv6_chunked import launch_config, wkv6_chunked
+    from repro_torch.kernels.wkv6 import HEAD_SIZES, launch_config, wkv6
+    from repro_torch.kernels.wkv6_chunked import launch_config as ck_config
+    from repro_torch.kernels.wkv6_chunked import wkv6_chunked
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     kernels = (("wkv6", wkv6, ref.wkv6_ref, 1e-4),
                ("wkv6_chunked", wkv6_chunked,
                 lambda *a: ref.wkv6_chunked_matmul_ref(*a, chunk=32), 3e-4))
-    for n in HEAD_SIZES:
-        cfg = launch_config(n)
-        log(f"wkv6_chunked launch at N={n}: one block of {cfg['threads']} "
-            f"threads a head, {cfg['smem_bytes']} B shared memory, "
-            f"{cfg['blocks_per_sm']} blocks resident a SM")
+    for name, config in (("wkv6", launch_config),
+                         ("wkv6_chunked", ck_config)):
+        for n in HEAD_SIZES:
+            cfg = config(n)
+            log(f"{name} launch at N={n}: one block of {cfg['threads']} "
+                f"threads a head, {cfg['smem_bytes']} B shared memory, "
+                f"{cfg['blocks_per_sm']} blocks resident a SM")
     for name, kern, plain, tol in kernels:
         worst = 0.0
         for n in HEAD_SIZES:
-            for t in (1, 27, 64, 96, 512):
+            for t in (1, 17, 27, 64, 96, 512):
                 for state, decay in ((False, None), (True, None),
                                      (True, "mixed")):
                     args = wkv_operands(gen, dev, 6, t, n, state=state,
@@ -581,7 +585,7 @@ def reduced_wkv_checks() -> None:
                     for g_, w_ in zip(got, want)),
                 f"{name}: off at a decay of 1e-6")
         torch.cuda.synchronize()
-        log(f"check reduced: {name} f32 N in {HEAD_SIZES}, T in (1, 27, "
+        log(f"check reduced: {name} f32 N in {HEAD_SIZES}, T in (1, 17, 27, "
             f"64, 96, 512), with and without a state, extreme decays, "
             f"handoff, decay 1e-6 within {tol} (largest |err| {worst:.3g})")
     ops.reset_launch_counts()
@@ -1600,6 +1604,10 @@ def rwkv_profile(model, params, tokens, steps: int = 8) -> None:
         wall = time.perf_counter() - t0
     log(f"rwkv profile ({model.tm_impl}), prefill:")
     print_profile(prof, wall, top=8)
+    for name in ("wkv6", "wkv6_chunked"):
+        ms, count, share = kernel_share(prof, f"{name}_kernel<")
+        log(f"rwkv profile ({model.tm_impl}), prefill: {name} {ms:.2f} ms "
+            f"over {count} launches, {share:.1f}% of device time")
     if not steps:
         return
     with profile(activities=acts) as prof:
@@ -1609,6 +1617,18 @@ def rwkv_profile(model, params, tokens, steps: int = 8) -> None:
         wall = time.perf_counter() - t0
     log(f"rwkv profile ({model.tm_impl}), {steps} decode steps:")
     print_profile(prof, wall, top=8)
+
+
+def kernel_share(prof, needle: str) -> tuple[float, int, float]:
+    """Device milliseconds, launches and percent of all device time of the
+    traced kernels whose name holds ``needle``."""
+    from torch.autograd import DeviceType
+    from repro_torch.launch.serve import _device_us
+    rows = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    busy = sum(_device_us(e) for e in rows)
+    mine = [e for e in rows if needle in e.key]
+    us = sum(_device_us(e) for e in mine)
+    return us / 1e3, sum(e.count for e in mine), 100 * us / max(busy, 1e-9)
 
 
 def rwkv_record(models, params, tokens):

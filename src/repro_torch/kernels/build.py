@@ -56,6 +56,7 @@ SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _LL,
          _F, _F, _I, _I, _I, _I, _P]),
     "wkv6": ("wkv6", "wkv6_launch", [_P] * 8 + [_I, _I, _I, _P]),
+    "wkv6_config": ("wkv6", "wkv6_config", [_I, _P]),
     "wkv6_chunked": ("wkv6_chunked", "wkv6_chunked_launch",
                      [_P] * 8 + [_I, _I, _I, _P]),
     "wkv6_chunked_config": ("wkv6_chunked", "wkv6_chunked_config",

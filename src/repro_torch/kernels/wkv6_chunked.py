@@ -18,16 +18,14 @@ k = 0), so any T >= 1 is taken, though the model's dispatch sends it only
 
 Replaces the TPU kernel ``wkv6_chunked`` of
 ``src/repro/kernels/wkv6_chunked.py``.  Operands, outputs and
-``out_state`` as in :mod:`repro_torch.kernels.wkv6`; r, k, v and w must
-also be 16-byte aligned on the card (the staging copies are 16 bytes).
+``out_state`` as in :mod:`repro_torch.kernels.wkv6`, whose shared launch
+refuses r, k, v, w or states on the card that are not 16-byte aligned.
 """
 
 from __future__ import annotations
 
-import ctypes
-
-from repro_torch.kernels import build
 from repro_torch.kernels.wkv6 import check_wkv6, launch
+from repro_torch.kernels.wkv6 import launch_config as _launch_config
 
 #: the chunk length (JAX ``ops.wkv6`` dispatches the Pallas kernel with 32)
 CHUNK = 32
@@ -46,11 +44,6 @@ def wkv6_chunked(r, k, v, w, u, initial_state=None, *, out_state=None):
     """Launch the chunked CUDA kernel.  Returns (o [BH, T, N], final state
     [BH, N, N]).  CUDA tensors only."""
     check_wkv6_chunked(r, k, v, w, u, initial_state, out_state)
-    bad = [name for name, x in zip("rkvw", (r, k, v, w))
-           if x.data_ptr() % 16]
-    if bad and r.device.type == "cuda":
-        raise ValueError(f"wkv6_chunked stages 16-byte copies: {bad} not "
-                         "16-byte aligned")
     out = launch("wkv6_chunked", r, k, v, w, u, initial_state, out_state)
     wkv6_chunked.launches += 1
     return out
@@ -60,12 +53,6 @@ wkv6_chunked.launches = 0
 
 
 def launch_config(n: int) -> dict[str, int]:
-    """The kernel's launch shape at head size ``n`` on the current card:
-    threads a block (one block a head), dynamic shared memory and the
-    blocks resident on one SM
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Needs the card
-    and ``nvcc``."""
-    out = (ctypes.c_int * 3)()
-    build.check(build.launcher("wkv6_chunked_config")(n, out),
-                "wkv6_chunked_config")
-    return dict(threads=out[0], smem_bytes=out[1], blocks_per_sm=out[2])
+    """The chunked kernel's launch shape at head size ``n`` on the current
+    card (:func:`repro_torch.kernels.wkv6.launch_config`)."""
+    return _launch_config(n, "wkv6_chunked_config")

@@ -186,16 +186,18 @@ def wkv_operands(gen, bh, t, n, *, state, decay=None):
 
 @pytest.mark.parametrize("chunked", [False, True])
 @pytest.mark.parametrize("n", [8, 16, 32, 64])
-@pytest.mark.parametrize("t", [1, 27, 64, 96, 512])
+@pytest.mark.parametrize("t", [1, 17, 27, 33, 64, 96, 512])
 @pytest.mark.parametrize("state", [False, True])
-def test_wkv6_kernels(gen, chunked, n, t, state):
+@pytest.mark.parametrize("bh", [6, 1])
+def test_wkv6_kernels(gen, chunked, n, t, state, bh):
     """Each WKV kernel against its plain version (f32 sums in another
     order: 1e-4 sequential, 3e-4 chunked, as the CPU tests), at every head
-    size the kernels take (the chunked kernel's value-column split and
-    channel quarters change with it)."""
+    size the kernels take (their tiles change with it), at one head and
+    six, and at one step past a stage of the sequential kernel (T = 17, 33:
+    its stages are 16 steps) and of a chunk (T = 33)."""
     from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.kernels.wkv6_chunked import wkv6_chunked
-    args = wkv_operands(gen, 6, t, n, state=state)
+    args = wkv_operands(gen, bh, t, n, state=state)
     if chunked:
         got = wkv6_chunked(*args)
         want = ref.wkv6_chunked_matmul_ref(*args, chunk=32)
@@ -272,6 +274,43 @@ def test_wkv6_kernels_extreme_decays(gen, chunked, n, t):
         torch.testing.assert_close(g_, s_, atol=1e-3, rtol=1e-3)
 
 
+def test_wkv6_launch_shape_and_alignment(gen):
+    """The sequential kernel's launch shape: at least one block resident a
+    SM at every head size, and at N = 64 (the serve path's) 64 threads
+    (8 x 8 state tiles) and at least four blocks a SM, so 512 heads run in
+    one wave on 132 SMs; a view of r, k, v, w or a state that is not
+    16-byte aligned is refused before the launch, and by the C launcher."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.wkv6 import HEAD_SIZES, launch_config, wkv6
+    for n in HEAD_SIZES:
+        cfg = launch_config(n)
+        assert cfg["blocks_per_sm"] >= 1, (n, cfg)
+    cfg = launch_config(64)
+    assert cfg["threads"] == 64 and cfg["blocks_per_sm"] >= 4, cfg
+    args = list(wkv_operands(gen, 2, 33, 16, state=True))
+    before = wkv6.launches
+    for i in (0, 1, 2, 3, 5):
+        shifted = torch.empty(args[i].numel() + 1, device="cuda")[1:]
+        shifted = shifted.view(args[i].shape).copy_(args[i])
+        assert shifted.is_contiguous() and shifted.data_ptr() % 16
+        bad = args[:i] + [shifted] + args[i + 1:]
+        with pytest.raises(ValueError, match="aligned"):
+            wkv6(*bad)
+    # the C launcher refuses one too (cudaErrorMisalignedAddress, 716)
+    r = args[0]
+    o = torch.empty_like(r)
+    shifted = torch.empty(r.numel() + 1, device="cuda")[1:].view(r.shape)
+    err = build.launcher("wkv6")(
+        shifted.data_ptr(), *(x.data_ptr() for x in args[1:6]), o.data_ptr(),
+        args[5].data_ptr(), r.shape[0], r.shape[1], r.shape[2],
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 716, err
+    with pytest.raises(ValueError, match="aligned"):
+        wkv6(*args, out_state=torch.empty(
+            args[5].numel() + 1, device="cuda")[1:].view(args[5].shape))
+    assert wkv6.launches == before
+
+
 def test_wkv6_chunked_launch_shape_and_alignment(gen):
     """The chunked kernel's launch shape fits the card (at least one block
     resident a SM at every head size), and a view that is not 16-byte
@@ -287,6 +326,11 @@ def test_wkv6_chunked_launch_shape_and_alignment(gen):
     assert shifted.is_contiguous() and shifted.data_ptr() % 16
     with pytest.raises(ValueError, match="aligned"):
         wkv6_chunked(shifted, k, v, w, u)
+    # the states go through the same check (the shared launch)
+    bh, _, n = r.shape
+    state = torch.zeros(bh * n * n + 1, device="cuda")[1:].view(bh, n, n)
+    with pytest.raises(ValueError, match="aligned"):
+        wkv6_chunked(r, k, v, w, u, state)
 
 
 def gather_operands(gen, dtype, w, page, n, *, frames=40, max_pages=8):

@@ -294,6 +294,68 @@ def test_subchunk_factoring_pads_a_ragged_chunk():
 
 
 # ---------------------------------------------------------------------------
+# the sequential card kernel's algebra: channel groups, the bonus folded
+# ---------------------------------------------------------------------------
+
+
+def tile_wkv6(r, k, v, w, u, s0=None, tn=8):
+    """The step loop as ``csrc/wkv6.cu`` computes it, in plain torch (f32).
+    The channels are cut into groups of ``tn`` (the kernel's tile: 8, one
+    group at N = 8); each group's partial output is ``p v_j + sum_{i in
+    group} r_i S_ij`` with ``p = sum_{i in group} r_i (u_i k_i)`` (the
+    bonus folded as ``v_j sum_i r_i u_i k_i``), the channels taken in
+    order; the groups' partials are summed as the shuffles sum them,
+    pairing group q with q + G/2 first, then halving; then ``S = diag(w) S
+    + k v^T``."""
+    bh, t, n = r.shape
+    ng = n // tn
+    s = (s0.float().clone() if s0 is not None
+         else torch.zeros((bh, n, n), dtype=torch.float32))
+    ug = u.float().view(bh, ng, tn)
+    outs = []
+    for i in range(t):
+        rg, kg = r[:, i].view(bh, ng, tn), k[:, i].view(bh, ng, tn)
+        vv, sg = v[:, i], s.view(bh, ng, tn, n)
+        p = torch.zeros((bh, ng), dtype=torch.float32)
+        for a in range(tn):
+            p = p + rg[..., a] * (ug[..., a] * kg[..., a])
+        part = p[..., None] * vv[:, None, :]                # [BH, groups, N]
+        for a in range(tn):
+            part = part + rg[..., a, None] * sg[:, :, a]
+        while part.shape[1] > 1:
+            half = part.shape[1] // 2
+            part = part[:, :half] + part[:, half:]
+        outs.append(part[:, 0])
+        s = w[:, i, :, None] * s + k[:, i, :, None] * vv[:, None, :]
+    return torch.stack(outs, 1), s
+
+
+@pytest.mark.parametrize("decays", ["sigmoid", "mixed"])
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("tt", [1, 27, 64])
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+def test_tile_algebra_vs_pallas_and_oracle(n, tt, state, decays):
+    """The kernel's order of sums against JAX ``wkv6`` (Pallas, interpret)
+    and the JAX step loop, at every head size the kernel takes, with the
+    per-channel extreme decays {1e-6, 0.5, 1 - 1e-6, 1}.  Tolerance 1e-5:
+    all three run the same f32 steps and differ only in the order of the
+    sum over channels and in where the bonus is added: a few f32 ulps of
+    outputs of at most ~25 here (the decay-1 channels sum without decay)."""
+    r, k, v, w, u, s0 = wkv_inputs(2, tt, n, seed=100 + n + tt, state=state)
+    if decays == "mixed":
+        w = mixed_decays(2, tt, n)
+    arrs = (r, k, v, w, u, s0)
+    j_in = [None if a is None else jnp.asarray(a) for a in arrs]
+    o, s = tile_wkv6(*port_args(*arrs))
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    o_k, s_k = jops.wkv6(*j_in, bt=16)                  # Pallas, interpret
+    o_r, s_r = jref.wkv6_ref(*j_in)
+    for want_o, want_s in ((o_k, s_k), (o_r, s_r)):
+        close(o.numpy(), want_o, 1e-5)
+        close(s.numpy(), want_s, 1e-5)
+
+
+# ---------------------------------------------------------------------------
 # the dispatch rule
 # ---------------------------------------------------------------------------
 
