@@ -17,9 +17,11 @@ printing its lines; any failure exits non-zero before the last line:
    card at the reduced qwen2-7b shapes in f32 (D=14, G=2), with ragged
    lengths, -1 table entries, an empty sequence, a window, unaligned and
    page-aligned chunk starts, a 1-token chunk, tokens past the table and
-   int8 pools; both WKV kernels in f32 at N = 8, 16, 32 and 64, T = 1,
-   17, 27, 64, 96 and 512, with and without an initial state, the per-channel
-   extreme decays {1e-6, 0.5, 1 - 1e-6, 1}, a state handed over between
+   int8 pools (the copies also as pairs, K and V in one launch, on the
+   burst route in f32 and the rows route in bf16 and int8); both WKV
+   kernels in f32 at N = 8, 16, 32 and 64, T = 1, 17, 27, 64, 96 and
+   512, with and without an initial state, the per-channel extreme
+   decays {1e-6, 0.5, 1 - 1e-6, 1}, a state handed over between
    two calls, a decay of 1e-6 (and both WKV kernels' launch shapes at each
    N: threads, shared memory, blocks resident a SM); then the reduced
    engine on the card against
@@ -34,21 +36,27 @@ printing its lines; any failure exits non-zero before the last line:
    page 16, horizon 8) cold, in a pool tight enough to preempt; launch
    counts are zeroed just before and read just after, and every kernel of
    the cold path must have launched, every ``flash_attention`` launch on
-   its tensor-core (``wgmma``) route; then a short int8-pool run, and a
-   short workload that must give the same greedy tokens at horizon 8 and 1;
+   its tensor-core (``wgmma``) route, every ``paged_copy`` launch on its
+   burst route and one a layer of each ``prefill`` call (a layer's K and
+   V in one launch); then a short int8-pool run, and a short workload
+   that must give the same greedy tokens at horizon 8 and 1;
 5. continuation serve: the default policy (radix prefix cache, partial
    restore) at full width — a radix run (8 prompts sharing 0, 128 or 256
    tokens of one base) in a 64-frame pool that preempts and restores
    partially, a fork run (8 ``share_prefix`` requests on a preloaded
    200-token prompt) and a short int8 radix run; each zeroes the launch
    counts before and reads them after, and both continuation kernels must
-   have launched in each;
+   have launched in each, both copies on the burst route, one launch a
+   layer of each ``prefill`` / ``prefill_continue`` call;
 6. full-width check and timing: each kernel against its plain version on
    the largest inputs an untimed repeat of the serve runs gave it (bf16,
    within four bf16 steps of the largest output; copies bit-identical),
    then the device time of kernel, plain version and one PyTorch library
    call that computes the same function (a yardstick the port never
-   calls), from CUDA events around 50 back-to-back calls with a cold L2,
+   calls), from CUDA events around 50 back-to-back calls with a cold L2;
+   each copy is timed as the serve path launches it (K and V in one
+   launch, beside two ``index_copy_`` calls), for one tensor, and as its
+   floor (the same launch with ``lens`` all 0, which moves nothing),
    beside the least time the card could take (bytes / 3.35 TB/s or
    operations / 989 TFLOP/s bf16); ``flash_attention`` is also timed at
    a 4,096-token qwen2-7b prefill (q [1, 28, 4096, 128]) beside SDPA;
@@ -385,7 +393,8 @@ def reduced_checks() -> None:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_decode_attention
-    from repro_torch.kernels.paged_copy import paged_copy, paged_copy_at
+    from repro_torch.kernels.paged_copy import (
+        paged_copy, paged_copy_at, paged_copy_kv, paged_copy_kv_at)
     from repro_torch.kernels.paged_prefill_attention import (
         paged_prefill_attention,
     )
@@ -411,7 +420,16 @@ def reduced_checks() -> None:
         want = ref.paged_copy_ref(src, pool.clone(), table, lens,
                                   page_size=page)
         require(torch.equal(got, want), f"paged_copy {dtype} differs")
-    log("check reduced: paged_copy f32/bf16/int8 bit-identical")
+        src_v = src.flip(1)
+        got = paged_copy_kv(src, src_v, pool.clone(), pool.clone(), table,
+                            lens, page_size=page)
+        want = (want, ref.paged_copy_ref(src_v, pool.clone(), table, lens,
+                                         page_size=page))
+        require(all(torch.equal(g, w_) for g, w_ in zip(got, want)),
+                f"paged_copy_kv {dtype} differs")
+    log("check reduced: paged_copy and the pair paged_copy_kv f32/bf16/int8 "
+        "bit-identical; routes "
+        + json.dumps(ops.route_counts()["paged_copy"]))
     # flash attention: S not a multiple of the tile, G = 2, D = 14
     for s in (20, 100, 131):
         q = torch.randn((2, 4, s, 14), generator=gen, device=dev)
@@ -458,8 +476,21 @@ def reduced_checks() -> None:
         want = ref.paged_copy_at_ref(src, pool.clone(), table, starts, lens,
                                      page_size=page)
         require(torch.equal(got, want), f"paged_copy_at {dtype} differs")
-    log("check reduced: paged_copy_at f32/bf16/int8 bit-identical on the "
-        "whole pool")
+        src_v = src.flip(1)
+        got = paged_copy_kv_at(src, src_v, pool.clone(), pool.clone(), table,
+                               starts, lens, page_size=page)
+        want = (want, ref.paged_copy_at_ref(src_v, pool.clone(), table,
+                                            starts, lens, page_size=page))
+        require(all(torch.equal(g, w_) for g, w_ in zip(got, want)),
+                f"paged_copy_kv_at {dtype} differs")
+    routes = ops.route_counts()
+    require(routes["paged_copy"] == routes["paged_copy_at"]
+            == {"burst": 2, "rows": 4},
+            f"reduced copies: f32 rows of 112 bytes take the burst route, "
+            f"bf16 and int8 (56 and 28) the rows route: {routes}")
+    log("check reduced: paged_copy_at and the pair paged_copy_kv_at "
+        "f32/bf16/int8 bit-identical on the whole pool; routes "
+        + json.dumps(routes["paged_copy_at"]))
     # paged_prefill_attention: mid-page, aligned and zero starts, chunks of
     # 13, 1 and 8 (padded to 13), -1 past each row's pages, int8 pools
     for quant in (False, True):
@@ -735,18 +766,58 @@ CONT_KERNELS = ("paged_copy_at", "paged_prefill_attention")
 #: the paged attention kernels and their tensor-core routes
 PAGED_TC = {"paged_decode_attention": "mma",
             "paged_prefill_attention": "wgmma"}
+#: the copies and their route for the serve path's views
+COPY_FAST = {"paged_copy": "burst", "paged_copy_at": "burst"}
 
 
 def require_tensor_core_routes(tag, launches) -> dict:
     """Every launch of both paged attention kernels in a full-width run is
-    on its tensor-core route; returns the route counts."""
+    on its tensor-core route, and every launch of both copies on the burst
+    route; returns the route counts."""
     from repro_torch.kernels import ops
     routes = ops.route_counts()
-    for name, tc in PAGED_TC.items():
+    for name, tc in {**PAGED_TC, **COPY_FAST}.items():
         require(routes[name] == {**dict.fromkeys(routes[name], 0),
                                  tc: launches[name]},
-                f"{tag}: {name} off its tensor-core route: {routes[name]}")
+                f"{tag}: {name} off its {tc} route: {routes[name]}")
     return routes
+
+
+class PrefillTap:
+    """Within ``with``: counts the ``prefill`` and ``prefill_continue``
+    calls of ``model``'s class (the engine's int8 twin is a copy of the
+    model, so the class is patched, not the instance), so a run can
+    require one K/V copy launch a layer of each
+    (``require_copy_launches``)."""
+
+    NAMES = ("prefill", "prefill_continue")
+
+    def __init__(self, model):
+        self.cls, self.calls = type(model), dict.fromkeys(self.NAMES, 0)
+        self.saved = {n: self.cls.__dict__[n] for n in self.NAMES}
+
+    def __enter__(self):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, self._counted(name, fn))
+        return self
+
+    def _counted(self, name, fn):
+        def counted(model, *args, **kw):
+            self.calls[name] += 1
+            return fn(model, *args, **kw)
+        return counted
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+
+    def require_copy_launches(self, tag, launches, layers: int) -> None:
+        """One pair launch a layer of every prefill: K and V share it."""
+        want = {"paged_copy": layers * self.calls["prefill"],
+                "paged_copy_at": layers * self.calls["prefill_continue"]}
+        got = {k: launches[k] for k in want}
+        require(got == want, f"{tag}: copy launches {got}, want one a layer "
+                             f"of each prefill {want}")
 
 #: the continuation phase: the default policy (radix prefix cache on,
 #: partial restore after 6 blocked restore passes), page 16, horizon 8, 4
@@ -835,7 +906,8 @@ def serve_phase(cfg, model, params):
     scfg = ServeConfig(**SERVE)
     reqs = serve_workload(cfg.vocab_size, **WORKLOAD)
     ops.reset_launch_counts()
-    eng, res, dt = run_engine(model, params, scfg, reqs)
+    with PrefillTap(model) as tap:
+        eng, res, dt = run_engine(model, params, scfg, reqs)
     launches = ops.launch_counts()
     report("serve", eng, res, dt)
     log("serve launches: " + json.dumps(launches))
@@ -848,6 +920,10 @@ def serve_phase(cfg, model, params):
         "wgmma": launches["flash_attention"], "simt": 0},
         f"flash_attention off the tensor-core route: {routes}")
     require_tensor_core_routes("serve", launches)
+    tap.require_copy_launches("serve", launches, cfg.num_layers)
+    log(f"serve: {tap.calls['prefill']} prefill calls x {cfg.num_layers} "
+        f"layers = {launches['paged_copy']} paged_copy launches, each "
+        "writing K and V")
     require(c.get("ref_path_dispatches") == 0, "plain-path dispatches")
     require(c.get("preemptions") > 0, "the pool never preempted")
     require(st["bytes_spilled"] == st["bytes_restored"] > 0,
@@ -862,14 +938,16 @@ def serve_phase(cfg, model, params):
 
     # int8 pools: the quantized decode variant on the serve path
     ops.reset_launch_counts()
-    eng, res, dt = run_engine(
-        model, params, dataclasses.replace(scfg, kv_dtype="int8"),
-        serve_workload(cfg.vocab_size, **SHORT))
+    with PrefillTap(model) as tap:
+        eng, res, dt = run_engine(
+            model, params, dataclasses.replace(scfg, kv_dtype="int8"),
+            serve_workload(cfg.vocab_size, **SHORT))
     launches_q = ops.launch_counts()
     report("serve int8", eng, res, dt)
     log("serve int8 launches: " + json.dumps(launches_q))
     log("serve int8 routes: " + json.dumps(
         require_tensor_core_routes("serve int8", launches_q)))
+    tap.require_copy_launches("serve int8", launches_q, cfg.num_layers)
     require(all(r.status == "done" for r in res.values()),
             "int8 run did not finish")
     require(launches_q["paged_decode_attention"] > 0,
@@ -920,7 +998,7 @@ def continuation_phase(cfg, model, params) -> dict[str, dict[str, int]]:
     counts = {}
     for tag, scfg, prefix, reqs in continuation_runs(cfg):
         ops.reset_launch_counts()
-        with GatherTap() as tap:
+        with GatherTap() as tap, PrefillTap(model) as calls:
             eng, res, dt = run_engine(model, params, scfg, reqs, prefix)
         launches = ops.launch_counts()
         counts[tag] = launches
@@ -928,6 +1006,9 @@ def continuation_phase(cfg, model, params) -> dict[str, dict[str, int]]:
         log(f"{tag} launches: " + json.dumps(launches))
         log(f"{tag} routes: " + json.dumps(
             require_tensor_core_routes(tag, launches)))
+        calls.require_copy_launches(tag, launches, cfg.num_layers)
+        log(f"{tag}: {calls.calls} model calls, one K/V copy launch a layer "
+            "of each")
         c = eng.counters
         require(tap.counted == c.get("prefill_bytes_gathered"),
                 f"{tag}: the gather tap missed a continuation call")
@@ -1007,16 +1088,16 @@ class GatherTap:
 
 
 class ChunkTap:
-    """Wraps ``ops.paged_copy_at`` and remembers the chunk lengths of its
+    """Wraps ``ops.paged_copy_kv_at`` and remembers the chunk lengths of its
     last call: the continuation attention that follows in the same layer
     runs on those chunks."""
 
     def __init__(self, fn):
         self.fn, self.lens = fn, None
 
-    def __call__(self, src, pool, pt, starts, lens, **kw):
+    def __call__(self, k, v, kp, vp, pt, starts, lens, **kw):
         self.lens = lens
-        return self.fn(src, pool, pt, starts, lens, **kw)
+        return self.fn(k, v, kp, vp, pt, starts, lens, **kw)
 
 
 def attended_pairs(starts, chunks) -> int:
@@ -1038,19 +1119,22 @@ def record_inputs(cfg, model, params):
         return lambda q, kp, vp, pt, starts, **kw: attended_pairs(
             starts[:q.shape[0]].tolist(), tap.lens[:q.shape[0]].tolist())
 
-    cold = ("paged_copy", "flash_attention", "paged_decode_attention")
-    saved = {n: getattr(ops, n) for n in (*cold, *CONT_KERNELS)}
+    # the ops the serve path calls: the copies as pairs (K and V)
+    cold = ("paged_copy_kv", "flash_attention", "paged_decode_attention")
+    saved = {n: getattr(ops, n) for n in (*cold, "paged_copy_kv_at",
+                                          "paged_prefill_attention")}
     rec = {
         "paged_copy": Recorder(
-            ops.paged_copy, lambda src, pool, pt, lens, **k: int(lens.sum())),
+            ops.paged_copy_kv,
+            lambda k, v, kp, vp, pt, lens, **kw: int(lens.sum())),
         "flash_attention": Recorder(
             ops.flash_attention, lambda q, k, v, **kw: q.numel()),
         "paged_decode_attention": Recorder(
             ops.paged_decode_attention,
             lambda q, kp, vp, pt, sl, **kw: int(sl[:q.shape[0]].sum())),
         "paged_copy_at": Recorder(
-            ops.paged_copy_at,
-            lambda src, pool, pt, st, lens, **k: int(lens.sum())),
+            ops.paged_copy_kv_at,
+            lambda k, v, kp, vp, pt, st, lens, **kw: int(lens.sum())),
     }
     tap = ChunkTap(rec["paged_copy_at"])
     rec["paged_prefill_attention"] = Recorder(
@@ -1058,7 +1142,7 @@ def record_inputs(cfg, model, params):
         keep=lambda: tap.lens.clone())
     rec_q = Recorder(saved["paged_decode_attention"],
                      rec["paged_decode_attention"].work)
-    tap_q = ChunkTap(saved["paged_copy_at"])
+    tap_q = ChunkTap(saved["paged_copy_kv_at"])
     rec_pq = Recorder(saved["paged_prefill_attention"], pairs(tap_q),
                       keep=lambda: tap_q.lens.clone())
 
@@ -1071,18 +1155,19 @@ def record_inputs(cfg, model, params):
         # each run records only the kernels of its own path, so the cold
         # rows keep the shapes of the cold serve run
         scfg = ServeConfig(**SERVE)
-        use(**{n: rec[n] for n in cold})
+        use(paged_copy_kv=rec["paged_copy"],
+            **{n: rec[n] for n in cold[1:]})
         run_engine(model, params, scfg,
                    serve_workload(cfg.vocab_size, **WORKLOAD))
         use(paged_decode_attention=rec_q)
         run_engine(model, params, dataclasses.replace(scfg, kv_dtype="int8"),
                    serve_workload(cfg.vocab_size, **SHORT))
         runs = continuation_runs(cfg)
-        use(paged_copy_at=tap,
+        use(paged_copy_kv_at=tap,
             paged_prefill_attention=rec["paged_prefill_attention"])
         for _, ccfg, prefix, reqs in runs[:2]:
             run_engine(model, params, ccfg, reqs, prefix)
-        use(paged_copy_at=tap_q, paged_prefill_attention=rec_pq)
+        use(paged_copy_kv_at=tap_q, paged_prefill_attention=rec_pq)
         _, ccfg, prefix, reqs = runs[2]
         run_engine(model, params, ccfg, reqs, prefix)
     finally:
@@ -1099,6 +1184,107 @@ def bound(nbytes: float, flops: float):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def copy_rows(best, launches) -> dict:
+    """The recorded pair call of a copy (``paged_copy_kv``, or
+    ``paged_copy_kv_at`` with ``starts``): the pair launch and the
+    single-tensor launch (K alone) bit-identical to the plain versions on
+    the whole pools and on the burst route, and ``lens`` all 0 leaving the
+    pools untouched; then the device times of the pair (bound: both
+    tensors' rows read and written once, the table and the lengths; the
+    library call: two ``index_copy_`` on the flat pools), of one tensor,
+    and of the floor (the pair launch with ``lens`` all 0: every block
+    exits after reading its lengths).  Prints the single and floor rows
+    and returns the pair's, which the kernels line carries."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_copy import (
+        paged_copy, paged_copy_at, paged_copy_kv, paged_copy_kv_at)
+    args, kw = best
+    at = len(args) == 7
+    k, v, kp, vp, pt = args[:5]
+    starts, lens = (args[5], args[6]) if at else (None, args[5])
+    page = kw["page_size"]
+    name = "paged_copy_at" if at else "paged_copy"
+    extra = (starts,) if at else ()
+
+    def pair(kp_, vp_, lens_=lens):
+        fn = paged_copy_kv_at if at else paged_copy_kv
+        return fn(k, v, kp_, vp_, pt, *extra, lens_, page_size=page)
+
+    def single(kp_):
+        fn = paged_copy_at if at else paged_copy
+        return fn(k, kp_, pt, *extra, lens, page_size=page)
+
+    def plain(src, pool, lens_=lens):
+        fn = ref.paged_copy_at_ref if at else ref.paged_copy_ref
+        return fn(src, pool, pt, *extra, lens_, page_size=page)
+
+    ops.reset_launch_counts()
+    got = pair(kp.clone(), vp.clone())
+    want = (plain(k, kp.clone()), plain(v, vp.clone()))
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            f"{name} pair differs at serve shapes")
+    require(torch.equal(single(kp.clone()), want[0]),
+            f"{name} single differs at serve shapes")
+    zero = torch.zeros_like(lens)
+    require(all(torch.equal(g, w) for g, w in zip(
+        pair(kp.clone(), vp.clone(), zero), (kp, vp))),
+        f"{name} with lens 0 wrote to the pools")
+    require(ops.route_counts()[name] == {"burst": 3, "rows": 0},
+            f"{name}: the recorded calls are off the burst route: "
+            f"{ops.route_counts()[name]}")
+    b, s, w = k.shape
+    n_tok = int(lens[:b].sum())
+    row_bytes = w * k.element_size()
+    small = pt.numel() * 4 + b * 4 * (1 + at)      # table, lens, starts
+    tok = torch.arange(s, device=k.device)
+    pos = tok.expand(b, -1) + (starts[:b, None].long() if at else 0)
+    valid = tok[None, :] < lens[:b, None]
+    vpn = (pos // page).clamp(max=pt.shape[1] - 1)
+    flat_rows = (pt[:b].long().gather(1, vpn) * page + pos % page)[valid]
+    flat = (k[valid], v[valid])
+    work = (kp.clone(), vp.clone())
+    flat_pools = [x.view(-1, w) for x in work]
+
+    def lib_pair():
+        for pool_, src_ in zip(flat_pools, flat):
+            pool_.index_copy_(0, flat_rows, src_)
+
+    ms = time_ms(lambda: pair(*work))
+    plain_ms = time_ms(lambda: (plain(k, work[0]), plain(v, work[1])))
+    lib = time_ms(lib_pair)
+    ms1 = time_ms(lambda: single(work[0]))
+    plain1 = time_ms(lambda: plain(k, work[0]))
+    lib1 = time_ms(lambda: flat_pools[0].index_copy_(0, flat_rows, flat[0]))
+    floor = time_ms(lambda: pair(*work, zero))
+    b2, by2 = bound(2 * 2 * n_tok * row_bytes + small, 0)
+    b1, by1 = bound(2 * n_tok * row_bytes + small, 0)
+    bf, byf = bound(small, 0)
+    shape = (f"src {list(k.shape)} {k.dtype}, pool {list(kp.shape)}, "
+             f"{n_tok} tokens" + (f" at starts {starts[:b].tolist()}"
+                                  if at else ""))
+    peak = float(k.float().abs().max())
+    print_rows([
+        dict(name=f"{name}_single", shape=f"K only: {shape}",
+             max_abs_err=0.0, max_abs_want=peak, ms=ms1, plain_ms=plain1,
+             bound_ms=b1, bound_by=by1, library_ms=lib1,
+             library="index_copy_ on the flat pool", launches=None),
+        dict(name=f"{name}_floor", shape=f"K and V, lens all 0: {shape}",
+             max_abs_err=0.0, max_abs_want=0.0, ms=floor, plain_ms=0.0,
+             bound_ms=bf, bound_by=byf, library_ms=None, library=None,
+             launches=None)])
+    log(f"kernel {name}: pair {ms:.5f} ms, single {ms1:.5f} ms, floor "
+        f"{floor:.5f} ms; pair - floor {ms - floor:.5f} ms = "
+        f"{(ms - floor) / b2:.2f}x its bound {b2:.5f} ms; single - floor "
+        f"{ms1 - floor:.5f} ms = {(ms1 - floor) / b1:.2f}x its bound "
+        f"{b1:.5f} ms; two index_copy_ {lib:.5f} ms")
+    return dict(name=name, shape=f"K and V in one launch: {shape}",
+                max_abs_err=0.0, max_abs_want=peak, ms=ms, plain_ms=plain_ms,
+                bound_ms=b2, bound_by=by2, library_ms=lib,
+                library="two index_copy_ on the flat pools (K, V)",
+                launches=launches)
+
+
 def full_checks(rec, rec_q, launches, launches_q) -> list[dict]:
     """Kernel vs plain version on the recorded serve inputs, then timings.
     bf16 attention tolerance: four bf16 steps of the largest output,
@@ -1111,35 +1297,10 @@ def full_checks(rec, rec_q, launches, launches_q) -> list[dict]:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_decode_attention
-    from repro_torch.kernels.paged_copy import paged_copy
     rows = []
 
-    # paged_copy — bit-identical
-    (src, pool, pt, lens), kw = rec["paged_copy"].best
-    page = kw["page_size"]
-    got = paged_copy(src, pool.clone(), pt, lens, page_size=page)
-    want = ref.paged_copy_ref(src, pool.clone(), pt, lens, page_size=page)
-    require(torch.equal(got, want), "paged_copy differs at serve shapes")
-    n_tok = int(lens.sum())
-    w = src.shape[2]
-    nbytes = 2 * n_tok * w * src.element_size() + pt.numel() * 4 + lens.numel() * 4
-    tok = torch.arange(src.shape[1], device=src.device)
-    valid = tok[None, :] < lens[:, None]
-    flat_rows = (pt.long()[:, tok // page] * page + tok % page)[valid]
-    flat_src = src[valid]
-    work = pool.clone()
-    ms = time_ms(lambda: paged_copy(src, work, pt, lens, page_size=page))
-    plain = time_ms(lambda: ref.paged_copy_ref(src, work, pt, lens,
-                                               page_size=page))
-    lib = time_ms(lambda: work.view(-1, w).index_copy_(0, flat_rows, flat_src))
-    b_ms, b_by = bound(nbytes, 0)
-    rows.append(dict(name="paged_copy", shape=f"src {list(src.shape)} "
-                     f"{src.dtype}, pool {list(pool.shape)}, {n_tok} tokens",
-                     max_abs_err=0.0, max_abs_want=float(src.abs().max()),
-                     ms=ms, plain_ms=plain, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=lib,
-                     library="index_copy_ on the flat pool",
-                     launches=launches["paged_copy"]))
+    # paged_copy — the pair launch, one tensor and the floor
+    rows.append(copy_rows(rec["paged_copy"].best, launches["paged_copy"]))
 
     # flash attention
     (q, k, v), kw = rec["flash_attention"].best
@@ -1258,7 +1419,6 @@ def continuation_checks(rec, rec_pq, counts) -> list[dict]:
     those bytes too)."""
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.paged_copy import paged_copy_at
     from repro_torch.kernels.paged_prefill_attention import (
         paged_prefill_attention,
         pages_touched,
@@ -1269,37 +1429,9 @@ def continuation_checks(rec, rec_pq, counts) -> list[dict]:
     served = {k: counts["radix"][k] + counts["fork"][k]
               for k in CONT_KERNELS}
 
-    # paged_copy_at — bit-identical on the whole pool
-    (src, pool, pt, starts, lens), kw = rec["paged_copy_at"].best
-    page = kw["page_size"]
-    got = paged_copy_at(src, pool.clone(), pt, starts, lens, page_size=page)
-    want = ref.paged_copy_at_ref(src, pool.clone(), pt, starts, lens,
-                                 page_size=page)
-    require(torch.equal(got, want), "paged_copy_at differs at serve shapes")
-    b, s, w = src.shape
-    n_tok = int(lens[:b].sum())
-    nbytes = (2 * n_tok * w * src.element_size() + pt.numel() * 4
-              + 2 * b * 4)
-    tok = torch.arange(s, device=src.device)
-    pos = starts[:b, None].long() + tok[None, :]
-    valid = tok[None, :] < lens[:b, None]
-    vpn = (pos // page).clamp(max=pt.shape[1] - 1)
-    flat_rows = (pt[:b].long().gather(1, vpn) * page + pos % page)[valid]
-    flat_src = src[valid]
-    work = pool.clone()
-    ms = time_ms(lambda: paged_copy_at(src, work, pt, starts, lens,
-                                       page_size=page))
-    plain = time_ms(lambda: ref.paged_copy_at_ref(src, work, pt, starts, lens,
-                                                  page_size=page))
-    lib = time_ms(lambda: work.view(-1, w).index_copy_(0, flat_rows, flat_src))
-    b_ms, b_by = bound(nbytes, 0)
-    rows.append(dict(name="paged_copy_at", shape=f"src {list(src.shape)} "
-                     f"{src.dtype}, pool {list(pool.shape)}, {n_tok} tokens "
-                     f"at starts {starts[:b].tolist()}", max_abs_err=0.0,
-                     max_abs_want=float(src.abs().max()), ms=ms,
-                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=lib, library="index_copy_ on the flat pool",
-                     launches=served["paged_copy_at"]))
+    # paged_copy_at — the pair launch, one tensor and the floor
+    rows.append(copy_rows(rec["paged_copy_at"].best,
+                          served["paged_copy_at"]))
 
     # paged_prefill_attention (bf16 pools, then int8 pools)
     for tag, r, n_launch in (

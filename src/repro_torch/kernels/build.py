@@ -40,11 +40,7 @@ _F = ctypes.c_float
 #: ``cudaError_t`` as an int.  One source may hold several launchers.
 SIGNATURES = {
     "paged_copy": ("paged_copy", "paged_copy_launch",
-                   [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL,
-                    _LL, _I, _P]),
-    "paged_copy_at": ("paged_copy", "paged_copy_at_launch",
-                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL,
-                       _LL, _LL, _LL, _I, _P]),
+                   [_P] * 7 + [_I] * 6 + [_LL] * 6 + [_I, _P]),
     "flash_attention": ("flash_attention", "flash_attention_launch",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                          _P, _I, _P]),

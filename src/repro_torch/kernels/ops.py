@@ -26,8 +26,12 @@ from repro_torch.kernels.paged_attention import (
 from repro_torch.kernels.paged_copy import (
     check_paged_copy,
     check_paged_copy_at,
+    check_paged_copy_kv,
+    check_paged_copy_kv_at,
     paged_copy as _paged_copy_kernel,
     paged_copy_at as _paged_copy_at_kernel,
+    paged_copy_kv as _paged_copy_kv_kernel,
+    paged_copy_kv_at as _paged_copy_kv_at_kernel,
 )
 from repro_torch.kernels.paged_gather import (
     check_paged_gather,
@@ -75,7 +79,8 @@ def route_counts() -> dict[str, dict[str, int]]:
     """Launches per route of the kernels that have two (``matmul``:
     ``matmul_route``; ``flash_attention``: ``flash_route``;
     ``paged_decode_attention``: ``decode_route``;
-    ``paged_prefill_attention``: ``prefill_route``)."""
+    ``paged_prefill_attention``: ``prefill_route``; ``paged_copy`` and
+    ``paged_copy_at``: ``copy_route``)."""
     return {name: dict(fn.routes) for name, fn in KERNELS.items()
             if hasattr(fn, "routes")}
 
@@ -146,6 +151,36 @@ def paged_copy_at(src, pool, page_table, starts, lens, *, page_size: int,
                                      page_size=page_size)
     return _paged_copy_at_kernel(src, pool, page_table, starts, lens,
                                  page_size=page_size)
+
+
+def paged_copy_kv(k_src, v_src, k_pool, v_pool, page_table, lens, *,
+                  page_size: int, use_kernel: bool = True):
+    """:func:`paged_copy` of a layer's K and V, one launch on the card;
+    returns ``(k_pool, v_pool)``."""
+    if _plain(k_src, use_kernel):
+        check_paged_copy_kv(k_src, v_src, k_pool, v_pool, page_table, lens,
+                            page_size)
+        for src, pool in ((k_src, k_pool), (v_src, v_pool)):
+            ref.paged_copy_ref(src, pool, page_table, lens,
+                               page_size=page_size)
+        return k_pool, v_pool
+    return _paged_copy_kv_kernel(k_src, v_src, k_pool, v_pool, page_table,
+                                 lens, page_size=page_size)
+
+
+def paged_copy_kv_at(k_src, v_src, k_pool, v_pool, page_table, starts, lens,
+                     *, page_size: int, use_kernel: bool = True):
+    """:func:`paged_copy_at` of a layer's K and V, one launch on the card;
+    returns ``(k_pool, v_pool)``."""
+    if _plain(k_src, use_kernel):
+        check_paged_copy_kv_at(k_src, v_src, k_pool, v_pool, page_table,
+                               starts, lens, page_size)
+        for src, pool in ((k_src, k_pool), (v_src, v_pool)):
+            ref.paged_copy_at_ref(src, pool, page_table, starts, lens,
+                                  page_size=page_size)
+        return k_pool, v_pool
+    return _paged_copy_kv_at_kernel(k_src, v_src, k_pool, v_pool, page_table,
+                                    starts, lens, page_size=page_size)
 
 
 def paged_gather(pool, page_table_row, positions, *, page_size: int,

@@ -8,12 +8,12 @@ Port of the dense family of ``src/repro/models/transformer.py``:
   * weights keep the JAX ``[in, out]`` layout and are applied as ``x @ W``
     (no transpose in the bridge);
   * serving reads/writes the KV cache through the paged virtual-memory
-    subsystem: prefill writes KV with one translation per page burst
-    (``paged_copy``) and attends within the chunk (``flash_attention``);
-    continuation prefill writes at an arbitrary logical offset
-    (``paged_copy_at``) and attends over cache plus chunk through the
-    page table (``paged_prefill_attention``); decode attends through the
-    page table (``paged_decode_attention``);
+    subsystem: prefill writes a layer's K and V in one launch, one
+    translation per page burst (``paged_copy_kv``), and attends within the
+    chunk (``flash_attention``); continuation prefill writes at an
+    arbitrary logical offset (``paged_copy_kv_at``) and attends over cache
+    plus chunk through the page table (``paged_prefill_attention``);
+    decode attends through the page table (``paged_decode_attention``);
   * the KV pools are updated IN PLACE (JAX returns new, donated pools);
     every serve entry point returns the state it was given, with new
     ``seq_lens``.
@@ -174,16 +174,18 @@ class TransformerLM:
         x = self.embed(params, tokens)
         for li, block_p in enumerate(params["blocks"]):
             q, k, v = self._block_serve_qkv(block_p, x, rope)
-            # unit-stride burst write through the page table (C2-burst);
-            # the pool stores its own dtype (quantized under int8), the
-            # chunk's own attention below keeps the raw activations
-            for t, pools in ((k, state.k_pools), (v, state.v_pools)):
-                ops.paged_copy(
-                    self._kv_quant(t).reshape(b, s, hkv * hd),
-                    pools[li].view(-1, page, hkv * hd),
-                    state.page_table, prompt_lens, page_size=page,
-                    use_kernel=self.use_kernels,
-                )
+            # unit-stride burst write of K and V through the page table
+            # (C2-burst), one launch; the pool stores its own dtype
+            # (quantized under int8), the chunk's own attention below keeps
+            # the raw activations
+            ops.paged_copy_kv(
+                self._kv_quant(k).reshape(b, s, hkv * hd),
+                self._kv_quant(v).reshape(b, s, hkv * hd),
+                state.k_pools[li].view(-1, page, hkv * hd),
+                state.v_pools[li].view(-1, page, hkv * hd),
+                state.page_table, prompt_lens, page_size=page,
+                use_kernel=self.use_kernels,
+            )
             o = ops.flash_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 causal=True, use_kernel=self.use_kernels,
@@ -205,9 +207,10 @@ class TransformerLM:
 
         Extends sequences that already hold ``start_lens [B]`` tokens in
         the paged cache by padded chunks ``tokens [B, S]`` (true lengths
-        ``chunk_lens [B]``): per layer, K/V are written at logical
-        positions ``start + t`` through the page table (``paged_copy_at``,
-        quantized under int8), then each chunk query attends causally over
+        ``chunk_lens [B]``): per layer, K and V are written in one launch
+        at logical positions ``start + t`` through the page table
+        (``paged_copy_kv_at``, quantized under int8), then each chunk
+        query attends causally over
         cache plus chunk through the table (``paged_prefill_attention``).
         The host must have mapped pages covering ``[start, start + chunk)``.
         Returns (logits of each row's last chunk token [B, V], state with
@@ -223,13 +226,14 @@ class TransformerLM:
         x = self.embed(params, tokens)
         for li, block_p in enumerate(params["blocks"]):
             q, k, v = self._block_serve_qkv(block_p, x, rope)
-            for t, pools in ((k, state.k_pools), (v, state.v_pools)):
-                ops.paged_copy_at(
-                    self._kv_quant(t).reshape(b, s, hkv * hd),
-                    pools[li].view(-1, page, hkv * hd),
-                    state.page_table, start_lens, chunk_lens, page_size=page,
-                    use_kernel=self.use_kernels,
-                )
+            ops.paged_copy_kv_at(
+                self._kv_quant(k).reshape(b, s, hkv * hd),
+                self._kv_quant(v).reshape(b, s, hkv * hd),
+                state.k_pools[li].view(-1, page, hkv * hd),
+                state.v_pools[li].view(-1, page, hkv * hd),
+                state.page_table, start_lens, chunk_lens, page_size=page,
+                use_kernel=self.use_kernels,
+            )
             o = ops.paged_prefill_attention(
                 q.reshape(b, s, hkv, g, hd), state.k_pools[li],
                 state.v_pools[li], state.page_table, start_lens,

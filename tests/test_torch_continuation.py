@@ -10,14 +10,16 @@ small cases, ``repro.kernels.ref`` on the rest.
   * paged_copy_at: the whole pool bit-identical to the Pallas kernel and
     to the JAX oracle (f32 and int8), with unaligned and page-aligned
     starts, a chunk that touches both edge pages, a 1-token chunk, padded
-    rows, -1 entries and tokens past the table;
+    rows, -1 entries and tokens past the table; the pair dispatcher (K
+    and V in one call) against two Pallas calls;
   * paged_prefill_attention: atol = rtol = 1e-5 in f32 on real rows (both
     sides accumulate in f32, only the summation order differs), for the
     cases of ``tests/test_paged_prefill_attention.py`` and int8 pools;
   * prefill_continue: the port against JAX (``use_kernels=False``) on the
     reduced qwen2-7b, native and int8;
   * the Engine with the default policy, forks of a preloaded prefix, and a
-    temperature stream through a prefix hit.
+    temperature stream through a prefix hit; a spy shows ``prefill`` and
+    ``prefill_continue`` dispatching one K/V copy a layer.
 """
 
 import copy
@@ -98,6 +100,26 @@ class TestPagedCopyAt:
                                 t(lens), page_size=page).numpy()
         np.testing.assert_array_equal(got, kernel)
         np.testing.assert_array_equal(got, oracle)
+
+    @pytest.mark.parametrize("case", sorted(COPY_CASES))
+    @pytest.mark.parametrize("dtype", [np.float32, np.int8])
+    def test_pair_bit_identical_to_two_pallas_calls(self, case, dtype):
+        """``ops.paged_copy_kv_at`` (plain route) writes K and V as two
+        calls of JAX's ``ops.paged_copy_at`` (Pallas, interpret) do."""
+        k_src, k_pool, table, starts, lens, page = copy_case(
+            len(case) + 20, dtype, *COPY_CASES[case])
+        v_src, v_pool, _, _, _, _ = copy_case(len(case) + 40, dtype,
+                                              *COPY_CASES[case])
+        want = [np.asarray(jops.paged_copy_at(
+            *(jnp.asarray(a) for a in (src, pool, table, starts, lens)),
+            page_size=page)) for src, pool in ((k_src, k_pool),
+                                               (v_src, v_pool))]
+        kp, vp = t(k_pool), t(v_pool)
+        out = ops.paged_copy_kv_at(t(k_src), t(v_src), kp, vp, t(table),
+                                   t(starts), t(lens), page_size=page)
+        assert out[0] is kp and out[1] is vp
+        np.testing.assert_array_equal(kp.numpy(), want[0])
+        np.testing.assert_array_equal(vp.numpy(), want[1])
 
     def test_edge_pages_keep_their_other_rows(self):
         """Start 2, 9 tokens, page 4: rows 0-1 of the first page and row 3
@@ -393,6 +415,45 @@ def test_default_policy_engine_matches_jax_engine(models, max_horizon,
     assert te.counters.get("partial_restores") > 0
     assert te.counters.get("prefix_hits") > 0
     assert len(tdone) == len(wl)
+    assert_same(te, tdone, je, jdone, COUNTERS)
+
+
+def test_prefill_paths_dispatch_one_copy_a_layer(models, monkeypatch):
+    """Spied on the default-policy workload: every ``prefill`` and
+    ``prefill_continue`` dispatches one pair copy a layer
+    (``ops.paged_copy_kv`` / ``ops.paged_copy_kv_at``) and no
+    single-tensor copy, with tokens and counters still the JAX
+    engine's."""
+    jm, jp, tm, tp = models
+    calls = dict.fromkeys(("prefill", "prefill_continue", "paged_copy_kv",
+                           "paged_copy_kv_at", "paged_copy",
+                           "paged_copy_at"), 0)
+
+    def spy(owner, name):
+        fn = getattr(owner, name)
+
+        def counted(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        monkeypatch.setattr(owner, name, counted)
+
+    for name in ("paged_copy_kv", "paged_copy_kv_at", "paged_copy",
+                 "paged_copy_at"):
+        spy(ops, name)
+    tm = build_model(tm.cfg, device="cpu")
+    spy(tm, "prefill")
+    spy(tm, "prefill_continue")
+    kw = dict(page_size=4, num_pages=16, max_pages_per_seq=16, max_batch=3)
+    wl = shared_base_workload(tm.cfg.vocab_size)
+    je, jdone = run(JaxEngine, JaxServeRequest, jm, jp, JaxServeConfig(**kw),
+                    wl)
+    te, tdone = run(Engine, ServeRequest, tm, tp, ServeConfig(**kw), wl)
+    layers = tm.cfg.num_layers
+    assert calls["prefill"] > 0 and calls["prefill_continue"] > 0
+    assert calls["paged_copy_kv"] == layers * calls["prefill"]
+    assert calls["paged_copy_kv_at"] == layers * calls["prefill_continue"]
+    assert calls["paged_copy"] == calls["paged_copy_at"] == 0
+    assert te.counters.get("prefix_hits") > 0
     assert_same(te, tdone, je, jdone, COUNTERS)
 
 

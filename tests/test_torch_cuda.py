@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.paged_copy import ROUTES as COPY_ROUTES
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
 
@@ -118,6 +119,166 @@ def test_paged_copy_at_bit_identical(gen, dtype):
                                  page_size=page)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def rand_like_kv(gen, shape, dtype):
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int32).to(torch.int8)
+    return torch.randn(shape, generator=gen, device="cuda").mul(50).to(dtype)
+
+
+def assert_pair_copy(srcs, pools, table, starts, lens, page, route):
+    """One pair launch on ``route`` into ``pools`` (views kept as given),
+    both random-filled pools bit-identical over their whole extent to two
+    plain calls on copies."""
+    name = "paged_copy" if starts is None else "paged_copy_at"
+    ops.reset_launch_counts()
+    got = pools
+    want = [p.clone() for p in pools]
+    if starts is None:
+        ops.paged_copy_kv(*srcs, *got, table, lens, page_size=page)
+        for src, pool in zip(srcs, want):
+            ref.paged_copy_ref(src, pool, table, lens, page_size=page)
+    else:
+        ops.paged_copy_kv_at(*srcs, *got, table, starts, lens,
+                             page_size=page)
+        for src, pool in zip(srcs, want):
+            ref.paged_copy_at_ref(src, pool, table, starts, lens,
+                                  page_size=page)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ops.launch_counts()[name] == 1
+    assert ops.route_counts()[name] == {**dict.fromkeys(COPY_ROUTES, 0),
+                                        route: 1}
+
+
+def pair_case(gen, dtype, page, *, at, zero=False):
+    """Five rows of S = 2 page + 3 (not a multiple of the page), W 512:
+    lens S, 1, a partial tail, 0 and S - 1 (all 0 with ``zero``); a -1
+    entry in row 2; for the continuation copy, starts mid-page, aligned, 0
+    and near the end of the table, so row 4 runs past it."""
+    b, s, w = 5, 2 * page + 3, 512
+    maxp = 4 if at else 3
+    frames = b * maxp + 3
+    srcs = [rand_like_kv(gen, (b, s, w), dtype) for _ in range(2)]
+    pools = [rand_like_kv(gen, (frames, page, w), dtype) for _ in range(2)]
+    table = torch.randperm(frames, generator=gen, device="cuda").int()[
+        : b * maxp].view(b, maxp).contiguous()
+    table[2, 1] = -1
+    lens = [0] * b if zero else [s, 1, page + 5, 0, s - 1]
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    starts = None
+    if at:
+        starts = torch.tensor([page // 2 + 1, page, 3, 0, 3 * page - 2],
+                              dtype=torch.int32, device="cuda")
+    return srcs, pools, table, starts, lens
+
+
+@pytest.mark.parametrize("zero", [False, True])
+@pytest.mark.parametrize("at", [False, True])
+@pytest.mark.parametrize("page", [4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_paged_copy_pair_bit_identical(gen, dtype, page, at, zero):
+    """Both pair forms on the burst route: partial tail pages, an unmapped
+    page, a 1-token chunk, an empty row, unaligned starts ending mid-page,
+    a row past the table, and ``lens`` all 0."""
+    srcs, pools, table, starts, lens = pair_case(gen, dtype, page, at=at,
+                                                 zero=zero)
+    assert_pair_copy(srcs, pools, table, starts, lens, page, "burst")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_paged_copy_pair_today_cases(gen, dtype):
+    """The single-tensor card tests' cases through the pair forms."""
+    b, s, w, page = 4, 37, 512, 16
+    srcs = [rand_like_kv(gen, (b, s, w), dtype) for _ in range(2)]
+    pools = [rand_like_kv(gen, (20, page, w), dtype) for _ in range(2)]
+    table = torch.randperm(20, generator=gen, device="cuda").int()[
+        : b * 3].view(b, 3).contiguous()
+    table[3, 1:] = -1
+    lens = torch.tensor([37, 16, 1, 9], dtype=torch.int32, device="cuda")
+    assert_pair_copy(srcs, pools, table, None, lens, page, "burst")
+    b, maxp = 5, 6
+    srcs = [rand_like_kv(gen, (b, s, w), dtype) for _ in range(2)]
+    pools = [rand_like_kv(gen, (40, page, w), dtype) for _ in range(2)]
+    table = torch.randperm(40, generator=gen, device="cuda").int()[
+        : b * maxp].view(b, maxp).contiguous()
+    table[3, 2] = -1
+    starts = torch.tensor([5, 32, 77, 20, 70], dtype=torch.int32,
+                          device="cuda")
+    lens = torch.tensor([37, 16, 1, 30, 37], dtype=torch.int32, device="cuda")
+    assert_pair_copy(srcs, pools, table, starts, lens, page, "burst")
+
+
+@pytest.mark.parametrize("at", [False, True])
+def test_paged_copy_pair_serve_shape(gen, at):
+    """The serve path's shapes: the cold prefill's src [4, 368, 512] bf16
+    (1,092 tokens, 72 frames) and the fork's [3, 240, 512] at start 200."""
+    page, w, dt = 16, 512, torch.bfloat16
+    if not at:
+        b, s, frames, maxp, starts = 4, 368, 72, 36, None
+        lens = [368, 290, 250, 184]
+        first = [0] * b
+    else:
+        b, s, frames, maxp = 3, 240, 64, 36
+        starts = torch.full((b,), 200, dtype=torch.int32, device="cuda")
+        lens = [238, 108, 118]
+        first = [200] * b
+    srcs = [rand_like_kv(gen, (b, s, w), dt) for _ in range(2)]
+    pools = [rand_like_kv(gen, (frames, page, w), dt) for _ in range(2)]
+    perm = torch.randperm(frames - 1, generator=gen, device="cuda").int()
+    table = torch.full((b, maxp), -1, dtype=torch.int32, device="cuda")
+    used = 0
+    for i, (x, n) in enumerate(zip(first, lens)):
+        lo, hi = x // page, -(-(x + n) // page)
+        table[i, lo:hi] = perm[used: used + hi - lo]
+        used += hi - lo
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    assert_pair_copy(srcs, pools, table, starts, lens, page, "burst")
+
+
+@pytest.mark.parametrize("view", ["strided_src", "strided_pool",
+                                  "misaligned_src", "misaligned_pool"])
+@pytest.mark.parametrize("at", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_paged_copy_pair_general_route(gen, dtype, at, view):
+    """Rows apart in src or in the frame, or a base one element past a
+    16-byte boundary: the rows route, still bit-identical."""
+    srcs, pools, table, starts, lens = pair_case(gen, dtype, 8, at=at)
+    b, s, w = srcs[0].shape
+    if view == "strided_src":
+        srcs = [torch.cat([x, x[..., :8]], -1)[..., :w] for x in srcs]
+    elif view == "strided_pool":
+        pools = [torch.cat([p, p[..., :8]], -1)[..., :w] for p in pools]
+    elif view == "misaligned_src":
+        srcs = [torch.cat([x.flatten()[:1], x.flatten()])[1:].view(b, s, w)
+                for x in srcs]
+    else:
+        pools = [torch.cat([p.flatten()[:1], p.flatten()])[1:].view(p.shape)
+                 for p in pools]
+    assert_pair_copy(srcs, pools, table, starts, lens, 8, "rows")
+
+
+@pytest.mark.parametrize("at", [False, True])
+def test_paged_copy_single_forms_take_the_burst_route(gen, at):
+    """The single-tensor wrappers launch the same kernel with one pair and
+    count under the same counters."""
+    srcs, pools, table, starts, lens = pair_case(gen, torch.bfloat16, 16,
+                                                 at=at)
+    ops.reset_launch_counts()
+    got, want = pools[0].clone(), pools[0].clone()
+    if starts is None:
+        ops.paged_copy(srcs[0], got, table, lens, page_size=16)
+        ref.paged_copy_ref(srcs[0], want, table, lens, page_size=16)
+    else:
+        ops.paged_copy_at(srcs[0], got, table, starts, lens, page_size=16)
+        ref.paged_copy_at_ref(srcs[0], want, table, starts, lens,
+                              page_size=16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    name = "paged_copy" if starts is None else "paged_copy_at"
+    assert ops.route_counts()[name] == {"burst": 1, "rows": 0}
 
 
 @pytest.mark.parametrize("quant", [False, True])

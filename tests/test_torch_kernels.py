@@ -6,7 +6,10 @@ against the JAX Pallas kernel in interpret mode on small cases and
 against its ``repro.kernels.ref`` oracle on the rest:
 
   * paged_copy: a bit-identical pool, with a partial tail page and
-    unmapped trailing bursts;
+    unmapped trailing bursts; the pair dispatcher (K and V in one call)
+    against two JAX calls; and ``burst_plan``, a plain mirror of the card
+    kernel's blocks, replayed on flat bytes against the plain versions
+    over a hypothesis sweep;
   * flash_attention: atol = rtol = 1e-5 in f32 (both sides accumulate in
     f32; only the summation order differs), S not a multiple of 128, G > 1;
   * paged_decode_attention: atol = rtol = 1e-5, with a window, an empty
@@ -23,12 +26,18 @@ import numpy as np
 import pytest
 import torch
 
+try:
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+except ImportError:                       # pragma: no cover
+    from _prop_fallback import given, settings, st
+
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
-from repro_torch.kernels.paged_copy import paged_copy
+from repro_torch.kernels.paged_copy import copy_route, paged_copy
 
 pytestmark = pytest.mark.torch_port
 
@@ -121,6 +130,209 @@ class TestPagedCopy:
             ops.paged_copy(t(src), t(pool), t(table), t(lens), page_size=8)
         with pytest.raises(ValueError):     # the kernel takes CUDA only
             paged_copy(t(src), t(pool), t(table), t(lens), page_size=page)
+
+
+class TestPagedCopyPair:
+    @pytest.mark.parametrize("dtype", [np.float32, np.int8])
+    def test_pair_bit_identical_to_two_pallas_calls(self, dtype):
+        """``ops.paged_copy_kv`` (plain route) writes K and V as JAX's
+        ``ops.paged_copy`` (Pallas, interpret) does in two calls."""
+        k_src, k_pool, table, lens, page = copy_case(4, dtype)
+        v_src, v_pool, _, _, _ = copy_case(5, dtype)
+        want = [np.asarray(jops.paged_copy(
+            jnp.asarray(src), jnp.asarray(pool), jnp.asarray(table),
+            jnp.asarray(lens), page_size=page))
+            for src, pool in ((k_src, k_pool), (v_src, v_pool))]
+        kp, vp = t(k_pool), t(v_pool)
+        out = ops.paged_copy_kv(t(k_src), t(v_src), kp, vp, t(table),
+                                t(lens), page_size=page)
+        assert out[0] is kp and out[1] is vp
+        np.testing.assert_array_equal(kp.numpy(), want[0])
+        np.testing.assert_array_equal(vp.numpy(), want[1])
+
+    def test_pair_checks(self):
+        src, pool, table, lens, page = copy_case(6, np.float32)
+        args = (t(table), t(lens))
+        with pytest.raises(ValueError):     # one pool for K and V
+            p = t(pool)
+            ops.paged_copy_kv(t(src), t(src), p, p, *args, page_size=page)
+        with pytest.raises(ValueError):     # V's rows apart, K's adjacent
+            wide = torch.cat([t(src), t(src)], -1)[..., :src.shape[2]]
+            ops.paged_copy_kv(t(src), wide, t(pool), t(pool), *args,
+                              page_size=page)
+        with pytest.raises(TypeError):      # V of another dtype
+            ops.paged_copy_kv(t(src), t(src).double(), t(pool),
+                              t(pool).double(), *args, page_size=page)
+        with pytest.raises(ValueError):     # the kernel takes CUDA only
+            from repro_torch.kernels.paged_copy import paged_copy_kv
+            paged_copy_kv(t(src), t(src), t(pool), t(pool), *args,
+                          page_size=page)
+
+    def test_cpu_pair_launches_no_kernel(self):
+        ops.reset_launch_counts()
+        src, pool, table, lens, page = copy_case(7, np.float32)
+        ops.paged_copy_kv(t(src), t(src), t(pool), t(pool), t(table),
+                          t(lens), page_size=page)
+        assert ops.launch_counts()["paged_copy"] == 0
+        assert ops.route_counts()["paged_copy"] == {"burst": 0, "rows": 0}
+
+
+# ---------------------------------------------------------------------------
+# the card kernel's burst plan, mirrored in plain torch
+# ---------------------------------------------------------------------------
+
+
+def burst_plan(srcs, pools, page_table, starts, lens, *, page_size):
+    """What ``csrc/paged_copy.cu`` moves, block by block: for each block
+    ``(tensor z, row b, burst)`` the ``(src byte offset, pool byte offset,
+    bytes)`` ranges its stores write, from the kernel's own integer
+    arithmetic (``start``, ``t0``, ``u_lo``/``u_hi``, the ``vpn`` and
+    entry tests).  The burst route moves one contiguous range a block;
+    the rows route one range a row.  Offsets are from each tensor's first
+    element."""
+    src, pool = srcs[0], pools[0]
+    b, s, w = src.shape
+    isz = src.element_size()
+    row_bytes = w * isz
+    src_sb, src_ss = src.stride(0) * isz, src.stride(1) * isz
+    pool_sf, pool_st = pool.stride(0) * isz, pool.stride(1) * isz
+    max_pages = page_table.shape[1]
+    route = copy_route(srcs, pools)
+    n_bursts = -(-s // page_size) + (starts is not None)
+    plan = {}
+    for z in range(len(srcs)):
+        for bi in range(b):
+            start = int(starts[bi]) if starts is not None else 0
+            n_tok = min(int(lens[bi]), s)
+            for burst in range(n_bursts):
+                vpn = start // page_size + burst
+                t0 = burst * page_size - start % page_size
+                u_lo, u_hi = max(0, -t0), min(page_size, n_tok - t0)
+                moves = []
+                if vpn < max_pages and u_hi > u_lo \
+                        and int(page_table[bi, vpn]) >= 0:
+                    so = bi * src_sb + (t0 + u_lo) * src_ss
+                    po = int(page_table[bi, vpn]) * pool_sf + u_lo * pool_st
+                    if route == "burst":
+                        moves = [(so, po, (u_hi - u_lo) * row_bytes)]
+                    else:
+                        moves = [(so + r * src_ss, po + r * pool_st,
+                                  row_bytes) for r in range(u_hi - u_lo)]
+                plan[z, bi, burst] = moves
+    return route, plan
+
+
+def byte_view(x):
+    """Every byte of ``x``'s storage from its first element on."""
+    raw = torch.empty(0, dtype=torch.uint8).set_(x.untyped_storage())
+    return raw[x.storage_offset() * x.element_size():]
+
+
+def replay(plan, srcs, pools):
+    for (z, _, _), moves in plan.items():
+        sb, pb = byte_view(srcs[z]), byte_view(pools[z])
+        for so, po, n in moves:
+            pb[po: po + n] = sb[so: so + n]
+
+
+def plan_case(seed, dtype, b, s, page, maxp, *, at, strided=False):
+    """Random K/V, random-filled pools with distinct frames, ~1 in 6
+    entries unmapped; continuation starts aligned or not, up to the
+    table's end (rows may run past it); lens 0..S."""
+    rng = np.random.default_rng(seed)
+    w = 16 if dtype == np.int8 else 4         # 16-byte rows
+    frames = b * maxp + 2
+
+    def fill(shape):
+        if dtype == np.int8:
+            return t(rng.integers(-127, 128, shape).astype(np.int8))
+        return t(rng.standard_normal(shape).astype(dtype))
+    srcs = [fill((b, s, w + 4 * strided))[..., :w] for _ in range(2)]
+    pools = [fill((frames, page, w)) for _ in range(2)]
+    table = rng.permutation(frames)[: b * maxp].reshape(b, maxp)
+    table = np.where(rng.random((b, maxp)) < 1 / 6, -1, table)
+    lens = rng.integers(0, s + 1, b)
+    starts = rng.integers(0, maxp * page + 1, b) if at else None
+    if at and b > 1:
+        starts[0] = (starts[0] // page) * page      # one aligned start
+    return (srcs, pools, t(table.astype(np.int32)),
+            None if starts is None else t(starts.astype(np.int32)),
+            t(lens.astype(np.int32)))
+
+
+def assert_plan_reproduces_plain(seed, dtype, b, s, page, maxp, at,
+                                 strided=False):
+    srcs, pools, table, starts, lens = plan_case(
+        seed, dtype, b, s, page, maxp, at=at, strided=strided)
+    route, plan = burst_plan(srcs, pools, table, starts, lens,
+                             page_size=page)
+    assert route == ("rows" if strided else "burst")
+    want = [p.clone() for p in pools]
+    for src, pool in zip(srcs, want):
+        if starts is None:
+            ref.paged_copy_ref(src, pool, table, lens, page_size=page)
+        else:
+            ref.paged_copy_at_ref(src, pool, table, starts, lens,
+                                  page_size=page)
+    got = [p.clone() for p in pools]
+    replay(plan, srcs, got)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+
+
+@settings(max_examples=60, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1),
+       dtype=st.sampled_from([np.float32, np.int8]),
+       b=st.integers(1, 4), page=st.sampled_from([1, 2, 4, 8, 16]),
+       tail=st.integers(0, 20), extra=st.integers(0, 2),
+       at=st.booleans())
+def test_burst_plan_reproduces_plain_versions(seed, dtype, b, page, tail,
+                                              extra, at):
+    """S = 1..3 pages + 20 (aligned or not), the table just reaching S
+    or a little past it, lens 0..S, unmapped entries, unaligned starts and
+    rows past the table: the kernel's blocks, replayed on bytes, give the
+    plain versions' pools bit for bit."""
+    s = max(1, page * (seed % 3) + tail)
+    maxp = -(-s // page) + extra
+    assert_plan_reproduces_plain(seed, dtype, b, s, page, maxp, at)
+
+
+@pytest.mark.parametrize("at", [False, True])
+@pytest.mark.parametrize("page", [4, 16])
+def test_burst_plan_rows_route_on_strided_rows(page, at):
+    """Rows apart in src (a slice of a wider projection): the rows route,
+    one range a row, still the plain versions' bytes."""
+    for seed in range(5):
+        assert_plan_reproduces_plain(seed, np.float32, 3, 2 * page + 3,
+                                     page, 4, at, strided=True)
+
+
+def test_burst_plan_serve_shape_is_one_range_a_page():
+    """The cold serve shape (bf16, W 512, page 16): every block of a fully
+    covered page moves one 16 KB range."""
+    gen = torch.Generator().manual_seed(0)
+    srcs = [torch.randn((4, 368, 512), generator=gen).bfloat16()
+            for _ in range(2)]
+    pools = [torch.zeros((72, 16, 512), dtype=torch.bfloat16)
+             for _ in range(2)]
+    lens = torch.tensor([368, 290, 250, 184], dtype=torch.int32)
+    perm = torch.randperm(71, generator=gen).int()
+    table = torch.full((4, 23), -1, dtype=torch.int32)
+    used = 0
+    for i, n in enumerate(lens.tolist()):
+        table[i, : -(-n // 16)] = perm[used: used - (-n // 16)]
+        used -= -n // 16
+    route, plan = burst_plan(srcs, pools, table, None, lens, page_size=16)
+    sizes = [n for moves in plan.values() for _, _, n in moves]
+    assert route == "burst"
+    assert sum(sizes) == 2 * 1092 * 1024
+    assert max(sizes) == 16 * 1024
+    assert all(len(m) <= 1 for m in plan.values())
+    want = [p.clone() for p in pools]
+    for src, pool in zip(srcs, want):
+        ref.paged_copy_ref(src, pool, table, lens, page_size=16)
+    replay(plan, srcs, pools)
+    assert all(torch.equal(a, b) for a, b in zip(pools, want))
 
 
 class TestFlashAttention:

@@ -1,10 +1,10 @@
 """The route rules of the four kernels that have a tensor-core and a
-CUDA-core kernel, on the CPU.
+CUDA-core kernel, and of the paged copy's two routes, on the CPU.
 
-``matmul_route``, ``flash_route``, ``decode_route`` and ``prefill_route``
-are pure functions of dtype, shape, strides and alignment, decided before
-the launch; here they are held to their rules on CPU tensors of the same
-layouts the card sees (the kernels themselves run in
+``matmul_route``, ``flash_route``, ``decode_route``, ``prefill_route`` and
+``copy_route`` are pure functions of dtype, shape, strides and alignment,
+decided before the launch; here they are held to their rules on CPU
+tensors of the same layouts the card sees (the kernels themselves run in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
 The wrappers' input checks still refuse what they refused, on both the
 plain route and the kernel wrapper, and a refused call moves no counter.
@@ -22,6 +22,13 @@ from repro_torch.kernels.matmul import (
     matmul as matmul_kernel,
     matmul_route,
     simt_config,
+)
+from repro_torch.kernels.paged_copy import (
+    copy_route,
+    paged_copy as copy_kernel,
+    paged_copy_at as copy_at_kernel,
+    paged_copy_kv as copy_kv_kernel,
+    paged_copy_kv_at as copy_kv_at_kernel,
 )
 from repro_torch.kernels.paged_attention import (
     decode_route,
@@ -265,10 +272,15 @@ def test_route_counts_reset_with_launch_counts():
     decode_kernel.routes["mma"] += 1
     prefill_kernel.routes["wgmma"] += 4
     assert ops.route_counts()["paged_prefill_attention"]["wgmma"] >= 4
+    copy_kernel.routes["burst"] += 2
+    copy_at_kernel.routes["rows"] += 1
+    assert ops.route_counts()["paged_copy_at"]["rows"] >= 1
     ops.reset_launch_counts()
     assert ops.route_counts() == {
+        "paged_copy": {"burst": 0, "rows": 0},
         "flash_attention": {"wgmma": 0, "simt": 0},
         "paged_decode_attention": {"mma": 0, "simt": 0},
+        "paged_copy_at": {"burst": 0, "rows": 0},
         "paged_prefill_attention": {"wgmma": 0, "simt": 0},
         "matmul": {"wgmma": 0, "simt": 0}}
 
@@ -431,3 +443,74 @@ def test_paged_attention_checks_unchanged():
         prefill_kernel(qp, kp, vp, table, lens, page_size=16)
     assert (decode_kernel.launches, dict(decode_kernel.routes),
             prefill_kernel.launches, dict(prefill_kernel.routes)) == before
+
+
+# ---------------------------------------------------------------------------
+# copy_route
+# ---------------------------------------------------------------------------
+
+
+def serve_copy_views(b, s, w, page, frames, dtype):
+    """The model's views: a layer's K as ``[B, S, W]`` from the rotated
+    projection, a layer of the ``[L, P, page, Hkv, D]`` pools as ``[P,
+    page, W]``."""
+    src = torch.zeros((b, s, w // 128, 128), dtype=dtype).reshape(b, s, w)
+    pools = torch.zeros((2, frames, page, w // 128, 128), dtype=dtype)
+    return src, pools[1].view(-1, page, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16, torch.int8])
+@pytest.mark.parametrize("b,s,page", [(4, 368, 16), (3, 240, 16),
+                                      (1, 1, 8), (2, 37, 4)])
+def test_copy_route_serve_views_take_burst(dtype, b, s, page):
+    """Rows adjacent on both sides, 16-byte aligned: the burst route, for
+    one tensor and for K and V together."""
+    k, kp = serve_copy_views(b, s, 512, page, 72, dtype)
+    v, vp = serve_copy_views(b, s, 512, page, 72, dtype)
+    assert copy_route((k,), (kp,)) == "burst"
+    assert copy_route((k, v), (kp, vp)) == "burst"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16, torch.int8])
+def test_copy_route_strided_or_misaligned_takes_rows(dtype):
+    """Rows apart in src or in the frame, a base or a row not a multiple
+    of 16 bytes, or one misaligned tensor of a pair: the rows route."""
+    k, kp = serve_copy_views(2, 20, 512, 8, 16, dtype)
+    wide = torch.zeros((2, 20, 1024), dtype=dtype)
+    assert copy_route((wide[..., :512],), (kp,)) == "rows"
+    assert copy_route((k,), (torch.zeros((16, 8, 1024), dtype=dtype)
+                             [..., 512:],)) == "rows"
+    assert copy_route((misaligned((2, 20, 512), dtype),), (kp,)) == "rows"
+    assert copy_route((k,), (misaligned((16, 8, 512), dtype),)) == "rows"
+    assert copy_route((k, misaligned((2, 20, 512), dtype)),
+                      (kp, kp.clone())) == "rows"
+    odd = 4 if dtype == torch.int8 else 2      # 4-byte rows
+    assert copy_route((torch.zeros((2, 20, odd), dtype=dtype),),
+                      (torch.zeros((16, 8, odd), dtype=dtype),)) == "rows"
+    # a batch or frame stride off 16 bytes, rows still adjacent
+    flat = torch.zeros(16 * 8 * 512 + 8 * 512, dtype=dtype)
+    assert copy_route((k,), (flat.as_strided((16, 8, 512),
+                                             (8 * 512 + 1, 512, 1)),)) \
+        == "rows"
+
+
+def test_copy_checks_unchanged_and_refusals_move_no_counter():
+    """The pair wrappers refuse on the plain route and the kernel wrapper
+    alike, and a refused call moves no counter."""
+    k, kp = serve_copy_views(2, 20, 512, 8, 16, BF16)
+    v, vp = serve_copy_views(2, 20, 512, 8, 16, BF16)
+    table = torch.zeros((2, 4), dtype=torch.int32)
+    lens = torch.tensor([3, 5], dtype=torch.int32)
+    before = (copy_kernel.launches, dict(copy_kernel.routes),
+              copy_at_kernel.launches, dict(copy_at_kernel.routes))
+    with pytest.raises(ValueError):                      # V 2 rows shorter
+        ops.paged_copy_kv(k, v[:, :18], kp, vp, table, lens, page_size=8)
+    with pytest.raises(TypeError):                       # int64 lens
+        ops.paged_copy_kv_at(k, v, kp, vp, table, lens, lens.long(),
+                             page_size=8)
+    with pytest.raises(ValueError):                      # CUDA only
+        copy_kv_kernel(k, v, kp, vp, table, lens, page_size=8)
+    with pytest.raises(ValueError):                      # CUDA only
+        copy_kv_at_kernel(k, v, kp, vp, table, lens, lens, page_size=8)
+    assert (copy_kernel.launches, dict(copy_kernel.routes),
+            copy_at_kernel.launches, dict(copy_at_kernel.routes)) == before
