@@ -85,6 +85,19 @@ def route_counts() -> dict[str, dict[str, int]]:
             if hasattr(fn, "routes")}
 
 
+def add_launch_counts(launches: dict[str, int],
+                      routes: dict[str, dict[str, int]]) -> None:
+    """Add ``launches`` and per-route ``routes`` (subsets of
+    :func:`launch_counts` and :func:`route_counts`) to the wrappers'
+    counters: a CUDA graph's replay launches the kernels its capture
+    recorded without calling the wrappers, so the executor adds them."""
+    for name, n in launches.items():
+        KERNELS[name].launches += n
+    for name, per in routes.items():
+        for route, n in per.items():
+            KERNELS[name].routes[route] += n
+
+
 def _plain(t, use_kernel: bool) -> bool:
     """True when this call takes the plain version: the tensor is on the
     CPU, or the caller asked for the plain path explicitly."""

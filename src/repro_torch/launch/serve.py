@@ -164,6 +164,10 @@ def main() -> None:
           f"in {c.get('ptab_syncs')} syncs over {eng.scheduler.step_i} steps")
     print(f"  kernel dispatch: {c.get('kernel_dispatches')} kernel / "
           f"{c.get('ref_path_dispatches')} plain-path compute steps")
+    if serve_cfg.aot_buckets:
+        print(f"  aot prefill: {c.get('aot_hits')} hits / "
+              f"{c.get('aot_misses')} misses, "
+              f"{c.get('bucket_pad_tokens')} pad tokens")
     kp = eng.kv.k_pools
     print(f"  kv pools: dtype={kp.dtype} ({serve_cfg.kv_dtype}), "
           f"{2 * kp[:, 0].numel() * kp.element_size()} B/page across "

@@ -83,11 +83,12 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    """Inverse frequencies [head_dim // 2], f32."""
+    """Inverse frequencies [head_dim // 2], f32.  Made on the device (no
+    host-to-device copy), so a CUDA graph can capture it."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exps)
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):

@@ -8,10 +8,12 @@ Clients submit typed :class:`ServeRequest` records and ``drain()`` typed
 :class:`ServeResult` records (:mod:`repro_torch.serve.api`).
 
 Ported so far: one replica on one card with the default policy: cold
-prefill, fused decode horizons, preemption, and the continuation paths —
+prefill, fused decode horizons, preemption, the continuation paths —
 the radix prefix cache, a preloaded shared prefix with ``share_prefix``
-forks, and partial restore.  The router (with portable swap records),
-the sharded executor and AOT buckets are later slices.
+forks, and partial restore — and AOT buckets.  On the card the steps
+run as CUDA graphs captured when the engine is built;
+:func:`disable_graphs` runs them eagerly.  The router (with portable
+swap records) and the sharded executor are later slices.
 """
 from repro_torch.serve.api import (
     RequestTiming,
@@ -23,7 +25,7 @@ from repro_torch.serve.api import (
 )
 from repro_torch.serve.detokenize import AsyncDetokenizer
 from repro_torch.serve.engine import Engine
-from repro_torch.serve.executor import Executor
+from repro_torch.serve.executor import Executor, disable_graphs
 from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.scheduler import (
     DataPlane,
@@ -50,5 +52,6 @@ __all__ = [
     "ServeRequest",
     "ServeResult",
     "StreamEvent",
+    "disable_graphs",
     "to_internal",
 ]

@@ -17,11 +17,16 @@ Ported: one replica on one card with the default policy — the radix
 prefix cache (a plain admission whose prompt starts with a resident run
 shares its whole pages and prefills only the divergent chunk), a
 preloaded shared prefix with ``share_prefix`` forks, and partial restore,
-all through the executor's batched continuation prefill.  The engine
-refuses, at construction, every config that would reach an unported path
-(AOT buckets, a serve mesh, the MoE/VLM/audio families), and recurrent
-families, which the JAX engine does not serve either: they decode through
-their model's own ``prefill`` / ``decode_step``.
+all through the executor's batched continuation prefill, and AOT buckets
+(``ServeConfig.aot_buckets``: a prefill and a continuation program per
+bucket).  On the card the executor captures its step programs as CUDA
+graphs when it is built (each decode horizon, the K=1 step, the bucket
+programs) and replays them; ``serve.executor.disable_graphs()`` runs the
+same steps eagerly.  The engine refuses, at construction, every config
+that would reach an unported path (a serve mesh, the MoE/VLM/audio
+families), and recurrent families, which the JAX engine does not serve
+either: they decode through their model's own ``prefill`` /
+``decode_step``.
 """
 
 from __future__ import annotations
@@ -55,8 +60,6 @@ def check_ported(model: TransformerLM, cfg: ServeConfig) -> None:
     if model.cfg.family in RECURRENT_FAMILIES:
         raise NotImplementedError(f"{model.cfg.name}: {RECURRENT_REFUSAL}")
     refused = []
-    if cfg.aot_buckets:
-        refused.append("aot_buckets (AOT-bucketed prefill: not ported)")
     if cfg.serve_mesh not in (None, "off"):
         refused.append(f"serve_mesh={cfg.serve_mesh!r} (sharded executor: "
                        "later slice)")
@@ -65,8 +68,7 @@ def check_ported(model: TransformerLM, cfg: ServeConfig) -> None:
     if refused:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(refused)
-            + ".  Serve with aot_buckets=None, serve_mesh='off' and a dense "
-            "model.")
+            + ".  Serve with serve_mesh='off' and a dense model.")
 
 
 class Engine:

@@ -12,11 +12,20 @@ place.
     (``ContextSwitcher.spill_kv``/``restore_kv``);
   * inactive decode lanes are masked on the device from a [B] bool mask,
     not by rewriting table rows on the host;
-  * decode runs in fused K-step horizons (``decode_multi``): a Python loop
-    of K ``decode_step``s with on-device sampling and per-lane retire
-    masking, then ONE host transfer of the ``[K, B]`` token block, so the
-    host round-trip and the page-table delta sync are paid once per
-    horizon (``host_syncs`` / ``decode_horizon`` counters);
+  * decode runs in fused K-step horizons (``decode_multi``): K chained
+    ``decode_step``s with on-device sampling and per-lane retire masking,
+    then ONE host transfer of the ``[K, B]`` token block, so the host
+    round-trip and the page-table delta sync are paid once per horizon
+    (``host_syncs`` / ``decode_horizon`` counters);
+  * compiled serve programs, the counterpart of JAX's jitted steps and
+    AOT executables: each decode horizon on the scheduler's ladder, the
+    K=1 step and, with ``ServeConfig.aot_buckets``, a prefill and a
+    continuation per bucket are :class:`StepProgram` objects — functions of
+    static input buffers over the persistent pools, page table and
+    weights.  On the card each is captured as a CUDA graph when the
+    executor is built and replayed per step; on the CPU it runs eagerly
+    over the same buffers.  :func:`disable_graphs` (the port's
+    ``jax.disable_jit``) runs every step eagerly instead;
   * forked admissions (``share_prefix`` forks of the preloaded prefix,
     radix-cache hits, the re-prefilled tail of a partial restore) run as
     ONE batched continuation prefill per step (``admit_forked_batch``):
@@ -29,13 +38,14 @@ place.
     ``ServeConfig.use_ref_path``).
 
 Not ported yet: swap-record migration (``export_swap``/``import_swap``)
-comes with the router slice; AOT buckets and the serve mesh are refused
-by the engine.
+comes with the router slice; the serve mesh is refused by the engine.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 from typing import Any
 
 import numpy as np
@@ -61,13 +71,153 @@ _ROUTER = ("is not ported yet: it comes with the router slice of the "
            "PyTorch port")
 
 
-def _twin(model: TransformerLM, **attrs) -> TransformerLM:
-    """A shallow copy of ``model`` with ``attrs`` rebound (kv-dtype or
-    plain-path twin); parameters are shared, not copied."""
+@functools.lru_cache(maxsize=None)
+def _ref_path_model(model: TransformerLM) -> TransformerLM:
+    """Plain-path twin (``ServeConfig.use_ref_path``): a shallow copy with
+    ``use_kernels=False``, cached per model so every engine over the same
+    model shares it (and its programs in :data:`_AOT_CACHE`)."""
     twin = copy.copy(model)
-    for k, v in attrs.items():
-        setattr(twin, k, v)
+    twin.use_kernels = False
     return twin
+
+
+@functools.lru_cache(maxsize=None)
+def _kv_dtype_model(model: TransformerLM, kv_dtype: str) -> TransformerLM:
+    """KV-storage twin (``ServeConfig.kv_dtype``): a shallow copy with
+    ``kv_dtype`` rebound, cached per (model, dtype); parameters are
+    shared, not copied."""
+    twin = copy.copy(model)
+    twin.kv_dtype = kv_dtype
+    return twin
+
+
+_graphs_off = False
+
+
+@contextlib.contextmanager
+def disable_graphs():
+    """The port's ``jax.disable_jit()``: inside it an executor built on the
+    card captures no CUDA graph, and every step runs eagerly, one launch
+    at a time from the host.  Bucket selection, padding and every counter
+    are unchanged, so a run inside it is the eager twin of the same run
+    outside it."""
+    global _graphs_off
+    saved, _graphs_off = _graphs_off, True
+    try:
+        yield
+    finally:
+        _graphs_off = saved
+
+
+def horizon_ladder(max_horizon: int) -> tuple[int, ...]:
+    """The fused horizons the scheduler can plan (``plan_horizon`` rounds
+    down to a power of two): 2, 4, ... up to ``max_horizon``."""
+    return tuple(1 << i for i in range(1, max_horizon.bit_length()))
+
+
+def select_bucket(n: int, buckets: tuple[int, ...] | None) -> int | None:
+    """Smallest AOT bucket that can hold an ``n``-token (burst-aligned)
+    prompt batch, or ``None`` on a miss — the caller then runs the eager
+    prefill.  ``buckets`` is the sorted tuple ``ServeConfig.aot_buckets``
+    normalized to."""
+    if not buckets:
+        return None
+    for b in buckets:
+        if b >= n:
+            return b
+    return None
+
+
+class StepProgram:
+    """One serve step's static input buffers: what a compiled program of
+    the step reads (tokens, lengths or starts, page-table rows, lane
+    masks).  A step loads its inputs into them (:meth:`load`) and runs the
+    step over them; the persistent state (pools, page table, weights)
+    belongs to the executor.  A CUDA graph of the step is bound to the
+    executor whose pools it captured (:class:`_Graph`), so two executors
+    may share a program but each captures its own graph of it."""
+
+    def __init__(self, shapes: dict[str, tuple], device):
+        self.inputs = {name: torch.zeros(shape, dtype=dt, device=device)
+                       for name, (shape, dt) in shapes.items()}
+        #: pinned host copies of the host-made inputs (the card only)
+        self._staging = {}
+        if torch.device(device).type == "cuda":
+            self._staging = {name: torch.zeros(shape, dtype=dt,
+                                               pin_memory=True)
+                             for name, (shape, dt) in shapes.items()}
+
+    def load(self, **values) -> dict[str, torch.Tensor]:
+        """Copy one step's inputs into the static buffers and return them:
+        numpy arrays through pinned host memory (each step ends in a host
+        sync, so a staging buffer is never rewritten while its copy is in
+        flight), device tensors on the device."""
+        for name, v in values.items():
+            buf = self.inputs[name]
+            if isinstance(v, torch.Tensor):
+                buf.copy_(v)
+            elif self._staging:
+                stage = self._staging[name]
+                stage.numpy()[...] = v
+                buf.copy_(stage, non_blocking=True)
+            else:
+                buf.copy_(torch.from_numpy(np.asarray(v)))
+        return self.inputs
+
+    def mask(self) -> dict[str, torch.Tensor]:
+        """Inputs under which the step writes nothing live: every lane
+        masked (``steps_left`` and ``active`` 0, ``lens`` 0) and every
+        page-table row ``INVALID_PAGE``, so KV writes land in the scratch
+        frame or are skipped.  The warm-up before a capture runs on them."""
+        for name, buf in self.inputs.items():
+            buf.fill_(INVALID_PAGE if name == "pt_rows" else 0)
+        return self.inputs
+
+
+#: bucket programs keyed as JAX's ``_aot_key``: (step-model twin, kind,
+#: bucket, batch/pool geometry).  Module level, so every engine over the
+#: same twin and geometry binds the same program; the int8 and plain-path
+#: twins get their own.
+_AOT_CACHE: dict[tuple, StepProgram] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _warmup_stream(device: torch.device):
+    """The one side stream every capture's warm-up runs on: cuBLAS keeps a
+    workspace for each stream it has run on, so a new stream per capture
+    would keep one workspace per capture."""
+    return torch.cuda.Stream(device)
+
+
+def _launch_totals():
+    """``(launches, routes)`` of every kernel wrapper, for a difference."""
+    return ops.launch_counts(), ops.route_counts()
+
+
+def _minus(a, b):
+    """``a - b`` of two :func:`_launch_totals`, nonzero entries only."""
+    launches = {k: a[0][k] - b[0][k] for k in a[0] if a[0][k] != b[0][k]}
+    routes = {k: {r: n - b[1][k][r] for r, n in per.items()
+                  if n != b[1][k][r]} for k, per in a[1].items()}
+    return launches, {k: v for k, v in routes.items() if v}
+
+
+class _Graph:
+    """A program captured as a CUDA graph over one executor's state: the
+    graph, its output (in the executor's graph pool) and the kernel
+    launches and routes its capture recorded, which every replay adds to
+    the wrappers' counters (a replay does not call them)."""
+
+    def __init__(self, graph, out, launches, routes):
+        self.graph, self.out = graph, out
+        self.launches, self.routes = launches, routes
+        self.replays = 0
+
+    def replay(self):
+        self.graph.replay()
+        ops.add_launch_counts(self.launches, self.routes)
+        self.replays += 1
+        return self.out
 
 
 class Executor:
@@ -78,7 +228,7 @@ class Executor:
                  counters: PerfCounters | None = None):
         if cfg.kv_dtype != model.kv_dtype:
             # quantized-pool twin FIRST: the pools below allocate its dtype
-            model = _twin(model, kv_dtype=cfg.kv_dtype)
+            model = _kv_dtype_model(model, cfg.kv_dtype)
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -100,7 +250,29 @@ class Executor:
         #: True iff compute steps run the plain versions on purpose
         self._ref_path = bool(cfg.use_ref_path)
         if self._ref_path:
-            self._step_model = _twin(model, use_kernels=False)
+            self._step_model = _ref_path_model(model)
+        #: every step program, keyed (kind, n): ("decode", 1),
+        #: ("decode_multi", K) for K on the horizon ladder, and the bucket
+        #: programs ("prefill" / "continue", bucket)
+        vec = ((cfg.max_batch,), torch.int32)
+        self._programs: dict[tuple[str, int], StepProgram] = {
+            ("decode", 1): StepProgram(dict(
+                tokens=vec, pre_lens=vec,
+                active=((cfg.max_batch,), torch.bool)), self.device)}
+        for k in horizon_ladder(cfg.max_horizon):
+            self._programs[("decode_multi", k)] = StepProgram(
+                dict(tokens=vec, pre_lens=vec, steps_left=vec), self.device)
+        #: the bucket programs of THIS engine, (kind, bucket) -> program,
+        #: bound at build (``ServeConfig.aot_buckets``)
+        self._aot: dict[tuple[str, int], StepProgram] = {}
+        if cfg.aot_buckets:
+            self._compile_aot()
+        #: the CUDA graph of each program, captured at build on the card
+        self._graphs: dict[tuple[str, int], _Graph] = {}
+        if self.device.type == "cuda" and not _graphs_off:
+            self._pool = torch.cuda.graph_pool_handle()
+            for key in self._programs:
+                self._graphs[key] = self._capture(key)
 
     def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -109,6 +281,157 @@ class Executor:
         """Wait for the device so the step timers measure execution."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    # AOT-bucketed prefill (ServeConfig.aot_buckets)
+    # ------------------------------------------------------------------
+
+    def _aot_key(self, kind: str, bucket: int) -> tuple:
+        """Module-cache key: everything a bucket program's buffers and
+        step derive from.  The kv-dtype and plain-path twins are folded
+        into ``self._step_model``, so distinct twins get distinct programs
+        and identical twins share."""
+        return (self._step_model, kind, bucket, self.cfg.max_batch,
+                self.cfg.num_pages, self.cfg.page_size,
+                self.cfg.max_pages_per_seq)
+
+    def _aot_operands(self, kind: str, bucket: int) -> dict[str, tuple]:
+        """``(shape, dtype)`` of each input of one bucketed step: full
+        ``max_batch`` rows, ``bucket``-length prompts, the page-table
+        rows."""
+        b = self.cfg.max_batch
+        ops_ = dict(tokens=((b, bucket), torch.int32),
+                    lens=((b,), torch.int32),
+                    pt_rows=((b, self.cfg.max_pages_per_seq), torch.int32))
+        if kind == "continue":
+            ops_["starts"] = ((b,), torch.int32)
+        return ops_
+
+    def _compile_aot(self) -> None:
+        """Bind a prefill and a continuation program per bucket at engine
+        build, from :data:`_AOT_CACHE` where an engine over the same twin
+        and geometry made it already."""
+        for kind in ("prefill", "continue"):
+            for bucket in self.cfg.aot_buckets:
+                key = self._aot_key(kind, bucket)
+                prog = _AOT_CACHE.get(key)
+                if prog is None:
+                    prog = _AOT_CACHE[key] = StepProgram(
+                        self._aot_operands(kind, bucket), self.device)
+                self._aot[(kind, bucket)] = prog
+        self._programs.update(self._aot)
+
+    def _select_aot(self, kind: str, reqs: list[Request]) -> int | None:
+        """The bucket of this batch, or ``None`` to run the eager step.
+        Hits and misses are counted only when bucketing is configured; a
+        miss is a batch whose burst-aligned width exceeds every bucket."""
+        if not self._aot:
+            return None
+        page = self.cfg.page_size
+        smax = -(-max(len(r.prompt) for r in reqs) // page) * page
+        bucket = select_bucket(smax, self.cfg.aot_buckets)
+        if bucket is None:
+            self.counters.inc("aot_misses")
+            return None
+        self.counters.inc("aot_hits")
+        return bucket
+
+    # ------------------------------------------------------------------
+    # step programs: bodies, capture, replay
+    # ------------------------------------------------------------------
+
+    def _body(self, key: tuple[str, int]):
+        """The step function of program ``key`` over its inputs; reads and
+        writes the persistent pools and page table in place and returns
+        the logits (``[B, V]``) or the token block (``[K, B]``)."""
+        kind, n = key
+        if kind == "decode_multi":
+            return functools.partial(self._decode_multi_body, horizon=n)
+        return {"decode": self._decode_body, "prefill": self._prefill_body,
+                "continue": self._continue_body}[kind]
+
+    def _prefill_body(self, tokens, lens, pt_rows):
+        logits, _ = self._step_model.prefill(
+            self.params, tokens, lens,
+            self._state(pt_rows, torch.zeros_like(lens)))
+        return logits
+
+    def _continue_body(self, tokens, starts, lens, pt_rows):
+        logits, _ = self._step_model.prefill_continue(
+            self.params, tokens, starts, lens, self._state(pt_rows, starts))
+        return logits
+
+    def _decode_body(self, tokens, pre_lens, active):
+        # mask rows of slots NOT decoding this step: their KV write must
+        # land in the scratch row, never in a live frame
+        masked = torch.where(active[:, None], self._ptab, INVALID_PAGE)
+        logits, _ = self._step_model.decode_step(
+            self.params, tokens, self._state(masked, pre_lens))
+        return logits
+
+    def _decode_multi_body(self, tokens, pre_lens, steps_left, *, horizon):
+        block, _ = self._step_model.decode_multi_step(
+            self.params, tokens, self._state(self._ptab, pre_lens),
+            steps_left, self._gen, float(self.cfg.temperature),
+            horizon=horizon, greedy=self.cfg.greedy)
+        return block
+
+    def _capture(self, key: tuple[str, int]) -> _Graph:
+        """Warm program ``key`` up on a side stream over masked inputs,
+        then capture it as a CUDA graph in the executor's pool.  Neither
+        counts as a launch of the run: the wrappers' counters are put back,
+        and the capture's own launches are what each replay adds.  The
+        capture must launch what the warm-up launched, route for route.
+        Errors propagate: there is no eager fallback."""
+        body, inputs = self._body(key), self._programs[key].mask()
+        before, rng = _launch_totals(), self._gen.get_state()
+        main = torch.cuda.current_stream(self.device)
+        side = _warmup_stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            body(**inputs)
+        main.wait_stream(side)
+        warm = _launch_totals()
+        graph = torch.cuda.CUDAGraph()
+        if key[0] == "decode_multi" and not self.cfg.greedy:
+            # the horizon samples on the device from the executor's
+            # generator; each replay advances it as the eager draws would
+            graph.register_generator_state(self._gen)
+        with torch.cuda.graph(graph, pool=self._pool):
+            out = body(**inputs)
+        after = _launch_totals()
+        self._gen.set_state(rng)
+        launches, routes = _minus(after, warm)
+        if (launches, routes) != _minus(warm, before):
+            raise RuntimeError(
+                f"capture of {key} launched {launches} {routes}, its warm-up "
+                f"{_minus(warm, before)}")
+        back = _minus(before, after)
+        ops.add_launch_counts(*back)
+        return _Graph(graph, out, launches, routes)
+
+    def _step(self, key: tuple[str, int], **inputs) -> torch.Tensor:
+        """Run one step: replay program ``key``'s graph after loading its
+        inputs; on the CPU, or in an executor built inside
+        :func:`disable_graphs`, run the step over the program's buffers.
+        Inside :func:`disable_graphs`, and for a batch no bucket holds
+        (``key`` has no program), run it eagerly on fresh tensors."""
+        prog = self._programs.get(key)
+        if prog is None or _graphs_off:
+            return self._body(key)(**{
+                n: v if isinstance(v, torch.Tensor)
+                else torch.as_tensor(v, device=self.device)
+                for n, v in inputs.items()})
+        prog.load(**inputs)
+        graph = self._graphs.get(key)
+        if graph is None:
+            return self._body(key)(**prog.inputs)
+        return graph.replay()
+
+    @property
+    def replays(self) -> dict[tuple[str, int], int]:
+        """Replays of each captured program so far."""
+        return {k: g.replays for k, g in self._graphs.items()}
 
     # ------------------------------------------------------------------
     # persistent device page table
@@ -139,30 +462,48 @@ class Executor:
         return PagedKVState(self.kv.k_pools, self.kv.v_pools, page_table,
                             seq_lens)
 
-    def _pad_prompt_batch(self, reqs: list[Request]):
-        """Burst-aligned ``[B, smax]`` prompt matrix + true lengths + the
-        batch's page-table rows — shared by cold and forked admission, so
-        padding and slot lookup cannot drift between them."""
+    def _pad_prompt_batch(self, reqs: list[Request],
+                          bucket: int | None = None):
+        """Burst-aligned ``[B, smax]`` prompt matrix + true lengths (numpy)
+        + the batch's page-table rows (on the device) — shared by cold and
+        forked admission, so padding and slot lookup cannot drift between
+        them.
+
+        With ``bucket`` (a bucket program) the batch is padded to the
+        program's shape, ``max_batch`` rows of ``bucket`` tokens: pad rows
+        carry ``lens`` 0 and ``INVALID_PAGE`` table rows (no write lands),
+        pad columns sit past every real row's length, so causal attention
+        keeps them out of every real row.  The padded cells beyond what the
+        unbucketed step would carry are counted as ``bucket_pad_tokens``."""
         page = self.cfg.page_size
         smax = max(len(r.prompt) for r in reqs)
         smax = -(-smax // page) * page            # burst-align
-        tokens = np.zeros((len(reqs), smax), np.int32)
+        nrows = rows = len(reqs)
+        if bucket is not None:
+            self.counters.inc("bucket_pad_tokens",
+                              self.cfg.max_batch * bucket - nrows * smax)
+            smax, rows = bucket, self.cfg.max_batch
+        tokens = np.zeros((rows, smax), np.int32)
         for i, r in enumerate(reqs):
             tokens[i, : len(r.prompt)] = r.prompt
-        lens = np.asarray([len(r.prompt) for r in reqs], np.int32)
+        lens = np.zeros((rows,), np.int32)
+        lens[:nrows] = [len(r.prompt) for r in reqs]
         slots = [self.vmem.seq(r.req_id).slot for r in reqs]
         pt_rows = self._ptab.index_select(0, self._tensor(slots, torch.long))
-        return self._tensor(tokens), self._tensor(lens), pt_rows
+        if rows > nrows:
+            pt_rows = torch.cat([pt_rows, pt_rows.new_full(
+                (rows - nrows, pt_rows.shape[1]), INVALID_PAGE)])
+        return tokens, lens, pt_rows
 
     def prefill(self, reqs: list[Request]) -> list[np.ndarray]:
         """Batched prefill of freshly admitted requests; returns the first
         sampled token per request (request order)."""
         self.sync_page_table()
-        tokens, lens, pt_rows = self._pad_prompt_batch(reqs)
+        bucket = self._select_aot("prefill", reqs)
+        tokens, lens, pt_rows = self._pad_prompt_batch(reqs, bucket=bucket)
         with self.counters.timer("prefill"):
-            logits, _ = self._step_model.prefill(
-                self.params, tokens, lens,
-                self._state(pt_rows, torch.zeros_like(lens)))
+            logits = self._step(("prefill", bucket), tokens=tokens,
+                                lens=lens, pt_rows=pt_rows)
             self._block()
         self._count_dispatch()
         first = self.sample(logits)
@@ -174,13 +515,8 @@ class Executor:
         returns sampled tokens by slot."""
         self.sync_page_table()
         with self.counters.timer("decode"):
-            # mask rows of slots NOT decoding this step: their KV write
-            # must land in the scratch row, never in a live frame
-            act = self._tensor(active, torch.bool)
-            masked = torch.where(act[:, None], self._ptab, INVALID_PAGE)
-            logits, _ = self._step_model.decode_step(
-                self.params, self._tensor(tokens),
-                self._state(masked, self._tensor(pre_lens)))
+            logits = self._step(("decode", 1), tokens=tokens,
+                                pre_lens=pre_lens, active=active)
             self._block()
         self._count_dispatch()
         self.counters.inc("decode_dispatches")
@@ -191,15 +527,15 @@ class Executor:
         """Fused K-step decode horizon: ``plan.horizon`` chained decode
         steps with on-device sampling and per-lane retire masking, then the
         whole ``[K, B]`` token block in one host transfer."""
+        key = ("decode_multi", plan.horizon)
+        if key not in self._programs:
+            raise ValueError(f"horizon {plan.horizon} is not on the ladder "
+                             f"{horizon_ladder(self.cfg.max_horizon)}")
         self.sync_page_table()
         with self.counters.timer("decode"):
-            block, _ = self._step_model.decode_multi_step(
-                self.params, self._tensor(plan.tokens),
-                self._state(self._ptab, self._tensor(plan.pre_lens)),
-                self._tensor(plan.steps_left), self._gen,
-                float(self.cfg.temperature), horizon=plan.horizon,
-                greedy=self.cfg.greedy,
-            )
+            block = self._step(key, tokens=plan.tokens,
+                               pre_lens=plan.pre_lens,
+                               steps_left=plan.steps_left)
             out = block.to(torch.int32).cpu().numpy()   # the one host sync
         self._count_dispatch()
         self.counters.inc("host_syncs")
@@ -252,12 +588,13 @@ class Executor:
         copies = [tc for tc in tail_copies if tc is not None]
         if copies:
             self._copy_pages(copies)
-        chunks, lens, pt_rows = self._pad_prompt_batch(reqs)
-        starts = self._tensor(start_lens)
+        bucket = self._select_aot("continue", reqs)
+        chunks, lens, pt_rows = self._pad_prompt_batch(reqs, bucket=bucket)
+        starts = np.zeros((chunks.shape[0],), np.int32)
+        starts[: len(reqs)] = start_lens
         with self.counters.timer("prefill"):
-            logits, _ = self._step_model.prefill_continue(
-                self.params, chunks, starts, lens,
-                self._state(pt_rows, starts))
+            logits = self._step(("continue", bucket), tokens=chunks,
+                                starts=starts, lens=lens, pt_rows=pt_rows)
             self._block()
         self._count_dispatch()
         self.counters.inc("continuation_prefill_tokens", int(lens.sum()))
@@ -276,9 +613,7 @@ class Executor:
         tokens = np.zeros((1, -(-n // page) * page), np.int32)
         tokens[0, :n] = np.asarray(prefix_tokens, np.int32)
         pt_rows = self._ptab.index_select(0, self._tensor([slot], torch.long))
-        lens = self._tensor([n])
-        self._step_model.prefill(self.params, self._tensor(tokens), lens,
-                                 self._state(pt_rows, torch.zeros_like(lens)))
+        self._prefill_body(self._tensor(tokens), self._tensor([n]), pt_rows)
         self._count_dispatch()
         self.counters.inc("prefix_tokens", n)
 

@@ -132,16 +132,16 @@ class ServeConfig:
     #: (``--no-prefix-cache`` in launch.serve, the bench reference).
     prefix_cache: bool = True
     #: AOT-bucketed prefill: prompt batches are padded up to the smallest
-    #: of these lengths and dispatched through executables pre-lowered and
-    #: compiled at engine build (``aot_compile`` against
-    #: ``ShapeDtypeStruct``s), so no request pays a first-hit jit stall.
-    #: Buckets must be positive ``page_size`` multiples within the
-    #: page-table reach; ``None`` (default) keeps the plain shape-keyed
-    #: jit path.  Padding is numerically inert — pad rows carry lens=0 and
-    #: INVALID_PAGE table rows (routed to the scratch/trash frame) and
-    #: causal masking keeps pad columns out of every real row — so greedy
-    #: streams are bit-identical to the unbucketed dispatch.  Counters:
-    #: ``aot_hits`` / ``aot_misses`` / ``bucket_pad_tokens``.
+    #: of these lengths and run through a prefill or continuation program
+    #: of that shape, built with the engine (a CUDA graph on the card), so
+    #: no request pays a first-call capture.  Buckets must be positive
+    #: ``page_size`` multiples within the page-table reach; ``None``
+    #: (default) runs every prefill eagerly at its own shape.  Padding is
+    #: numerically inert — pad rows carry lens=0 and INVALID_PAGE table
+    #: rows (no write lands) and causal masking keeps pad columns out of
+    #: every real row — so greedy streams equal the unbucketed run's (on
+    #: the card up to the GEMMs' choice of algorithm per shape).
+    #: Counters: ``aot_hits`` / ``aot_misses`` / ``bucket_pad_tokens``.
     aot_buckets: tuple[int, ...] | None = None
     #: serve-mesh request: "off" (single device), "auto" (factor all
     #: visible devices over ('kv','hd')), or an integer device count.
@@ -237,9 +237,10 @@ class ServeConfig:
                              "kernel dequantizes after the load "
                              "(quant_dispatches)")
         ap.add_argument("--aot-buckets", default="off",
-                        help="comma-separated prompt-length buckets "
-                             "(not ported: only 'off' is accepted by the "
-                             "engine)")
+                        help="comma-separated prompt-length buckets: a "
+                             "prefill and a continuation program per "
+                             "bucket, built with the engine (CUDA graphs "
+                             "on the card); 'off' (default) disables")
 
     @classmethod
     def from_args(cls, args, **overrides) -> "ServeConfig":

@@ -1094,3 +1094,253 @@ def test_paged_decode_attention_mma_cluster_sizes(gen, b, hkv):
     rows_within(got, ref.paged_decode_attention_ref(q, kp, vp, table, sl,
                                                     page_size=page))
     assert 1 <= n_split <= MMA_SPLITS_MAX
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: each serve kernel captured alone and replayed, and the reduced
+# engine's step programs against ``disable_graphs()`` runs
+# ---------------------------------------------------------------------------
+
+
+def captured(fn):
+    """Warm ``fn`` up on a side stream, then capture it as a CUDA graph;
+    returns ``(graph, output)``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+@pytest.mark.parametrize("at", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_graph_replay_pair_copy_bit_identical(gen, dtype, at):
+    """Both pair copies (a programmatic dependent launch) replayed from a
+    graph write the whole pools bit-identical to their eager launch."""
+    srcs, pools_, table, starts, lens = pair_case(gen, dtype, 16, at=at)
+    init = [p.clone() for p in pools_]
+    eager = [p.clone() for p in pools_]
+
+    def copy(dst):
+        if starts is None:
+            return ops.paged_copy_kv(*srcs, *dst, table, lens, page_size=16)
+        return ops.paged_copy_kv_at(*srcs, *dst, table, starts, lens,
+                                    page_size=16)
+
+    copy(eager)
+    graph, _ = captured(lambda: copy(pools_))
+    for p, i in zip(pools_, init):
+        p.copy_(i)                    # the warm-up wrote them
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(pools_, eager))
+    assert not torch.equal(pools_[0], init[0])
+
+
+@pytest.mark.parametrize("dtype,hq,hkv,d", [
+    (torch.float32, 4, 2, 14), (torch.bfloat16, 28, 4, 128)])
+def test_graph_replay_flash_attention_bit_identical(gen, dtype, hq, hkv, d):
+    q, k, v = (torch.randn((2, 100, h, d), generator=gen, device="cuda")
+               .to(dtype).transpose(1, 2) for h in (hq, hkv, hkv))
+    want = ops.flash_attention(q, k, v)
+    graph, got = captured(lambda: ops.flash_attention(q, k, v))
+    got.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype,hkv,g,d,page", [
+    (torch.float32, 2, 2, 14, 4), (torch.bfloat16, 4, 7, 128, 16)])
+def test_graph_replay_paged_attention_bit_identical(gen, quant, dtype, hkv,
+                                                     g, d, page):
+    """Paged decode and continuation attention, native and int8 pools,
+    replayed from graphs: bit-identical to their eager launches."""
+    b, frames, maxp = 4, 64, 12
+    shape = (frames, page, hkv, d)
+    if quant:
+        kp, vp = (torch.randint(-127, 128, shape, generator=gen,
+                                device="cuda", dtype=torch.int32)
+                  .to(torch.int8) for _ in range(2))
+    else:
+        kp, vp = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                  for _ in range(2))
+    lens = [page * 5 + 3, 0, 1, page * maxp]
+    table = mapped_table(gen, b, maxp, frames, [-(-n // page) for n in lens])
+    sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kvs = 1 / 24 if quant else None
+    q = torch.randn((b, hkv, g, d), generator=gen, device="cuda").to(dtype)
+    starts = torch.tensor([page + 3, 2 * page, 0, 5], dtype=torch.int32,
+                          device="cuda")
+    qp = torch.randn((b, 37, hkv * g * d), generator=gen,
+                     device="cuda").to(dtype).view(b, 37, hkv, g, d)
+    for fn in (lambda: ops.paged_decode_attention(
+                   q, kp, vp, table, sl, page_size=page, kv_scale=kvs),
+               lambda: ops.paged_prefill_attention(
+                   qp, kp, vp, table, starts, page_size=page,
+                   kv_scale=kvs)):
+        want = fn()
+        graph, got = captured(fn)
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+#: the reduced engine's geometries: a pool that preempts (the mixed
+#: workload of ``tests/test_serve_executor.py``), the default policy with
+#: radix hits and partial restores, and forks of a 13-token prefix
+REDUCED_COLD = dict(page_size=4, num_pages=16, max_pages_per_seq=16,
+                    max_batch=3, prefix_cache=False, restore_patience=0)
+REDUCED_WARM = dict(page_size=4, num_pages=16, max_pages_per_seq=16,
+                    max_batch=3)
+REDUCED_FORK = dict(page_size=8, num_pages=64, max_pages_per_seq=16,
+                    max_batch=4)
+
+
+@pytest.fixture(scope="module")
+def reduced():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen2-7b", reduced=True)
+    model = build_model(cfg, device="cuda")
+    return cfg, model, model.init(0)
+
+
+def reduced_workload(cfg, kind):
+    """``(prefix, requests)`` of a reduced engine case."""
+    import numpy as np
+    from repro_torch.serve import ServeRequest
+    rng = np.random.default_rng(13)
+    v = cfg.vocab_size
+    if kind == "fork":
+        prefix = rng.integers(0, v, size=13).astype(np.int32)
+        return prefix, [ServeRequest(
+            req_id=i, max_new_tokens=6, share_prefix=True,
+            prompt=rng.integers(0, v, size=n).astype(np.int32))
+            for i, n in enumerate((1, 7, 12))]
+    if kind == "radix":
+        base = rng.integers(0, v, size=12).astype(np.int32)
+        return None, [ServeRequest(req_id=i, max_new_tokens=12, prompt=np.
+                                   concatenate([base[:8], rng.integers(
+                                       0, v, size=int(rng.integers(4, 14)))
+                                       .astype(np.int32)])) for i in range(7)]
+    return None, [ServeRequest(req_id=i, max_new_tokens=12, prompt=rng.integers(
+        0, v, size=int(rng.integers(4, 14))).astype(np.int32))
+        for i in range(7)]
+
+
+def serve_counted(model, params, scfg, prefix, reqs):
+    """Serve with the launch counts zeroed before the engine is built;
+    returns tokens, counters, switch stats, launches, routes, replays."""
+    import dataclasses
+    from repro_torch.serve import Engine
+    ops.reset_launch_counts()
+    eng = Engine(model, params, scfg)
+    if prefix is not None:
+        eng.preload_prefix(prefix)
+    for r in reqs:
+        eng.submit(dataclasses.replace(r))
+    res = eng.drain()
+    eng.close()
+    return ({i: r.tokens for i, r in res.items()},
+            dict(eng.counters.counters), eng.stats()["switch_stats"],
+            ops.launch_counts(), ops.route_counts(), eng.executor.replays)
+
+
+@pytest.mark.parametrize("case", [
+    "cold", "int8", "radix", "fork", "buckets", "buckets_fork",
+    "temperature", "temperature_horizon1"])
+def test_engine_graphs_equal_eager(reduced, case):
+    """The reduced engine with its programs replayed from CUDA graphs (the
+    card's default) against the same engine inside ``disable_graphs()``:
+    identical tokens, counters, switch stats, and kernel launches and
+    routes (a replay adds what its capture recorded).  The temperature
+    cases hold the graphs' sampling stream to the eager one."""
+    from repro_torch.serve import ServeConfig, disable_graphs
+    cfg, model, params = reduced
+    kind = case.removeprefix("buckets_") if case.startswith("buckets") \
+        else case
+    kw = {"fork": REDUCED_FORK, "radix": REDUCED_WARM}.get(kind, REDUCED_COLD)
+    extra = {"int8": dict(kv_dtype="int8"),
+             "temperature": dict(greedy=False, temperature=0.8, seed=3),
+             "temperature_horizon1": dict(greedy=False, temperature=0.8,
+                                          seed=3, max_horizon=1),
+             }.get(case, {})
+    if case.startswith("buckets"):
+        extra = dict(aot_buckets=(8, 16))
+    scfg = ServeConfig(**kw, **extra)
+    prefix, reqs = reduced_workload(cfg, "fork" if kind == "fork" else
+                                    "radix" if kind == "radix" else "cold")
+    graph = serve_counted(model, params, scfg, prefix, reqs)
+    with disable_graphs():
+        eager = serve_counted(model, params, scfg, prefix, reqs)
+    assert graph[:5] == eager[:5]
+    assert eager[5] == {}
+    replays = graph[5]
+    assert sum(n for (k, _), n in replays.items()
+               if k.startswith("decode")) > 0
+    if case.startswith("buckets"):
+        kind_ = "continue" if kind == "fork" else "prefill"
+        assert sum(n for (k, _), n in replays.items() if k == kind_) \
+            == graph[1]["aot_hits"] > 0
+
+
+def test_replay_adds_the_launches_its_capture_recorded(reduced):
+    """Building the engine launches nothing the counters keep; each replay
+    adds exactly what its capture recorded: one launch a layer of each
+    kernel of the step, K a layer for a K-step horizon."""
+    from repro_torch.serve import Engine, ServeConfig
+    cfg, model, params = reduced
+    ops.reset_launch_counts()
+    eng = Engine(model, params, ServeConfig(**REDUCED_COLD, max_horizon=4,
+                                            aot_buckets=(8,)))
+    assert not any(ops.launch_counts().values())
+    layers = cfg.num_layers
+    want = {("decode", 1): {"paged_decode_attention": layers},
+            ("decode_multi", 2): {"paged_decode_attention": 2 * layers},
+            ("decode_multi", 4): {"paged_decode_attention": 4 * layers},
+            ("prefill", 8): {"paged_copy": layers, "flash_attention": layers},
+            ("continue", 8): {"paged_copy_at": layers,
+                              "paged_prefill_attention": layers}}
+    assert {k: g.launches for k, g in eng.executor._graphs.items()} == want
+    for key, g in eng.executor._graphs.items():
+        before = ops.launch_counts(), ops.route_counts()
+        g.replay()                    # masked inputs: only scratch writes
+        torch.cuda.synchronize()
+        launches = {k: n - before[0][k] for k, n in ops.launch_counts().items()
+                    if n != before[0][k]}
+        routes = {k: {r: n - before[1][k][r] for r, n in per.items()
+                      if n != before[1][k][r]}
+                  for k, per in ops.route_counts().items()}
+        assert launches == g.launches == want[key]
+        assert {k: v for k, v in routes.items() if v} == g.routes
+    eng.close()
+
+
+def test_failed_capture_raises(reduced, monkeypatch):
+    """A capture that fails raises out of the engine's build: it is never
+    caught and never replaced by an eager run."""
+    from repro_torch.serve import Engine, ServeConfig, disable_graphs
+    cfg, model, params = reduced
+    real = ops.paged_decode_attention
+
+    def refuse_capture(*args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("refused during capture")
+        return real(*args, **kw)
+
+    monkeypatch.setattr(ops, "paged_decode_attention", refuse_capture)
+    with pytest.raises(RuntimeError, match="refused during capture"):
+        Engine(model, params, ServeConfig(**REDUCED_COLD))
+    assert not torch.cuda.is_current_stream_capturing()
+    with disable_graphs():            # the same steps run eagerly there
+        Engine(model, params, ServeConfig(**REDUCED_COLD)).close()

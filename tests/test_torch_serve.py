@@ -135,8 +135,17 @@ def test_temperature_stream_fused_equals_stepwise(models):
     (dict(serve_mesh="auto"), "serve_mesh"),
 ])
 def test_engine_refuses_unported_paths(models, override, match):
+    """The engine refuses what is not ported (the serve mesh).  AOT buckets
+    are ported: that config builds, with a prefill and a continuation
+    program for its bucket (``tests/test_torch_aot_buckets.py``)."""
     _, _, tm, tp = models
     cfg = ServeConfig(**{**PORTED, **override})
+    if match == "aot_buckets":
+        eng = Engine(tm, tp, cfg)
+        assert sorted(eng.executor._aot) == [("continue", 16),
+                                             ("prefill", 16)]
+        eng.close()
+        return
     with pytest.raises(NotImplementedError, match=match):
         Engine(tm, tp, cfg)
 
