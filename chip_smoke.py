@@ -27,7 +27,11 @@ printing its lines; any failure exits non-zero before the last line:
    engine on the card against
    the same engine on the CPU: the cold workload, the default-policy
    workload (radix prefix hits and partial restores) and a fork workload,
-   with identical greedy tokens and counters; and the reduced rwkv6-7b
+   with identical greedy tokens and counters; a router over 1, 2 and 4
+   reduced engines on the card against the same router on the CPU
+   (identical tokens, statuses, router and replica counters, switch
+   stats), and the rescue of a stranded request, native and int8, card
+   against CPU; and the reduced rwkv6-7b
    (prefill + 16 greedy decode steps, both ``tm_impl``s, 32- and 27-token
    prompts) on the card against the CPU: identical tokens, logits within
    1e-4;
@@ -69,7 +73,22 @@ printing its lines; any failure exits non-zero before the last line:
    layers amplify the GEMMs' last-bit differences between shapes); traced
    bucketed runs, native and int8, graphs and eager, for the copies'
    programmatic edges;
-8. full-width check and timing (the serve runs repeated eagerly, since
+8. router: a ``ReplicaRouter`` over 2 engines of 4 lanes on the one
+   weight set (least-loaded, migration on), each run zeroing the launch
+   counts before its engines are built and reading them after the
+   drain, with graphs and inside ``disable_graphs()`` (identical in
+   tokens, statuses, router and replica counters, switch stats, fleet
+   launches and routes; no migration aborted; every replica placed and
+   decoding): router-cold (the cold workload, 36 frames a replica)
+   beside the N=1 graph run of the same call, with its token agreement,
+   and traced; router-radix (the radix workload, 35 frames a replica:
+   ``prefix_hits`` > 0, the continuation kernels on their fast routes);
+   router-rescue, native and int8 (a 384-token request stranded on a
+   25-frame replica is migrated to a 72-frame one: restored frames equal
+   to the record's bytes, tokens equal to a lone engine's, the record's
+   bytes and the export, import and restore times printed); then the
+   card's allocated bytes after 1, 2 and 4 engines;
+9. full-width check and timing (the serve runs repeated eagerly, since
    the recorders read each call's inputs): each kernel against its plain version on
    the largest inputs an untimed repeat of the serve runs gave it (bf16,
    within four bf16 steps of the largest output; copies bit-identical),
@@ -82,22 +101,22 @@ printing its lines; any failure exits non-zero before the last line:
    beside the least time the card could take (bytes / 3.35 TB/s or
    operations / 989 TFLOP/s bf16); ``flash_attention`` is also timed at
    a 4,096-token qwen2-7b prefill (q [1, 28, 4096, 128]) beside SDPA;
-9. RWKV-6 serve: the qwen2-7b weights are freed, rwkv6-7b at full width
+10. RWKV-6 serve: the qwen2-7b weights are freed, rwkv6-7b at full width
    (32 layers, d_model 4096, 64 heads of 64, bf16, random weights, depth
    not cut) prefills 8 prompts of 512 tokens and decodes 32 greedy tokens,
    once with ``tm_impl="sequential"`` (``wkv6`` everywhere) and once with
    ``"chunked_matmul"`` (``wkv6_chunked`` for the prefill); launch counts
    are zeroed before and read after each run; then the state is wound to
    524,284 tokens and 4 more steps must leave its bytes unchanged;
-10. WKV full-width check and timing: each WKV kernel against its plain
+11. WKV full-width check and timing: each WKV kernel against its plain
    version (f32, within 1e-3 of the largest output) on the largest inputs
    an untimed repeat gave it (prefill, decode at T = 1, chunked prefill),
-   timed as in 8, beside bytes / 3.35 TB/s or f32 operations / 67 TFLOP/s
+   timed as in 9, beside bytes / 3.35 TB/s or f32 operations / 67 TFLOP/s
    (the CUDA-core peak: the kernels compute in f32); then a traced,
    untimed repeat of each run's prefill and of 8 decode steps prints the
    device's busy share and device time by kernel, and each prefill's
    ``wkv6`` and ``wkv6_chunked`` time and share of device time;
-11. the paper's VM loop (after the reduced checks above, which also hold
+12. the paper's VM loop (after the reduced checks above, which also hold
    ``paged_gather`` bit-identical to its plain version over f32/bf16/int8,
    W 4/14/512, page 8/16, any order with repeats, -1 entries, positions
    past the reach and N = 1, and ``matmul`` within 1e-4 of the largest
@@ -111,13 +130,13 @@ printing its lines; any failure exits non-zero before the last line:
    random) are gathered bit-identical through the kernel, the plain
    version and the coalesced route, with each stream's translation counts
    and 16-entry DTLB report (host numpy); the random stream is timed;
-12. the paper's matmul: n = 45, 90, 181 in f32 and qwen2-7b's gate
+13. the paper's matmul: n = 45, 90, 181 in f32 and qwen2-7b's gate
    projection for a 2,048-token prefill (bf16 [2048, 3584] @ [3584,
    18944] -> bf16) through ``ops.matmul`` with the launch counts zeroed
    before and read after (the f32 products on the CUDA-core route, the
    gate projection on ``wgmma``), each against its plain version, then
    the largest and the n = 181 product timed beside ``torch.matmul``;
-13. the kernel JSON line, then the device JSON line, last.
+14. the kernel JSON line, then the device JSON line, last.
 """
 
 from __future__ import annotations
@@ -709,11 +728,7 @@ def reduced_engine_check() -> None:
     # plain version's full table reach on the CPU.
     import numpy as np
     from repro_torch.serve import ServeRequest
-    rng = np.random.default_rng(13)
-    base = rng.integers(0, cfg.vocab_size, size=12).astype(np.int32)
-    radix = [ServeRequest(req_id=i, max_new_tokens=12, prompt=np.concatenate(
-        [base[:8], rng.integers(0, cfg.vocab_size, size=int(
-            rng.integers(4, 14))).astype(np.int32)])) for i in range(7)]
+    radix = reduced_radix_workload(cfg.vocab_size)
     rng = np.random.default_rng(23)
     prefix = rng.integers(0, cfg.vocab_size, size=13).astype(np.int32)
     forks = [ServeRequest(req_id=i, max_new_tokens=6, share_prefix=True,
@@ -762,6 +777,78 @@ def reduced_engine_check() -> None:
             f"prefill_bytes_gathered card "
             f"{e_gpu.counters.get('prefill_bytes_gathered')} / cpu "
             f"{e_cpu.counters.get('prefill_bytes_gathered')}")
+
+
+def reduced_radix_workload(vocab: int):
+    """The shared-base workload of tests/test_torch_continuation.py: 7
+    prompts, the first 8 tokens of one base and a 4-13-token tail each."""
+    import numpy as np
+    from repro_torch.serve import ServeRequest
+    rng = np.random.default_rng(13)
+    base = rng.integers(0, vocab, size=12).astype(np.int32)
+    return [ServeRequest(req_id=i, max_new_tokens=12, prompt=np.concatenate(
+        [base[:8], rng.integers(0, vocab, size=int(
+            rng.integers(4, 14))).astype(np.int32)])) for i in range(7)]
+
+
+def reduced_router_check() -> None:
+    """The router over N in {1, 2, 4} reduced engines on the card (graphs
+    replayed) against the same router over the same weights on the CPU,
+    on the default policy's shared-base workload in a tight pool: greedy
+    tokens, statuses, every router and replica counter (less
+    ``prefill_bytes_gathered``, which counts by the route that ran) and
+    switch stats; then the rescue of a stranded request at reduced width,
+    native and int8, on the card and on the CPU: identical tokens,
+    counters and record bytes."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig
+    cfg = get_config("qwen2-7b", reduced=True)
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_params = cpu_model.init(0)
+    gpu_model = build_model(cfg, device="cuda")
+    gpu_params = to_device(cpu_params, "cuda")
+    reqs = reduced_radix_workload(cfg.vocab_size)
+    scfg = ServeConfig(page_size=4, num_pages=16, max_pages_per_seq=16,
+                       max_batch=3)
+
+    def record(run):
+        counters = {i: {k: v for k, v in c.items()
+                        if k != "prefill_bytes_gathered"}
+                    for i, c in run["counters"].items()}
+        return run["tokens"], counters, run["switch"]
+
+    for n in (1, 2, 4):
+        card = routed(gpu_model, gpu_params, [scfg] * n, reqs, graphs=True)
+        cpu = routed(cpu_model, cpu_params, [scfg] * n, reqs, graphs=True)
+        require(record(card) == record(cpu),
+                f"reduced router N={n}: card and cpu differ")
+        require(all(r.status == "done" for r in card["res"].values()),
+                f"reduced router N={n}: a request did not finish")
+        merged = card["router"].global_counters()
+        log(f"check reduced router N={n}: card == cpu greedy tokens, "
+            f"statuses, router and replica counters, switch stats; "
+            f"preemptions {merged['preemptions']}, prefix_hits "
+            f"{merged['prefix_hits']}, restore_migrations "
+            f"{merged['restore_migrations']}, placements "
+            + ", ".join(str(merged[f"placements_replica{i}"])
+                        for i in range(n)))
+    prompt = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=24).astype(np.int32)
+    for kv in ("native", "int8"):
+        big = ServeConfig(page_size=4, num_pages=64, max_pages_per_seq=32,
+                          max_batch=3, max_horizon=1, kv_dtype=kv)
+        card = rescue_run(gpu_model, gpu_params, big, 8, prompt, 8)
+        cpu = rescue_run(cpu_model, cpu_params, big, 8, prompt, 8)
+        for c in (card["counters"], cpu["counters"]):
+            c.pop("prefill_bytes_gathered", None)
+        require((card["tokens"], card["counters"], card["bytes"])
+                == (cpu["tokens"], cpu["counters"], cpu["bytes"]),
+                f"reduced rescue ({kv}): card and cpu differ")
+        log(f"check reduced rescue ({kv}): the stranded request migrates "
+            f"(restore_migrations 1), its {card['bytes']} B record restored "
+            "bit for bit, tokens equal the lone engine's and the cpu's")
 
 
 def serve_workload(vocab: int, n: int, lo: int, hi: int, max_new: int,
@@ -1489,6 +1576,334 @@ def bucket_phase(cfg, model, params) -> None:
             f"buckets {tag}: request {worst}'s first-token logits differ "
             f"from the unbucketed run's by {steps[worst]:.2f} bf16 steps > "
             f"{LOGIT_STEPS}")
+
+
+# ---------------------------------------------------------------------------
+# the multi-replica serve path: ReplicaRouter over engines on one card
+# ---------------------------------------------------------------------------
+
+#: the router runs: 2 replicas of 4 lanes on one weight set, each with half
+#: the frames of the N=1 run — cold 36 of 72; radix 35, not 32 of 64: a
+#: 512 + 32-token request needs 34 usable pages, and a CPU run of the
+#: reduced model (the schedule depends on lengths only) fails one request
+#: as unreachable at 32 frames and hosts every one from 35 up
+ROUTER_REPLICAS = 2
+ROUTER_COLD = dict(SERVE, num_pages=36)
+ROUTER_RADIX = dict(CONT, num_pages=35)
+#: the rescue at full width: one 384-token request, 32 new tokens, horizon
+#: 1; the small replica's 24 usable frames can never hold it (385 tokens
+#: after the prefill need 25 pages), the roomy one has the cold run's 72
+RESCUE = dict(prompt=384, new=32, small_pages=25, seed=5)
+#: engines per memory reading after the build
+MEMORY_FLEETS = (1, 2, 4)
+
+
+def routed(model, params, scfgs, reqs, *, graphs: bool, prefix=None,
+           policy="least_loaded", traced=False) -> dict:
+    """Serve ``reqs`` through a router over one engine per ``scfgs`` entry
+    on one weight set (each preloaded with ``prefix``), as a user drives
+    it: launch counts zeroed before the engines are built and read after
+    the drain; ``graphs=False`` inside ``disable_graphs()``; ``traced``
+    under torch.profiler with the :class:`Annotations`.  Requires
+    ``check_invariants()`` and returns the run's record."""
+    import contextlib
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Engine, ReplicaRouter, disable_graphs
+    ops.reset_launch_counts()
+    prof = None
+    with contextlib.nullcontext() if graphs else disable_graphs():
+        t0 = time.perf_counter()
+        engines = [Engine(model, params, s) for s in scfgs]
+        build = time.perf_counter() - t0
+        router = ReplicaRouter(
+            [e.as_replica(i) for i, e in enumerate(engines)], policy=policy)
+        if prefix is not None:
+            for e in engines:
+                e.preload_prefix(prefix)
+        for r in reqs:
+            router.submit(dataclasses.replace(r))
+        with contextlib.ExitStack() as stack:
+            if traced:
+                stack.enter_context(Annotations())
+                prof = stack.enter_context(profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+            t0 = time.perf_counter()
+            res = router.drain()
+            dt = time.perf_counter() - t0
+        for e in engines:
+            e.close()
+    router.check_invariants()
+    # keyed as a single run's record (``served``), so ``require_same``
+    # compares a router run with its twin: the router's counters and
+    # every replica's (by id), every replica's switch stats
+    return dict(router=router, engines=engines, res=res, dt=dt, build=build,
+                prof=prof, tokens={i: (r.tokens, r.status)
+                                   for i, r in res.items()},
+                counters={"router": dict(router.counters.counters)} | {
+                    i: dict(e.counters.counters)
+                    for i, e in enumerate(engines)},
+                switch={i: e.stats()["switch_stats"]
+                        for i, e in enumerate(engines)},
+                launches=ops.launch_counts(), routes=ops.route_counts(),
+                replays=[e.executor.replays for e in engines])
+
+
+def report_router(tag, run) -> None:
+    """One line of end-to-end numbers and one of the router's counters."""
+    res = run["res"]
+    toks = sum(len(r.tokens) for r in res.values())
+    require(toks > 0 and run["dt"] > 0, f"{tag}: no tokens")
+    done = [r for r in res.values() if r.status == "done"]
+    ttft = sorted(r.ttft for r in done)[len(done) // 2] * 1e3
+    tpot = sorted(r.tpot for r in done)[len(done) // 2] * 1e3
+    merged = run["router"].global_counters()
+    log(f"{tag}: {len(done)}/{len(res)} done, {toks} tokens in "
+        f"{run['dt']:.3f}s = {toks / run['dt']:.1f} tok/s; TTFT p50 "
+        f"{ttft:.1f} ms, TPOT p50 {tpot:.2f} ms; preemptions "
+        f"{merged['preemptions']}, restores "
+        f"{merged['restores']}, partial_restores "
+        f"{merged['partial_restores']}, restore_migrations "
+        f"{merged['restore_migrations']}; engines built in "
+        f"{run['build']:.2f}s")
+    log(f"{tag} router counters: " + json.dumps(run["counters"]["router"]))
+
+
+def router_fleet_checks(tag, run, kernels) -> None:
+    """What every router run must show: all requests done, each replica
+    placed and decoded, no plain-path step, no migration aborted, and each
+    kernel of ``kernels`` launched on its fast route."""
+    require(all(r.status == "done" for r in run["res"].values()),
+            f"{tag}: a request did not finish")
+    rc = run["counters"]["router"]
+    for i in range(len(run["engines"])):
+        c = run["counters"][i]
+        require(rc.get(f"placements_replica{i}", 0) > 0
+                and c.get("decode_tokens", 0) > 0,
+                f"{tag}: replica {i} was not placed or never decoded")
+        require(c.get("ref_path_dispatches", 0) == 0,
+                f"{tag}: plain-path dispatches on replica {i}")
+    require(rc.get("migration_aborts", 0) == 0, f"{tag}: migration aborted")
+    for n in kernels:
+        require(run["launches"][n] > 0, f"{tag}: {n} never launched")
+    require_tensor_core_routes(tag, run["launches"])
+
+
+def memory_phase(model, params) -> None:
+    """Allocated bytes on the card after building 1, 2 and 4 cold-run
+    engines over the one weight set, and after freeing them: each engine
+    adds its pools, page table, buffers and graphs, never a copy of the
+    weights, and the captures' shared warm-up stream leaves one cuBLAS
+    workspace, not one an engine."""
+    import torch
+    from repro_torch.serve import Engine, ServeConfig
+    scfg = ServeConfig(**SERVE)
+    weights = sum(t.numel() * t.element_size()
+                  for t in torch.utils._pytree.tree_leaves(params))
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    added = {}
+    for n in MEMORY_FLEETS:
+        engines = [Engine(model, params, scfg) for _ in range(n)]
+        torch.cuda.synchronize()
+        added[n] = torch.cuda.memory_allocated() - base
+        while engines:
+            engines.pop().close()
+        gc.collect()
+    left = torch.cuda.memory_allocated() - base
+    log(f"router memory: weights {weights / 1e9:.2f} GB held once; "
+        + ", ".join(f"{n} engine(s) add {b / 1e6:.1f} MB"
+                    for n, b in added.items())
+        + f"; {left / 1e6:.1f} MB left after they are freed")
+    one = added[1]
+    for n, b in added.items():
+        require(b <= n * one + (64 << 20),
+                f"router memory: {n} engines add {b} B, more than {n} x "
+                f"one engine's {one} B")
+    require(one < weights / 10, f"router memory: one engine adds {one} B "
+                                f"of {weights} B weights")
+
+
+def rescue_run(model, params, big, small_pages: int, prompt, new: int
+               ) -> dict:
+    """JAX's ``test_rescue_migration_moves_real_kv_between_pools``: one
+    request is served alone by a roomy engine (the reference), then
+    through a router over a small replica (``small_pages`` frames, which
+    can never host it) and a roomy one (``big``).  Placed on the roomy
+    replica by reach, decoded until its footprint outgrows the small
+    pool, spilled and stranded on the small replica (``export_swapped`` /
+    ``import_swapped``), it must be rescued: ``restore_migrations`` 1, no
+    request failed, the destination's restored frames bit-identical to
+    the record, greedy tokens those of the lone engine, and neither
+    switcher holding a record at the end.  Returns the record's bytes,
+    the wall time of the rescue's export, import and restore, and the
+    tokens."""
+    import torch
+    from repro_torch.serve import Engine, ReplicaRouter, ServeRequest
+    sreq = ServeRequest(req_id=0, prompt=prompt, max_new_tokens=new)
+    lone = Engine(model, params, big)
+    lone.submit(dataclasses.replace(sreq))
+    want = lone.drain()[0].tokens
+    lone.close()
+    e_small = Engine(model, params, dataclasses.replace(
+        big, num_pages=small_pages))
+    e_big = Engine(model, params, big)
+    router = ReplicaRouter([e_small.as_replica(0), e_big.as_replica(1)],
+                           migrate_after=2)
+    router.submit(dataclasses.replace(sreq))
+    require(router.counters.get("placements_replica1") == 1,
+            "rescue: the reach check did not place on the roomy replica")
+    s0, s1 = e_small.scheduler, e_big.scheduler
+    while not (0 in s1.running and s1.vmem.config.pages_for(
+            s1.vmem.seq_len(0)) > s0.attainable_pages()):
+        router.step()
+    s1.spill(s1.running[0])
+    s0.import_swapped(s1.export_swapped(0))       # strand it: real bytes
+    require(e_small.switcher.swapped_out == [0], "rescue: not stranded")
+    seen, wall = {}, dict.fromkeys(("export", "import", "restore"), 0.0)
+
+    def sync():
+        if e_big.executor.device.type == "cuda":
+            torch.cuda.synchronize(e_big.executor.device)
+
+    def timed(name, fn, after=None):
+        def run(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            wall[name] += time.perf_counter() - t0
+            if after is not None:
+                after(out, *a)
+            return out
+        return run
+
+    def keep_record(exp, *_):
+        seen["record"] = exp.record.page_data
+
+    def keep_frames(_, seq_id, k_pools, v_pools, *__):
+        frames = e_big.vmem.seq(seq_id).pages
+        seen["k"], seen["v"] = (p[:, frames].cpu()
+                                for p in (k_pools, v_pools))
+        seen["replays"] = dict(e_big.executor.replays)
+
+    s0.export_swapped = timed("export", s0.export_swapped, keep_record)
+    s1.import_swapped = timed("import", s1.import_swapped)
+    e_big.switcher.restore_kv = timed("restore", e_big.switcher.restore_kv,
+                                      keep_frames)
+    res = router.drain()
+    e_small.close()
+    e_big.close()
+    g = router.global_counters()
+    require(g["restore_migrations"] == 1 and g["failed_unreachable"] == 0,
+            f"rescue: restore_migrations {g['restore_migrations']}, "
+            f"failed_unreachable {g['failed_unreachable']}")
+    require(g.get("migration_aborts", 0) == 0, "rescue: migration aborted")
+    require("k" in seen and torch.equal(seen["k"], seen["record"][0])
+            and torch.equal(seen["v"], seen["record"][1]),
+            "rescue: the restored frames differ from the record's bytes")
+    require(res[0].tokens == want, f"rescue: tokens {res[0].tokens} != the "
+                                   f"lone engine's {want}")
+    require(e_small.switcher.swapped_out == e_big.switcher.swapped_out == [],
+            "rescue: a switcher still holds a record")
+    router.check_invariants()
+    rec = seen["record"]
+    return dict(bytes=rec.numel() * rec.element_size(), shape=list(rec.shape),
+                dtype=str(rec.dtype).removeprefix("torch."), wall=wall,
+                tokens=res[0].tokens, replays_before=seen["replays"],
+                replays=e_big.executor.replays,
+                counters=dict(g), router=router)
+
+
+def router_phase(cfg, model, params) -> None:
+    """The multi-replica serve path at full width on one card: the cold
+    and radix workloads through a router over 2 engines on the one weight
+    set, each with CUDA graphs and inside ``disable_graphs()`` (identical
+    in tokens, every router and replica counter, switch stats, launches
+    and routes), the cold one beside the N=1 graph run and traced; the
+    rescue of a stranded request, native and int8; the card's allocated
+    bytes after 1, 2 and 4 engines."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import ServeConfig
+    n = ROUTER_REPLICAS
+    reqs = serve_workload(cfg.vocab_size, **WORKLOAD)
+    one = served(model, params, ServeConfig(**SERVE), reqs, graphs=True)
+    report("router-cold N=1 graph", one["eng"], one["res"], one["dt"])
+    runs = {mode: routed(model, params, [ServeConfig(**ROUTER_COLD)] * n,
+                         reqs, graphs=mode == "graph")
+            for mode in ("graph", "eager")}
+    for mode, run in runs.items():
+        report_router(f"router-cold {mode}", run)
+    g = runs["graph"]
+    require_same("router-cold", g, runs["eager"])
+    router_fleet_checks("router-cold", g, COLD_KERNELS)
+    require(all(replays_of(r, "decode", "decode_multi") > 0
+                for r in g["replays"]), "router-cold: a replica replayed "
+                                        "no decode graph")
+    log("router-cold: graph == eager in tokens, statuses, router and "
+        "replica counters, switch stats, launches and routes; launches "
+        + json.dumps(g["launches"]))
+    same = sum(g["res"][i].tokens == one["tokens"][i] for i in one["tokens"])
+    log(f"router-cold vs N=1: {same}/{len(reqs)} requests give the same "
+        "greedy tokens (printed, not required: the GEMMs' row counts "
+        "differ)")
+    del runs, one
+    traced = routed(model, params, [ServeConfig(**ROUTER_COLD)] * n, reqs,
+                    graphs=True, traced=True)
+    steps = sum(e.counters.get("decode_horizon") for e in traced["engines"])
+    split = trace_split(traced["prof"], traced["dt"], steps)
+    log(f"router-cold traced: device busy {split['busy_ms']:.1f} ms of "
+        f"{traced['dt'] * 1e3:.1f} ms wall ({split['share']:.1f}% busy); "
+        f"{split['kernels_per_step']:.1f} kernels and "
+        f"{split['device_ms_per_step']:.2f} ms of kernel time per decode "
+        f"token-step ({steps} token-steps over {n} replicas); "
+        "device-to-host " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in split["d2h_ms"].items()))
+    del traced, split
+
+    radix = radix_workload(cfg.vocab_size)
+    runs = {mode: routed(model, params, [ServeConfig(**ROUTER_RADIX)] * n,
+                         radix, graphs=mode == "graph")
+            for mode in ("graph", "eager")}
+    for mode, run in runs.items():
+        report_router(f"router-radix {mode}", run)
+    g = runs["graph"]
+    require_same("router-radix", g, runs["eager"])
+    router_fleet_checks("router-radix", g, CONT_KERNELS)
+    merged = g["router"].global_counters()
+    require(merged["prefix_hits"] > 0, "router-radix: no prefix hit")
+    log(f"router-radix: graph == eager; prefix_hits {merged['prefix_hits']}"
+        f", prefix_routed {merged['prefix_routed']}, migrations_declined "
+        f"{merged['migrations_declined']}, placements "
+        + ", ".join(f"replica{i} {merged[f'placements_replica{i}']}"
+                    for i in range(n))
+        + "; launches " + json.dumps(g["launches"]))
+    del runs, g
+
+    rng = np.random.default_rng(RESCUE["seed"])
+    prompt = rng.integers(0, cfg.vocab_size, size=RESCUE["prompt"]).astype(
+        np.int32)
+    for kv in ("native", "int8"):
+        big = ServeConfig(**dict(SERVE, max_horizon=1, kv_dtype=kv))
+        out = rescue_run(model, params, big, RESCUE["small_pages"], prompt,
+                         RESCUE["new"])
+        wall = out["wall"]
+        log(f"router-rescue {kv}: restore_migrations 1, failed_unreachable "
+            f"0; record {out['shape']} {out['dtype']} = {out['bytes']} B "
+            f"({out['bytes'] / 1e6:.2f} MB) restored bit for bit; export "
+            f"{wall['export'] * 1e3:.3f} ms + import "
+            f"{wall['import'] * 1e3:.3f} ms + restore "
+            f"{wall['restore'] * 1e3:.3f} ms = "
+            f"{sum(wall.values()) * 1e3:.3f} ms wall; {len(out['tokens'])} "
+            "greedy tokens identical to the lone engine's; decode replays "
+            f"{replays_of(out['replays_before'], 'decode')} before the "
+            f"restore, {replays_of(out['replays'], 'decode')} after")
+        del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory_phase(model, params)
 
 
 class GatherTap:
@@ -2659,7 +3074,7 @@ def print_rows(rows) -> None:
 
 def dense_phases() -> list[dict]:
     """The qwen2-7b phases (cold, int8, horizon, continuation, graphs,
-    buckets) and their kernel rows; the model and every recorded input are
+    buckets, router) and their kernel rows; the model and every recorded input are
     freed on return."""
     from repro_torch.serve import disable_graphs
     cfg, model, params = full_model()
@@ -2667,6 +3082,7 @@ def dense_phases() -> list[dict]:
     counts = continuation_phase(cfg, model, params)
     graph_phase(cfg, model, params)
     bucket_phase(cfg, model, params)
+    router_phase(cfg, model, params)
     with disable_graphs():      # the recorders read each call's inputs
         rec, rec_q, rec_pq = record_inputs(cfg, model, params)
     rows = full_checks(rec, rec_q, launches, launches_q)
@@ -2708,6 +3124,7 @@ def main() -> int:
         reduced_checks()
         reduced_wkv_checks()
         reduced_engine_check()
+        reduced_router_check()
         reduced_rwkv_check()
         reduced_vm_checks()
         if quick:

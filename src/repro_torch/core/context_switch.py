@@ -39,7 +39,11 @@ class SpilledState:
 
     ``page_data`` is host memory ``[2, L, n_pages, page, ...]`` (K then V)
     in the pool's storage dtype; nothing in it references the pool that
-    spilled it."""
+    spilled it.  The record is therefore **portable**: one replica's
+    switcher can export it (:meth:`ContextSwitcher.export_swap`) and
+    another's import it (:meth:`ContextSwitcher.import_swap`) and restore
+    it into its own pools, provided both share the page geometry — the
+    cross-replica migration of a starved swap victim."""
 
     seq_id: int
     num_tokens: int
@@ -152,6 +156,33 @@ class ContextSwitcher:
         self.stats.pages_restored += 2 * (n_keep - skip)
         self.stats.modeled_cycles += self.cost.bytes_move_cycles(nbytes)
         return k_pools, v_pools, spilled.extra_state
+
+    def export_swap(self, seq_id: int) -> SpilledState:
+        """Detach ``seq_id``'s swap record for migration to ANOTHER
+        replica's switcher.  Its frames were freed at spill time and the
+        record is host memory, so after the pop nothing here references
+        the victim.  KeyError if not spilled."""
+        return self._swap.pop(seq_id)
+
+    def import_swap(self, record: SpilledState) -> None:
+        """Adopt a swap record exported from another replica's switcher.
+
+        Both checks raise before anything moves: the page count the record
+        carries (``page_data.shape[2]``) must be what a restore here would
+        re-map for its ``num_tokens``, and the sequence must not be spilled
+        here already.  Nothing is copied to the device until the restore,
+        which writes into this replica's pools in place."""
+        need = self.vmem.config.pages_for(record.num_tokens)
+        have = int(record.page_data.shape[2])
+        if have != need:
+            raise ValueError(
+                f"import_swap of seq {record.seq_id}: record carries "
+                f"{have} pages but {record.num_tokens} tokens need {need} "
+                f"under page_size={self.vmem.config.page_size}")
+        if record.seq_id in self._swap:
+            raise ValueError(
+                f"import_swap: seq {record.seq_id} already spilled here")
+        self._swap[record.seq_id] = record
 
     def spilled_len(self, seq_id: int) -> int:
         """Token length recorded when ``seq_id`` was spilled — the only

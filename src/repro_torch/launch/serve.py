@@ -12,6 +12,10 @@ serves, with the radix prefix cache (``--no-prefix-cache`` turns it off)
 and partial restore on.  ``--prefix-len N`` preloads a
 random N-token shared prefix and submits every request as a
 ``share_prefix`` fork of it (continuation prefill through the executor).
+``--replicas N`` serves through a ``ReplicaRouter`` over N engines on the
+one device (``--route-policy``: ``least_loaded`` or ``round_robin``);
+the engines share one model and one weight set, each has its own pools,
+page table and CUDA graphs, and each is preloaded with the prefix.
 
 The model is the arch's reduced config unless ``--full`` asks for the
 published widths; ``--num-layers`` cuts depth only.  Recurrent families
@@ -21,8 +25,8 @@ as the JAX launcher refuses them: they decode through the model's own
 runs the plain PyTorch versions of the kernels on the CPU.  The kernels
 are built and one short request is served before the timed run, so
 tokens/s and TTFT exclude the build and first-call costs; ``--profile``
-traces the timed run (torch.profiler) and prints device time by kernel
-and the device's busy and idle shares.
+traces the timed run (the engine's or the router's drain, torch.profiler)
+and prints device time by kernel and the device's busy and idle shares.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import torch
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.kernels import build
 from repro_torch.models import build_model
-from repro_torch.serve import Engine, ServeConfig, ServeRequest
+from repro_torch.serve import Engine, ReplicaRouter, ServeConfig, ServeRequest
 from repro_torch.serve.engine import RECURRENT_FAMILIES, RECURRENT_REFUSAL
 
 
@@ -92,6 +96,17 @@ def main() -> None:
     ap.add_argument("--prefix-len", type=int, default=0,
                     help="preload a shared prefix of this many tokens; "
                          "requests fork from it (continuation prefill)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engines behind the ReplicaRouter on the one "
+                         "device: N Scheduler+Executor pairs (each with its "
+                         "own KV pools, page table and graphs) over one "
+                         "weight set, fed from one global admission queue; "
+                         "1 = the plain engine")
+    ap.add_argument("--route-policy", default="least_loaded",
+                    choices=ReplicaRouter.POLICIES,
+                    help="replica placement policy (fork affinity is "
+                         "always enforced on top: COW forks stay on a "
+                         "prefix-holding replica)")
     ap.add_argument("--profile", action="store_true",
                     help="trace the serve run with torch.profiler and print "
                          "device time by kernel and the device busy share")
@@ -118,15 +133,31 @@ def main() -> None:
                              max_new_tokens=2))
     warm.drain()
     warm.close()
-    eng = Engine(model, params, serve_cfg)
+    engines = [Engine(model, params, serve_cfg)
+               for _ in range(max(1, args.replicas))]
+    eng = engines[0]
+    router = None
+    if args.replicas > 1:
+        router = ReplicaRouter(
+            [e.as_replica(i) for i, e in enumerate(engines)],
+            policy=args.route_policy)
+        print(f"replica router: {args.replicas} replicas "
+              f"({args.route_policy}; each {args.num_pages} frames, "
+              f"max_batch {args.max_batch}) over one weight set")
+    if model.device.type == "cuda":
+        print(f"  {len(engines)} engine(s) built: "
+              f"{torch.cuda.memory_allocated(model.device) / 1e9:.2f} GB "
+              "allocated on the card")
     rng = np.random.default_rng(args.seed)
     share = args.prefix_len > 0
     if share:
-        eng.preload_prefix(rng.integers(0, cfg.vocab_size,
-                                        size=args.prefix_len))
+        prefix = rng.integers(0, cfg.vocab_size, size=args.prefix_len)
+        for e in engines:      # every replica can parent COW forks
+            e.preload_prefix(prefix)
+    front = router if router is not None else eng
     for _ in range(args.requests):
         plen = int(rng.integers(args.prompt_len // 2, args.prompt_len + 1))
-        eng.submit(ServeRequest(
+        front.submit(ServeRequest(
             prompt=rng.integers(0, cfg.vocab_size, size=plen).astype(np.int32),
             max_new_tokens=args.max_new_tokens, share_prefix=share,
         ))
@@ -139,7 +170,7 @@ def main() -> None:
         ctx = profile(activities=acts)
     with ctx as prof:
         t0 = time.perf_counter()
-        results = eng.drain()
+        results = front.drain()
         dt = time.perf_counter() - t0
     if args.profile:
         print_profile(prof, dt)
@@ -157,6 +188,20 @@ def main() -> None:
         print(f"  latency: TTFT p50 {ttfts[mid] * 1e3:.1f} ms / max "
               f"{ttfts[-1] * 1e3:.1f} ms, TPOT p50 {tpots[mid] * 1e3:.1f} ms "
               f"(commit-point stamps)")
+    if router is not None:
+        r = router.counters
+        print(f"router: {r.get('placements')} placements ("
+              + ", ".join(str(r.get(f"placements_replica{i}"))
+                          for i in range(args.replicas))
+              + f" per replica), {r.get('migrations_declined')} migrations "
+              f"declined, {r.get('prefix_routed')} prefix-routed, "
+              f"{r.get('restore_migrations')} restore migrations, "
+              f"{r.get('migration_aborts')} aborts, "
+              f"{r.get('cross_replica_queue_waits')} queue-wait steps")
+        print("router counters:", router.stats()["router"]["counters"])
+        print("router global pages:", router.global_page_report())
+        router.check_invariants()
+        print("-- replica 0 detail --")
     print("scheduler (policy plane) counters:", stats["counters"])
     print("executor (data plane): context switches:", stats["switch_stats"])
     c = eng.counters
@@ -181,7 +226,8 @@ def main() -> None:
           f"hits, {c.get('partial_restores')} partial restores, "
           f"{c.get('continuation_prefill_tokens')} continuation tokens")
     print("pool:", stats["pool"])
-    eng.close()
+    for e in engines:
+        e.close()
 
 
 if __name__ == "__main__":

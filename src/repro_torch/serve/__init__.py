@@ -7,13 +7,15 @@ kernels), and :class:`Engine` the facade that wires them together.
 Clients submit typed :class:`ServeRequest` records and ``drain()`` typed
 :class:`ServeResult` records (:mod:`repro_torch.serve.api`).
 
-Ported so far: one replica on one card with the default policy: cold
-prefill, fused decode horizons, preemption, the continuation paths —
-the radix prefix cache, a preloaded shared prefix with ``share_prefix``
-forks, and partial restore — and AOT buckets.  On the card the steps
-run as CUDA graphs captured when the engine is built;
-:func:`disable_graphs` runs them eagerly.  The router (with portable
-swap records) and the sharded executor are later slices.
+Ported so far, on one card with the default policy: cold prefill, fused
+decode horizons, preemption, the continuation paths — the radix prefix
+cache, a preloaded shared prefix with ``share_prefix`` forks, and
+partial restore — AOT buckets, and the multi-replica router
+(:class:`ReplicaRouter` over N engines, each an :meth:`Engine.as_replica`,
+with portable swap records :class:`SwapExport` and cross-replica
+migration).  On the card the steps run as CUDA graphs captured when each
+engine is built; :func:`disable_graphs` runs them eagerly.  The sharded
+executor is a later slice.
 """
 from repro_torch.serve.api import (
     RequestTiming,
@@ -27,13 +29,17 @@ from repro_torch.serve.detokenize import AsyncDetokenizer
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.executor import Executor, disable_graphs
 from repro_torch.serve.prefix_cache import PrefixCache
+from repro_torch.serve.router import Replica, ReplicaRouter
 from repro_torch.serve.scheduler import (
     DataPlane,
     DecodePlan,
     HostOnlyPlane,
+    ReplicaState,
     Request,
+    RestoreFailure,
     Scheduler,
     ServeConfig,
+    SwapExport,
 )
 
 __all__ = [
@@ -44,14 +50,19 @@ __all__ = [
     "Executor",
     "HostOnlyPlane",
     "PrefixCache",
+    "Replica",
+    "ReplicaRouter",
+    "ReplicaState",
     "Request",
     "RequestTiming",
+    "RestoreFailure",
     "SamplingParams",
     "Scheduler",
     "ServeConfig",
     "ServeRequest",
     "ServeResult",
     "StreamEvent",
+    "SwapExport",
     "disable_graphs",
     "to_internal",
 ]

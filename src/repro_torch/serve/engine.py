@@ -19,10 +19,15 @@ shares its whole pages and prefills only the divergent chunk), a
 preloaded shared prefix with ``share_prefix`` forks, and partial restore,
 all through the executor's batched continuation prefill, and AOT buckets
 (``ServeConfig.aot_buckets``: a prefill and a continuation program per
-bucket).  On the card the executor captures its step programs as CUDA
-graphs when it is built (each decode horizon, the K=1 step, the bucket
-programs) and replays them; ``serve.executor.disable_graphs()`` runs the
-same steps eagerly.  The engine refuses, at construction, every config
+bucket).  One engine is one replica: :meth:`Engine.as_replica` binds it
+into a :class:`~repro_torch.serve.router.ReplicaRouter`, which places
+requests from one global admission queue over N engines (they may share
+one model and one weight set) and drives each through the same
+``Scheduler.step_plane`` loop :meth:`Engine.step` runs — this engine is
+the router's N=1 instance.  On the card the executor captures its step
+programs as CUDA graphs when it is built (each decode horizon, the K=1
+step, the bucket programs) and replays them;
+``serve.executor.disable_graphs()`` runs the same steps eagerly.  The engine refuses, at construction, every config
 that would reach an unported path (a serve mesh, the MoE/VLM/audio
 families), and recurrent families, which the JAX engine does not serve
 either: they decode through their model's own ``prefill`` /
@@ -51,6 +56,21 @@ RECURRENT_FAMILIES = ("rwkv6", "hybrid_rglru")
 #: the JAX launcher's words (``src/repro/launch/serve.py``)
 RECURRENT_REFUSAL = ("engine drives paged-KV transformers; recurrent "
                      "families decode via model.decode_step (see examples/)")
+
+
+def _lower(req: ServeRequest, next_id: Callable[[], int],
+           cfg: ServeConfig) -> Request:
+    """Lower a client submission to the scheduler-plane :class:`Request`
+    (the engine's and the router's ``submit``).  :class:`ServeRequest` is
+    the only accepted public type; scheduler-plane harnesses submit
+    internal ``Request`` objects through ``Scheduler.submit``."""
+    if not isinstance(req, ServeRequest):
+        raise TypeError(
+            f"Engine/ReplicaRouter.submit takes a ServeRequest, got "
+            f"{type(req).__name__}; scheduler-plane harnesses submit "
+            "internal Requests via Scheduler.submit")
+    rid = req.req_id if req.req_id is not None else next_id()
+    return to_internal(req, req_id=rid, cfg=cfg)
 
 
 def check_ported(model: TransformerLM, cfg: ServeConfig) -> None:
@@ -111,6 +131,22 @@ class Engine:
     def kv(self):
         return self.executor.kv
 
+    @property
+    def queue(self):
+        return self.scheduler.queue
+
+    @property
+    def running(self):
+        return self.scheduler.running
+
+    @property
+    def swapped(self):
+        return self.scheduler.swapped
+
+    @property
+    def done(self):
+        return self.scheduler.done
+
     def preload_prefix(self, prefix_tokens) -> None:
         """Prefill a resident shared prefix (system-prompt caching).
 
@@ -137,11 +173,7 @@ class Engine:
     def submit(self, req: ServeRequest) -> int:
         """Enqueue a :class:`~repro_torch.serve.api.ServeRequest`; returns
         the request id."""
-        if not isinstance(req, ServeRequest):
-            raise TypeError(f"Engine.submit takes a ServeRequest, got "
-                            f"{type(req).__name__}")
-        rid = req.req_id if req.req_id is not None else self._alloc_req_id()
-        internal = to_internal(req, req_id=rid, cfg=self.cfg)
+        internal = _lower(req, self._alloc_req_id, self.cfg)
         self._next_req_id = max(self._next_req_id, internal.req_id + 1)
         self.scheduler.submit(internal)
         return internal.req_id
@@ -169,6 +201,13 @@ class Engine:
     def step(self) -> None:
         # restore -> admit/prefill -> fused-horizon decode -> commit
         self.scheduler.step_plane()
+
+    def as_replica(self, replica_id: int):
+        """This engine as one replica of a
+        :class:`~repro_torch.serve.router.ReplicaRouter` (its Scheduler and
+        Executor are already wired and share one counter set)."""
+        from repro_torch.serve.router import Replica
+        return Replica.from_engine(self, replica_id)
 
     def stats(self) -> dict[str, Any]:
         rep = self.counters.report()

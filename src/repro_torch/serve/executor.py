@@ -33,12 +33,15 @@ place.
     ``TransformerLM.prefill_continue`` with a per-row start offset;
   * restore re-shares pinned-prefix frames by refcount and may re-map
     only a leading part of the record (partial restore);
+  * swap records are portable (``export_swap``/``import_swap``): host
+    bytes in the pool's storage dtype that another replica's executor
+    adopts and restores into its own pools in place, so a router can
+    migrate a starved victim;
   * every compute step is tallied as ``kernel_dispatches`` (the kernel
     wrappers) or ``ref_path_dispatches`` (the explicit plain-version hatch,
     ``ServeConfig.use_ref_path``).
 
-Not ported yet: swap-record migration (``export_swap``/``import_swap``)
-comes with the router slice; the serve mesh is refused by the engine.
+Not ported yet: the serve mesh, which the engine refuses.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import gc
 from typing import Any
 
 import numpy as np
@@ -66,10 +70,6 @@ from repro_torch.kernels.paged_prefill_attention import (
 )
 from repro_torch.models.transformer import PagedKVState, TransformerLM, sample
 from repro_torch.serve.scheduler import DecodePlan, Request, ServeConfig
-
-_ROUTER = ("is not ported yet: it comes with the router slice of the "
-           "PyTorch port")
-
 
 @functools.lru_cache(maxsize=None)
 def _ref_path_model(model: TransformerLM) -> TransformerLM:
@@ -187,6 +187,23 @@ def _warmup_stream(device: torch.device):
     workspace for each stream it has run on, so a new stream per capture
     would keep one workspace per capture."""
     return torch.cuda.Stream(device)
+
+
+@contextlib.contextmanager
+def _no_gc():
+    """Python's cyclic garbage collector off for the duration of a
+    capture.  A collection that frees an engine dropped in a reference
+    cycle (its pinned staging buffers, its graphs) makes CUDA calls —
+    the host allocator records and queries an event for each pinned
+    buffer a copy used — that are illegal while a stream captures and
+    invalidate the capture; the garbage waits until the capture ends."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _launch_totals():
@@ -397,7 +414,7 @@ class Executor:
             # the horizon samples on the device from the executor's
             # generator; each replay advances it as the eager draws would
             graph.register_generator_state(self._gen)
-        with torch.cuda.graph(graph, pool=self._pool):
+        with _no_gc(), torch.cuda.graph(graph, pool=self._pool):
             out = body(**inputs)
         after = _launch_totals()
         self._gen.set_state(rng)
@@ -644,10 +661,18 @@ class Executor:
         self.switcher.discard(req.req_id)
 
     def export_swap(self, req: Request):
-        raise NotImplementedError(f"swap-record migration {_ROUTER}")
+        """Detach the victim's portable swap record (host bytes in the
+        pool's storage dtype — int8 stays narrow) so the router can
+        migrate it to another replica's executor."""
+        return self.switcher.export_swap(req.req_id)
 
     def import_swap(self, req: Request, record) -> None:
-        raise NotImplementedError(f"swap-record migration {_ROUTER}")
+        """Adopt a swap record exported from another replica's executor;
+        the switcher validates the page geometry before anything moves.
+        The bytes reach this executor's pools at the restore, in place
+        (``index_copy_``), so the pool tensors that captured graphs
+        point at are never reallocated."""
+        self.switcher.import_swap(record)
 
     # ------------------------------------------------------------------
     # sampling

@@ -1344,3 +1344,202 @@ def test_failed_capture_raises(reduced, monkeypatch):
     assert not torch.cuda.is_current_stream_capturing()
     with disable_graphs():            # the same steps run eagerly there
         Engine(model, params, ServeConfig(**REDUCED_COLD)).close()
+
+
+# ---------------------------------------------------------------------------
+# the multi-replica serve path: the router over engines on one card
+# ---------------------------------------------------------------------------
+
+
+def on(params, dev):
+    """A params tree (dicts and lists of tensors) on ``dev``."""
+    if isinstance(params, dict):
+        return {k: on(v, dev) for k, v in params.items()}
+    if isinstance(params, list):
+        return [on(v, dev) for v in params]
+    return params.to(dev)
+
+
+def routed(model, params, scfg, reqs, n, engines_cfg=None):
+    """Serve ``reqs`` through a least-loaded router over ``n`` engines on
+    one weight set; returns the router and its engines, drained."""
+    import dataclasses
+    from repro_torch.serve import Engine, ReplicaRouter
+    engines = [Engine(model, params, (engines_cfg or {}).get(i, scfg))
+               for i in range(n)]
+    router = ReplicaRouter([e.as_replica(i) for i, e in enumerate(engines)])
+    for r in reqs:
+        router.submit(dataclasses.replace(r))
+    router.drain()
+    for e in engines:
+        e.close()
+    router.check_invariants()
+    return router, engines
+
+
+def router_record(router, engines):
+    """Tokens, statuses, router counters, per-replica counters (less
+    ``prefill_bytes_gathered``, which counts by the route that ran) and
+    switch stats of a drained router."""
+    reps = []
+    for e in engines:
+        c = dict(e.counters.counters)
+        c.pop("prefill_bytes_gathered", None)
+        reps.append((c, e.stats()["switch_stats"]))
+    return ({i: (list(r.output), r.status) for i, r in router.done.items()},
+            dict(router.counters.counters), reps,
+            [s.payload for s in router.counters.events("migrate")])
+
+
+@pytest.mark.parametrize("kind", ["cold", "radix"])
+def test_router_n2_card_equals_cpu(reduced, kind):
+    """Two reduced engines behind the router on the card (graphs replayed)
+    equal the same router over the same weights on the CPU: greedy tokens,
+    statuses, every router and per-replica counter, switch stats."""
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig
+    cfg, model, params = reduced
+    scfg = ServeConfig(**(REDUCED_WARM if kind == "radix" else REDUCED_COLD))
+    _, reqs = reduced_workload(cfg, kind)
+    card = routed(model, params, scfg, reqs, 2)
+    cpu = routed(build_model(cfg, device="cpu"), on(params, "cpu"), scfg,
+                 reqs, 2)
+    assert router_record(*card) == router_record(*cpu)
+    for e in card[1]:
+        assert e.counters.get("decode_tokens") > 0
+        assert sum(n for (k, _), n in e.executor.replays.items()
+                   if k.startswith("decode")) > 0
+
+
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_router_rescue_restores_record_bytes_and_replays(reduced, kv_dtype):
+    """A victim stranded on a small replica is rescued to a roomy one on the
+    card: the destination's restored frames hold the record's bytes bit
+    for bit, the request then decodes in graph replays, and its greedy
+    tokens equal a lone roomy engine's."""
+    import numpy as np
+    from repro_torch.serve import Engine, ReplicaRouter, ServeConfig, \
+        ServeRequest
+    cfg, model, params = reduced
+    big = ServeConfig(page_size=4, num_pages=64, max_pages_per_seq=32,
+                      max_batch=3, max_horizon=1, kv_dtype=kv_dtype)
+    small = ServeConfig(page_size=4, num_pages=8, max_pages_per_seq=8,
+                        max_batch=3, max_horizon=1, kv_dtype=kv_dtype)
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, size=24)
+    sreq = ServeRequest(req_id=0, prompt=prompt.astype(np.int32),
+                        max_new_tokens=8)
+    lone = Engine(model, params, big)
+    lone.submit(sreq)
+    want = lone.drain()[0].tokens
+    lone.close()
+    e_small, e_big = Engine(model, params, small), Engine(model, params, big)
+    router = ReplicaRouter([e_small.as_replica(0), e_big.as_replica(1)],
+                           migrate_after=2)
+    router.submit(sreq)
+    s0, s1 = e_small.scheduler, e_big.scheduler
+    while not (0 in s1.running and s1.vmem.config.pages_for(
+            s1.vmem.seq_len(0)) > s0.attainable_pages()):
+        router.step()
+    s1.spill(s1.running[0])
+    record = s1.export_swapped(0)
+    s0.import_swapped(record)
+    restored = {}
+    real = e_big.switcher.restore_kv
+
+    def restore_kv(seq_id, k_pools, v_pools, **kw):
+        out = real(seq_id, k_pools, v_pools, **kw)
+        frames = e_big.vmem.seq(seq_id).pages
+        restored["k"] = k_pools[:, frames].cpu()
+        restored["v"] = v_pools[:, frames].cpu()
+        restored["replays"] = dict(e_big.executor.replays)
+        return out
+
+    e_big.switcher.restore_kv = restore_kv
+    res = router.drain()
+    assert router.counters.get("restore_migrations") == 1
+    assert router.global_counters()["failed_unreachable"] == 0
+    page_data = record.record.page_data
+    assert torch.equal(restored["k"], page_data[0])
+    assert torch.equal(restored["v"], page_data[1])
+    after = e_big.executor.replays[("decode", 1)]
+    assert after > restored["replays"][("decode", 1)]
+    assert res[0].tokens == want
+    assert e_small.switcher.swapped_out == e_big.switcher.swapped_out == []
+    router.check_invariants()
+
+
+def test_engines_on_one_weight_set_hold_it_once(reduced):
+    """N engines built over one model and one params tree hold the weights
+    once: the card's allocated bytes grow by each engine's pools, page
+    table, buffers and graphs, and by no copy of the weights."""
+    import dataclasses
+    from repro_torch.models import build_model
+    from repro_torch.serve import Engine, ServeConfig
+    cfg, _, _ = reduced
+    wide = dataclasses.replace(cfg, vocab_size=65536)   # weights dominate
+    model = build_model(wide, device="cuda")
+    params = model.init(0)
+    weights = sum(t.numel() * t.element_size()
+                  for t in torch.utils._pytree.tree_leaves(params))
+    # a first build allocates what the process keeps once (the cuBLAS
+    # workspace of the captures' shared warm-up stream): not an engine's
+    Engine(model, params, ServeConfig(**REDUCED_COLD)).close()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    engines = [Engine(model, params, ServeConfig(**REDUCED_COLD))]
+    one = torch.cuda.memory_allocated() - base
+    engines += [Engine(model, params, ServeConfig(**REDUCED_COLD))
+                for _ in range(3)]
+    four = torch.cuda.memory_allocated() - base
+    assert one < weights / 4, (one, weights)
+    assert four < 4 * one + weights / 4, (four, one, weights)
+    assert all(e.executor.params is params for e in engines)
+    for e in engines:
+        e.close()
+
+
+def test_capture_survives_garbage_collection(reduced, monkeypatch):
+    """An engine that served and was dropped in a reference cycle is
+    cyclic garbage; if the collector freed it (its graphs, its buffers)
+    while another executor captured, the capture would be invalidated.
+    Here the garbage is still young (no collection since it was made) and
+    loses its last reference inside the capture, where the collector is
+    then at its most eager; the new engine still builds and serves, and
+    the garbage goes after the capture."""
+    import gc
+    import numpy as np
+    from repro_torch.serve import Engine, ServeConfig, ServeRequest
+    cfg, model, params = reduced
+    real = type(model).decode_multi_step
+    hold = []
+
+    def drop_during_capture(*args, **kw):
+        if hold and torch.cuda.is_current_stream_capturing():
+            hold.clear()
+            gc.set_threshold(1)
+            junk = [[object()] for _ in range(1000)]     # trips gen 0
+            del junk
+        return real(*args, **kw)
+
+    thresholds = gc.get_threshold()
+    gc.collect()
+    gc.set_threshold(10**9)            # nothing ages into an older gen
+    try:
+        old = Engine(model, params, ServeConfig(**REDUCED_COLD))
+        old.submit(ServeRequest(prompt=np.arange(5, dtype=np.int32) + 1,
+                                max_new_tokens=4))
+        assert old.drain()[0].status == "done"
+        old.executor.cycle = old
+        hold.append(old)
+        del old
+        monkeypatch.setattr(type(model), "decode_multi_step",
+                            drop_during_capture)
+        eng = Engine(model, params, ServeConfig(**REDUCED_COLD))
+    finally:
+        gc.set_threshold(*thresholds)
+    assert not hold and gc.isenabled()
+    eng.submit(ServeRequest(prompt=np.arange(5, dtype=np.int32) + 1,
+                            max_new_tokens=4))
+    assert eng.drain()[0].status == "done"
+    eng.close()
+    gc.collect()

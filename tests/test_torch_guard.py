@@ -99,6 +99,17 @@ def test_serve_launcher_without_device_raises(no_cuda, monkeypatch):
         serve.main()
 
 
+def test_serve_launcher_with_replicas_without_device_raises(no_cuda,
+                                                          monkeypatch):
+    """The router path never moves to the CPU: N replicas on no card raise
+    as one engine does."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(sys, "argv", ["serve", "--requests", "1",
+                                      "--replicas", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main()
+
+
 def test_quickstart_without_device_raises(no_cuda, monkeypatch):
     from repro_torch.launch import quickstart
     with pytest.raises(RuntimeError, match="CUDA"):

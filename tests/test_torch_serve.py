@@ -151,20 +151,50 @@ def test_engine_refuses_unported_paths(models, override, match):
 
 
 def test_forked_requests_are_refused(models):
-    """Forked requests are served now (``tests/test_torch_continuation.py``);
-    what the executor still refuses is swap-record migration, and it names
-    the router slice that brings it."""
+    """Forked requests are served (``tests/test_torch_continuation.py``),
+    and the executor's swap records are portable: a spilled request's
+    record exported from one engine detaches there, imports into another
+    and restores its bytes into that engine's pools; a second import of the
+    same sequence and a record with the wrong page count raise before
+    anything moves."""
     _, _, tm, tp = models
     eng = Engine(tm, tp, ServeConfig(**PORTED))
     eng.preload_prefix(np.arange(6, dtype=np.int32))
     eng.submit(ServeRequest(prompt=np.arange(4, dtype=np.int32),
                             max_new_tokens=2, share_prefix=True))
     assert eng.run()[0].status == "done"
-    for call in (lambda: eng.executor.export_swap(None),
-                 lambda: eng.executor.import_swap(None, None)):
-        with pytest.raises(NotImplementedError, match="router slice"):
-            call()
+    eng.submit(ServeRequest(req_id=1, prompt=np.arange(9, dtype=np.int32),
+                            max_new_tokens=4))
+    eng.step()
+    req = eng.running[1]
+    eng.scheduler.spill(req)
+    assert eng.switcher.swapped_out == [1]
+    record = eng.executor.export_swap(req)
+    assert eng.switcher.swapped_out == []          # detached at the source
+    assert record.page_data.device.type == "cpu"
+    assert record.page_data.dtype == eng.kv.k_pools.dtype
+    assert record.page_data.shape[2] == 3          # 10 tokens, page 4
+
+    dest = Engine(tm, tp, ServeConfig(**PORTED))
+    dest.executor.import_swap(req, record)
+    assert dest.switcher.swapped_out == [1]
+    free = dest.vmem.pool.num_free
+    with pytest.raises(ValueError, match="already spilled"):
+        dest.executor.import_swap(req, record)
+    short = dataclasses.replace(record, seq_id=2,
+                                page_data=record.page_data[:, :, :2])
+    with pytest.raises(ValueError, match="carries 2 pages"):
+        dest.executor.import_swap(req, short)
+    assert dest.switcher.swapped_out == [1]
+    assert dest.vmem.pool.num_free == free          # nothing moved
+    dest.executor.restore(req, record.num_tokens)
+    frames = dest.vmem.seq(1).pages
+    assert torch.equal(dest.kv.k_pools[:, frames], record.page_data[0])
+    assert torch.equal(dest.kv.v_pools[:, frames], record.page_data[1])
+    assert dest.switcher.swapped_out == []
+    dest.vmem.check_invariants()
     eng.close()
+    dest.close()
 
 
 def test_drain_returns_typed_results_with_timings(models):
