@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port serves on the card.
 
-    python3 chip_smoke.py            # one CUDA card, ~5 minutes
+    python3 chip_smoke.py            # one CUDA card, ~8 minutes
     python3 chip_smoke.py --quick    # build and the reduced checks only
 
 Imports nothing of JAX and nothing of the JAX package (``src/repro``); it
@@ -31,7 +31,11 @@ printing its lines; any failure exits non-zero before the last line:
    reduced engines on the card against the same router on the CPU
    (identical tokens, statuses, router and replica counters, switch
    stats), and the rescue of a stranded request, native and int8, card
-   against CPU; and the reduced rwkv6-7b
+   against CPU; ``ragged_dot`` in f32 against its plain version (empty
+   groups, one group holding every row, rows past the last group) and
+   the reduced granite-moe and llama4 engines (f32; llama4 routes every
+   other layer) on the card against the CPU, cold, int8 and default
+   policy, with identical tokens and counters; and the reduced rwkv6-7b
    (prefill + 16 greedy decode steps, both ``tm_impl``s, 32- and 27-token
    prompts) on the card against the CPU: identical tokens, logits within
    1e-4;
@@ -116,7 +120,33 @@ printing its lines; any failure exits non-zero before the last line:
    untimed repeat of each run's prefill and of 8 decode steps prints the
    device's busy share and device time by kernel, and each prefill's
    ``wkv6`` and ``wkv6_chunked`` time and share of device time;
-12. the paper's VM loop (after the reduced checks above, which also hold
+12. MoE: the rwkv6-7b weights are freed, granite-moe-1b-a400m at full
+   width (24 layers, d_model 1024, 32 experts top-8, bf16, random
+   weights, depth not cut) serves a cold run (8 prompts of 256-640
+   tokens: one prefill of 2,560 tokens takes the per-row sorted dispatch,
+   the rest the ragged one; a preemption), an int8 run and a radix run,
+   each with CUDA graphs and inside ``disable_graphs()``, identical in
+   tokens, counters, switch stats, launches and routes (``ragged_dot`` on
+   its tensor-core route); the count of each dispatch, tok/s, TTFT, TPOT;
+   the cold run traced in both modes (busy share, kernels per decode
+   token-step); the three runs and the radix workload on int8 pools
+   repeated untimed inside ``disable_graphs()`` with the recorders of 9,
+   and each copy and attention kernel held against its plain version on
+   the largest call it got there (Hkv 8, G 2, head_dim 64; on its Hopper
+   route, the copies bit-identical, attention within the tolerance of 9);
+   then the kernel path against the plain path
+   (``use_kernels=False``) in bf16, teacher forced over one prefill and 8
+   decode steps, and, as the witness that tells rounding from a fault,
+   both paths in f32 on the same weights and tokens: each call's worst
+   row error relative to its peak and the share of (token, layer) expert
+   sets alike, kernel vs plain in bf16 and in f32 and each bf16 path
+   against the f32 plain path (printed, not required);
+   ``ragged_dot`` launches per decode token-step; ``ragged_dot`` against
+   its plain version at the full-width shapes (decode 32 rows, a
+   2,048-token prefill of 16,384 rows, both products, an empty expert,
+   one expert holding every row; ``bf16_rows_check``) and timed beside
+   its plain version, ``torch._grouped_mm`` and its bound;
+13. the paper's VM loop (after the reduced checks above, which also hold
    ``paged_gather`` bit-identical to its plain version over f32/bf16/int8,
    W 4/14/512, page 8/16, any order with repeats, -1 entries, positions
    past the reach and N = 1, and ``matmul`` within 1e-4 of the largest
@@ -130,13 +160,13 @@ printing its lines; any failure exits non-zero before the last line:
    random) are gathered bit-identical through the kernel, the plain
    version and the coalesced route, with each stream's translation counts
    and 16-entry DTLB report (host numpy); the random stream is timed;
-13. the paper's matmul: n = 45, 90, 181 in f32 and qwen2-7b's gate
+14. the paper's matmul: n = 45, 90, 181 in f32 and qwen2-7b's gate
    projection for a 2,048-token prefill (bf16 [2048, 3584] @ [3584,
    18944] -> bf16) through ``ops.matmul`` with the launch counts zeroed
    before and read after (the f32 products on the CUDA-core route, the
    gate projection on ``wgmma``), each against its plain version, then
    the largest and the n = 181 product timed beside ``torch.matmul``;
-14. the kernel JSON line, then the device JSON line, last.
+15. the kernel JSON line, then the device JSON line, last.
 """
 
 from __future__ import annotations
@@ -176,6 +206,9 @@ KERNELS = {
                      "src/repro/kernels/paged_gather.py:35"),
     "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                "src/repro/kernels/matmul.py:49"),
+    # not a TPU kernel: jax.lax.ragged_dot, which XLA lowers itself
+    "ragged_dot": ("src/repro_torch/kernels/csrc/ragged_dot.cu",
+                   "src/repro/models/moe.py:132"),
 }
 
 
@@ -664,7 +697,8 @@ def reduced_wkv_checks() -> None:
 
 
 def to_device(p, dev):
-    """A params tree (dicts and lists of tensors) on ``dev``."""
+    """A params tree (dicts and lists of tensors) on ``dev``, or in a dtype
+    (``Tensor.to`` takes either)."""
     if isinstance(p, dict):
         return {k: to_device(v, dev) for k, v in p.items()}
     if isinstance(p, list):
@@ -1956,21 +1990,26 @@ def attended_pairs(starts, chunks) -> int:
                for s, c in zip(starts, chunks))
 
 
-def record_inputs(cfg, model, params):
-    """Repeat the serve runs, untimed, with each ``ops`` wrapper wrapped in
-    a :class:`Recorder` (which synchronizes to weigh each call), and return
-    the recorders of the full-width runs, the int8 decode recorder and the
-    int8 continuation-attention recorder."""
+#: the ops a cold serve run calls: the copies as pairs (K and V)
+COLD_OPS = ("paged_copy_kv", "flash_attention", "paged_decode_attention")
+
+
+def record_inputs(model, params, cold, int8, cont, cont_int8):
+    """Repeat serve runs, untimed, with each ``ops`` wrapper wrapped in a
+    :class:`Recorder` (which synchronizes to weigh each call), and return
+    the recorders of the bf16 runs, the int8 decode recorder and the int8
+    continuation-attention recorder.  Each run is ``(ServeConfig, prefix,
+    requests)``: ``cold`` records the copy, flash and decode attention,
+    ``int8`` the decode attention over int8 pools, each of ``cont`` the
+    continuation copy and attention, ``cont_int8`` the continuation
+    attention over int8 pools."""
     from repro_torch.kernels import ops
-    from repro_torch.serve import ServeConfig
 
     def pairs(tap):
         return lambda q, kp, vp, pt, starts, **kw: attended_pairs(
             starts[:q.shape[0]].tolist(), tap.lens[:q.shape[0]].tolist())
 
-    # the ops the serve path calls: the copies as pairs (K and V)
-    cold = ("paged_copy_kv", "flash_attention", "paged_decode_attention")
-    saved = {n: getattr(ops, n) for n in (*cold, "paged_copy_kv_at",
+    saved = {n: getattr(ops, n) for n in (*COLD_OPS, "paged_copy_kv_at",
                                           "paged_prefill_attention")}
     rec = {
         "paged_copy": Recorder(
@@ -2000,25 +2039,23 @@ def record_inputs(cfg, model, params):
         for n, f in saved.items():
             setattr(ops, n, wrappers.get(n, f))
 
+    def serve(scfg, prefix, reqs):
+        run_engine(model, params, scfg, reqs, prefix)
+
     try:
         # each run records only the kernels of its own path, so the cold
         # rows keep the shapes of the cold serve run
-        scfg = ServeConfig(**SERVE)
         use(paged_copy_kv=rec["paged_copy"],
-            **{n: rec[n] for n in cold[1:]})
-        run_engine(model, params, scfg,
-                   serve_workload(cfg.vocab_size, **WORKLOAD))
+            **{n: rec[n] for n in COLD_OPS[1:]})
+        serve(*cold)
         use(paged_decode_attention=rec_q)
-        run_engine(model, params, dataclasses.replace(scfg, kv_dtype="int8"),
-                   serve_workload(cfg.vocab_size, **SHORT))
-        runs = continuation_runs(cfg)
+        serve(*int8)
         use(paged_copy_kv_at=tap,
             paged_prefill_attention=rec["paged_prefill_attention"])
-        for _, ccfg, prefix, reqs in runs[:2]:
-            run_engine(model, params, ccfg, reqs, prefix)
+        for run in cont:
+            serve(*run)
         use(paged_copy_kv_at=tap_q, paged_prefill_attention=rec_pq)
-        _, ccfg, prefix, reqs = runs[2]
-        run_engine(model, params, ccfg, reqs, prefix)
+        serve(*cont_int8)
     finally:
         use()
     return rec, rec_q, rec_pq
@@ -2033,17 +2070,13 @@ def bound(nbytes: float, flops: float):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def copy_rows(best, launches) -> dict:
+def copy_check(best, tag: str = ""):
     """The recorded pair call of a copy (``paged_copy_kv``, or
     ``paged_copy_kv_at`` with ``starts``): the pair launch and the
     single-tensor launch (K alone) bit-identical to the plain versions on
     the whole pools and on the burst route, and ``lens`` all 0 leaving the
-    pools untouched; then the device times of the pair (bound: both
-    tensors' rows read and written once, the table and the lengths; the
-    library call: two ``index_copy_`` on the flat pools), of one tensor,
-    and of the floor (the pair launch with ``lens`` all 0: every block
-    exits after reading its lengths).  Prints the single and floor rows
-    and returns the pair's, which the kernels line carries."""
+    pools untouched.  Returns the copy's name and its pair, single and
+    plain calls."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.paged_copy import (
@@ -2072,16 +2105,34 @@ def copy_rows(best, launches) -> dict:
     got = pair(kp.clone(), vp.clone())
     want = (plain(k, kp.clone()), plain(v, vp.clone()))
     require(all(torch.equal(g, w) for g, w in zip(got, want)),
-            f"{name} pair differs at serve shapes")
+            f"{tag}{name} pair differs at serve shapes")
     require(torch.equal(single(kp.clone()), want[0]),
-            f"{name} single differs at serve shapes")
-    zero = torch.zeros_like(lens)
+            f"{tag}{name} single differs at serve shapes")
     require(all(torch.equal(g, w) for g, w in zip(
-        pair(kp.clone(), vp.clone(), zero), (kp, vp))),
-        f"{name} with lens 0 wrote to the pools")
+        pair(kp.clone(), vp.clone(), torch.zeros_like(lens)), (kp, vp))),
+        f"{tag}{name} with lens 0 wrote to the pools")
     require(ops.route_counts()[name] == {"burst": 3, "rows": 0},
-            f"{name}: the recorded calls are off the burst route: "
+            f"{tag}{name}: the recorded calls are off the burst route: "
             f"{ops.route_counts()[name]}")
+    return name, pair, single, plain
+
+
+def copy_rows(best, launches) -> dict:
+    """:func:`copy_check` on the recorded pair call of a copy, then the
+    device times of the pair (bound: both tensors' rows read and written
+    once, the table and the lengths; the library call: two ``index_copy_``
+    on the flat pools), of one tensor, and of the floor (the pair launch
+    with ``lens`` all 0: every block exits after reading its lengths).
+    Prints the single and floor rows and returns the pair's, which the
+    kernels line carries."""
+    import torch
+    name, pair, single, plain = copy_check(best)
+    args, kw = best
+    at = len(args) == 7
+    k, v, kp, vp, pt = args[:5]
+    starts, lens = (args[5], args[6]) if at else (None, args[5])
+    page = kw["page_size"]
+    zero = torch.zeros_like(lens)
     b, s, w = k.shape
     n_tok = int(lens[:b].sum())
     row_bytes = w * k.element_size()
@@ -2134,6 +2185,97 @@ def copy_rows(best, launches) -> dict:
                 launches=launches)
 
 
+def flash_check(best, tag: str = "flash_attention"):
+    """The recorded ``flash_attention`` call on its tensor-core route,
+    row by row against its plain version (:func:`bf16_rows_check`)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    (q, k, v), _ = best
+    ops.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=True)
+    require(ops.route_counts()["flash_attention"]["wgmma"] == 1,
+            f"{tag}: the recorded call is off the tensor-core route")
+    return bf16_rows_check(tag, got,
+                           ref.flash_attention_ref(q, k, v, causal=True))
+
+
+def decode_check(tag, best):
+    """The recorded ``paged_decode_attention`` call on its tensor-core
+    route, row by row against its plain version."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    (q, kp, vp, pt, sl), kw = best
+    kw = dict(kw)
+    kw.pop("use_kernel", None)
+    ops.reset_launch_counts()
+    got = paged_decode_attention(q, kp, vp, pt, sl, **kw)
+    require(ops.route_counts()["paged_decode_attention"]["mma"] == 1,
+            f"{tag}: the recorded call is off the tensor-core route")
+    want = ref.paged_decode_attention_ref(q, kp, vp, pt, sl, **kw)
+    return bf16_rows_check(tag, got, want)
+
+
+def prefill_check(tag, recorder):
+    """The recorded ``paged_prefill_attention`` call on its tensor-core
+    route against its plain version: each real row (token, head) of each
+    sequence's chunk within four bf16 steps of its own largest output."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_prefill_attention import (
+        paged_prefill_attention)
+    (q, kp, vp, pt, starts), kw = recorder.best
+    kw = dict(kw)
+    kw.pop("use_kernel", None)
+    chunks = recorder.extra[:q.shape[0]].tolist()
+    ops.reset_launch_counts()
+    got = paged_prefill_attention(q, kp, vp, pt, starts, **kw)
+    require(ops.route_counts()["paged_prefill_attention"]["wgmma"] == 1,
+            f"{tag}: the recorded call is off the tensor-core route")
+    want = ref.paged_prefill_attention_ref(q, kp, vp, pt, starts, **kw)
+    checked = [bf16_rows_check(f"{tag} row {i}", got[i, :c], want[i, :c])
+               for i, c in enumerate(chunks) if c]
+    return max(e for e, _ in checked), max(p for _, p in checked)
+
+
+def attention_checks(tag, rec, rec_q, rec_pq) -> None:
+    """Each copy and attention kernel against its plain version on the
+    inputs :func:`record_inputs` kept, untimed: the copies bit-identical
+    (:func:`copy_check`), the attention kernels within the tolerance of
+    :func:`full_checks`, every call on its Hopper route."""
+    copy_check(rec["paged_copy"].best, f"{tag} ")
+    copy_check(rec["paged_copy_at"].best, f"{tag} ")
+    errs = {
+        "flash_attention": flash_check(rec["flash_attention"].best,
+                                       f"{tag} flash_attention"),
+        "paged_decode_attention": decode_check(
+            f"{tag} paged_decode_attention",
+            rec["paged_decode_attention"].best),
+        "paged_decode_attention_int8": decode_check(
+            f"{tag} paged_decode_attention_int8", rec_q.best),
+        "paged_prefill_attention": prefill_check(
+            f"{tag} paged_prefill_attention",
+            rec["paged_prefill_attention"]),
+        "paged_prefill_attention_int8": prefill_check(
+            f"{tag} paged_prefill_attention_int8", rec_pq),
+    }
+    # the first three operands of each checked call, the third's dtype
+    # (the pool's, or v's for flash)
+    shapes = {n: " ".join(str(list(x.shape)) for x in r.best[0][:3])
+              + f" {r.best[0][2].dtype}" for n, r in (
+        ("paged_copy", rec["paged_copy"]),
+        ("paged_copy_at", rec["paged_copy_at"]),
+        ("flash_attention", rec["flash_attention"]),
+        ("paged_decode_attention", rec["paged_decode_attention"]),
+        ("paged_decode_attention_int8", rec_q),
+        ("paged_prefill_attention", rec["paged_prefill_attention"]),
+        ("paged_prefill_attention_int8", rec_pq))}
+    log(f"check {tag}: paged_copy and paged_copy_at (pair and single) "
+        f"bit-identical to their plain versions on the burst route; "
+        + "; ".join(f"{n} within four bf16 steps of each row's peak (|err| "
+                    f"{e:.3g}, max|want| {p:.3g})" for n, (e, p) in
+                    errs.items())
+        + "; operands checked " + json.dumps(shapes))
+
+
 def full_checks(rec, rec_q, launches, launches_q) -> list[dict]:
     """Kernel vs plain version on the recorded serve inputs, then timings.
     bf16 attention tolerance: four bf16 steps of the largest output,
@@ -2141,9 +2283,8 @@ def full_checks(rec, rec_q, launches, launches_q) -> list[dict]:
     sum in f32 in different orders, and round once to bf16 (one step is
     at most ``2**-8`` relative), so a right kernel differs by about one
     step; a dropped page or head moves outputs by far more."""
-    import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_decode_attention
     rows = []
@@ -2153,9 +2294,7 @@ def full_checks(rec, rec_q, launches, launches_q) -> list[dict]:
 
     # flash attention
     (q, k, v), kw = rec["flash_attention"].best
-    got = flash_attention(q, k, v, causal=True)
-    want = ref.flash_attention_ref(q, k, v, causal=True)
-    err, peak = bf16_rows_check("flash_attention", got, want)
+    err, peak = flash_check(rec["flash_attention"].best)
     b, hq, s, d = q.shape
     flops = 4.0 * b * hq * d * s * (s + 1) / 2
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -2177,18 +2316,14 @@ def full_checks(rec, rec_q, launches, launches_q) -> list[dict]:
     print_rows([flash_long_row()])
 
     # paged decode attention (bf16 pools, then int8 pools)
-    for tag, r, counts in (("paged_decode_attention", rec, launches),
-                           ("paged_decode_attention_int8", None, launches_q)):
-        (q, kp, vp, pt, sl), kw = (r["paged_decode_attention"].best
-                                   if r is not None else rec_q.best)
+    for tag, best, counts in (
+            ("paged_decode_attention", rec["paged_decode_attention"].best,
+             launches),
+            ("paged_decode_attention_int8", rec_q.best, launches_q)):
+        err, peak = decode_check(tag, best)
+        (q, kp, vp, pt, sl), kw = best
         kw = dict(kw)
         kw.pop("use_kernel", None)
-        ops.reset_launch_counts()
-        got = paged_decode_attention(q, kp, vp, pt, sl, **kw)
-        require(ops.route_counts()["paged_decode_attention"]["mma"] == 1,
-                f"{tag}: the recorded call is off the tensor-core route")
-        want = ref.paged_decode_attention_ref(q, kp, vp, pt, sl, **kw)
-        err, peak = bf16_rows_check(tag, got, want)
         bsz, hkv, g, d = q.shape
         n_tok = int(sl[:bsz].sum())
         flops = 4.0 * g * d * hkv * n_tok
@@ -2266,8 +2401,7 @@ def continuation_checks(rec, rec_pq, counts) -> list[dict]:
     q, the output, and each row's key/value pages up to its last real
     query, once (the kernel fetches a page once per query block; it prints
     those bytes too)."""
-    import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
     from repro_torch.kernels.paged_prefill_attention import (
         paged_prefill_attention,
         pages_touched,
@@ -2288,6 +2422,7 @@ def continuation_checks(rec, rec_pq, counts) -> list[dict]:
              served["paged_prefill_attention"]),
             ("paged_prefill_attention_int8", rec_pq,
              counts["radix int8"]["paged_prefill_attention"])):
+        err, peak = prefill_check(tag, r)
         (q, kp, vp, pt, starts), kw = r.best
         kw = dict(kw)
         kw.pop("use_kernel", None)
@@ -2295,17 +2430,6 @@ def continuation_checks(rec, rec_pq, counts) -> list[dict]:
         b, s, hkv, g, d = q.shape
         chunks = r.extra[:b].tolist()
         st = starts[:b].tolist()
-        ops.reset_launch_counts()
-        got = paged_prefill_attention(q, kp, vp, pt, starts, **kw)
-        require(ops.route_counts()["paged_prefill_attention"]["wgmma"] == 1,
-                f"{tag}: the recorded call is off the tensor-core route")
-        want = ref.paged_prefill_attention_ref(q, kp, vp, pt, starts, **kw)
-        # each real row (token, head) within four bf16 steps of its own
-        # largest output
-        checked = [bf16_rows_check(f"{tag} row {i}", got[i, :c], want[i, :c])
-                   for i, c in enumerate(chunks) if c]
-        err = max(e for e, _ in checked)
-        peak = max(p for _, p in checked)
         max_pages = pt.shape[1]
         kv_row = page * hkv * d * 2 * kp.element_size()   # one page, K + V
         needed = sum(min(-(-(x + c) // page), max_pages)
@@ -3060,6 +3184,550 @@ def matmul_tile_times() -> None:
             f"torch.matmul f32 {lib:.4f} ms")
 
 
+# ---------------------------------------------------------------------------
+# the MoE family: granite-moe-1b-a400m, and llama4's interleaved layout
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("granite-moe-1b-a400m", "llama4-maverick-400b-a17b")
+
+
+def reduced_moe_check() -> None:
+    """``ragged_dot`` against its plain version at reduced f32 shapes (the
+    CUDA-core route: empty groups, one group holding every row, rows past
+    the last group), then reduced granite-moe and llama4 (f32, 2 layers;
+    llama4 routes in layer 1 only) engines on the card against the same
+    engines and weights on the CPU: cold (preemption), int8 pools and the
+    default policy (radix hits, partial restores) with identical greedy
+    tokens and every counter (less ``prefill_bytes_gathered``, which counts
+    by route), ``ragged_dot`` launched on its CUDA-core route."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = 0.0
+    for m, k, n, sizes in ((24, 64, 64, [10, 0, 14, 0]),
+                           (24, 64, 64, [0, 24, 0, 0]),
+                           (40, 64, 128, [3, 0, 0, 5, 9, 0, 1, 2]),
+                           (7, 128, 64, [7, 0, 0, 0, 0, 0, 0, 0])):
+        xs = torch.randn((m, k), generator=gen, device="cuda")
+        w = torch.randn((len(sizes), k, n), generator=gen, device="cuda")
+        gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        got, want = ops.ragged_dot(xs, w, gs), ref.ragged_dot_ref(xs, w, gs)
+        err = close_err(got, want, 1e-5)
+        require(not got[sum(sizes):].any(),
+                "ragged_dot: rows past the last group are not zero")
+        worst = max(worst, err)
+    log(f"check reduced: ragged_dot f32 (simt) with empty groups, one group "
+        f"holding every row and rows past the last group within 1e-5 of "
+        f"the largest output (largest |err| {worst:.3g})")
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch, reduced=True)
+        cpu_model = build_model(cfg, device="cpu")
+        cpu_params = cpu_model.init(0)
+        gpu_model = build_model(cfg, device="cuda")
+        gpu_params = to_device(cpu_params, "cuda")
+        cold = dict(page_size=4, num_pages=16, max_pages_per_seq=16,
+                    max_batch=3, prefix_cache=False, restore_patience=0)
+        cases = (
+            ("cold", ServeConfig(**cold), serve_workload(
+                cfg.vocab_size, n=7, lo=4, hi=13, max_new=12, seed=13)),
+            ("int8", ServeConfig(**cold, kv_dtype="int8"), serve_workload(
+                cfg.vocab_size, n=7, lo=4, hi=13, max_new=12, seed=13)),
+            ("default policy", ServeConfig(
+                page_size=4, num_pages=16, max_pages_per_seq=16,
+                max_batch=3), reduced_radix_workload(cfg.vocab_size)),
+        )
+        for tag, scfg, reqs in cases:
+            ops.reset_launch_counts()
+            e_gpu, r_gpu, _ = run_engine(gpu_model, gpu_params, scfg, reqs)
+            launches, routes = ops.launch_counts(), ops.route_counts()
+            e_cpu, r_cpu, _ = run_engine(cpu_model, cpu_params, scfg, reqs)
+            c_cpu = dict(e_cpu.counters.counters)
+            c_gpu = dict(e_gpu.counters.counters)
+            for c in (c_cpu, c_gpu):
+                c.pop("prefill_bytes_gathered", None)
+            diff = {k: (c_cpu.get(k), c_gpu.get(k))
+                    for k in set(c_cpu) | set(c_gpu)
+                    if c_cpu.get(k) != c_gpu.get(k)}
+            require(not diff, f"reduced {arch} ({tag}) counters differ card "
+                              f"vs cpu: {diff}")
+            require(all(r_cpu[i].tokens == r_gpu[i].tokens for i in r_cpu),
+                    f"reduced {arch} ({tag}) tokens differ card vs cpu")
+            require(launches["ragged_dot"] > 0
+                    and routes["ragged_dot"]["simt"] == launches["ragged_dot"],
+                    f"reduced {arch} ({tag}): ragged_dot launches "
+                    f"{launches['ragged_dot']}, routes {routes['ragged_dot']}")
+            if tag == "default policy":
+                require(c_gpu.get("prefix_hits", 0) > 0,
+                        f"reduced {arch}: no prefix hit")
+            log(f"check reduced {arch} engine ({tag}): card == cpu greedy "
+                f"tokens and all counters; preemptions "
+                f"{c_gpu.get('preemptions', 0)}, prefix_hits "
+                f"{c_gpu.get('prefix_hits', 0)}, partial_restores "
+                f"{c_gpu.get('partial_restores', 0)}; ragged_dot "
+                f"{launches['ragged_dot']} launches (simt)")
+
+
+class DispatchTap:
+    """Within ``with``: counts the MoE dispatches of each kind (calls of
+    ``moe_apply_ragged`` and ``moe_apply_sorted_rows`` by the model) and
+    the largest token count each saw.  A graph replay calls no Python, so
+    only eager runs (and captures) are seen."""
+
+    NAMES = ("moe_apply_ragged", "moe_apply_sorted_rows")
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.calls = moe, dict.fromkeys(self.NAMES, 0)
+        self.tokens = dict.fromkeys(self.NAMES, 0)
+        self.saved = {n: getattr(moe, n) for n in self.NAMES}
+        for name, fn in self.saved.items():
+            setattr(moe, name, self._counted(name, fn))
+        return self
+
+    def _counted(self, name, fn):
+        def counted(p, x, **kw):
+            self.calls[name] += 1
+            self.tokens[name] = max(self.tokens[name], x.numel() // x.shape[-1])
+            return fn(p, x, **kw)
+        return counted
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+
+#: granite-moe's cold run: 8 prompts of 256-640 tokens, 32 new, page 16,
+#: horizon 8, 4 lanes, 130 frames (1 scratch).  A CPU run of the schedule
+#: (it depends on lengths only) with the reduced model: one admission
+#: batches 4 prompts padded to 640 tokens, 2,560 tokens in one prefill (the
+#: per-row sorted dispatch), the others prefill at most 832 tokens and every
+#: decode step is ragged; one preemption
+MOE_SERVE = dict(page_size=16, num_pages=130, max_pages_per_seq=48,
+                 max_batch=4, max_horizon=8, prefix_cache=False,
+                 restore_patience=0)
+MOE_WORKLOAD = dict(n=8, lo=256, hi=640, max_new=32, seed=0)
+#: the MoE path's kernels on the cold run
+MOE_KERNELS = COLD_KERNELS + ("ragged_dot",)
+
+
+def moe_full_model():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("granite-moe-1b-a400m")   # all 24 layers: depth not cut
+    model = build_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for blk in params["blocks"]
+                   for sub in blk.values() for t in sub.values()) + sum(
+        params[k].numel() for k in ("embed", "head", "ln_f") if k in params
+        and hasattr(params[k], "numel"))
+    log(f"moe: granite-moe-1b-a400m full width ({cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} "
+        f"kv of {cfg.head_dim}, {cfg.num_experts} experts top-"
+        f"{cfg.experts_per_token} of d_ff {cfg.moe_d_ff}, vocab "
+        f"{cfg.vocab_size}, bf16, ~{n_params / 1e9:.2f} B parameters) "
+        f"initialised on the card in {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB")
+    return cfg, model, params
+
+
+def moe_runs(cfg):
+    """``(tag, ServeConfig, prefix, requests)`` of the MoE serve phase:
+    cold (with the > 2,048-token prefill), int8, radix."""
+    from repro_torch.serve import ServeConfig
+    scfg = ServeConfig(**MOE_SERVE)
+    return (("moe cold", scfg, None,
+             serve_workload(cfg.vocab_size, **MOE_WORKLOAD)),
+            ("moe int8", dataclasses.replace(scfg, kv_dtype="int8"), None,
+             serve_workload(cfg.vocab_size, **SHORT)),
+            ("moe radix", ServeConfig(**CONT), None,
+             radix_workload(cfg.vocab_size)))
+
+
+def moe_serve_phase(cfg, model, params) -> dict[str, int]:
+    """granite-moe-1b-a400m at full width through the engine: the cold,
+    int8 and radix runs each with CUDA graphs and inside
+    ``disable_graphs()``, identical in greedy tokens, counters, switch
+    stats, kernel launches and routes; every kernel of the path launched
+    (``ragged_dot`` on its tensor-core route, the paged attention kernels
+    and copies on theirs); both MoE dispatches counted in the eager cold
+    run.  Then the cold run traced, graphs and eager.  Returns the launch
+    counts of the cold graph run (the main path)."""
+    main = None
+    for tag, scfg, prefix, reqs in moe_runs(cfg):
+        runs = {}
+        for mode in ("graph", "eager"):
+            with DispatchTap() as tap:
+                runs[mode] = served(model, params, scfg, reqs, prefix,
+                                    graphs=mode == "graph")
+            runs[mode]["dispatch"] = (dict(tap.calls), dict(tap.tokens))
+        for mode, r in runs.items():
+            report(f"{tag} {mode}", r["eng"], r["res"], r["dt"], CONT_KEYS)
+            log(f"{tag} {mode}: engine built in {r['build']:.2f}s")
+        g, e = runs["graph"], runs["eager"]
+        require_same(tag, g, e)
+        require(replays_of(g["replays"], "decode", "decode_multi") > 0
+                and e["replays"] == {},
+                f"{tag}: no decode replay in the graph run, or a replay in "
+                "the eager run")
+        require_tensor_core_routes(tag, g["launches"])
+        for n in MOE_KERNELS if tag != "moe radix" else (
+                CONT_KERNELS + ("ragged_dot",)):
+            require(g["launches"][n] > 0, f"{tag}: {n} never launched")
+        require(g["routes"]["ragged_dot"] == {
+            "mma": g["launches"]["ragged_dot"], "simt": 0},
+            f"{tag}: ragged_dot off its tensor-core route: "
+            f"{g['routes']['ragged_dot']}")
+        require(all(r.status == "done" for r in g["res"].values())
+                and all(len(r.tokens) == reqs[0].max_new_tokens
+                        and all(0 <= t < cfg.vocab_size for t in r.tokens)
+                        for r in g["res"].values()),
+                f"{tag}: a request did not finish, or a token is outside "
+                "the vocabulary")
+        calls, tokens = e["dispatch"]
+        log(f"{tag}: graph == eager in greedy tokens, counters, switch "
+            f"stats, launches and routes; MoE dispatches in the eager run: "
+            f"ragged {calls['moe_apply_ragged']} (largest "
+            f"{tokens['moe_apply_ragged']} tokens), sorted rows "
+            f"{calls['moe_apply_sorted_rows']} (largest "
+            f"{tokens['moe_apply_sorted_rows']} tokens); launches "
+            + json.dumps(g["launches"]) + "; routes "
+            + json.dumps(g["routes"]))
+        if tag == "moe cold":
+            main = g["launches"]
+            require(calls["moe_apply_sorted_rows"] > 0
+                    and tokens["moe_apply_sorted_rows"] > 2048
+                    and calls["moe_apply_ragged"] > 0,
+                    f"{tag}: both MoE dispatches must run: {calls} {tokens}")
+        if tag == "moe radix":
+            require(g["counters"].get("prefix_hits", 0) > 0,
+                    "moe radix: no prefix hit")
+        if tag == "moe int8":
+            require(g["counters"].get("quant_dispatches", 0) > 0,
+                    "moe int8: no int8 steps")
+        del runs, g, e
+    tag, scfg, prefix, reqs = moe_runs(cfg)[0]
+    for mode in ("graph", "eager"):
+        traced_run(f"{tag} {mode}", model, params, scfg, reqs, prefix,
+                   graphs=mode == "graph")
+    return main
+
+
+def moe_state(model, b: int, s: int, steps: int):
+    """A fresh page-16 KV state with distinct frames for ``b`` rows of
+    ``s`` prompt tokens and ``steps`` decode tokens (one scratch frame)."""
+    import torch
+    page = 16
+    per = -(-(s + steps) // page)
+    return model.init_kv_state(b, b * per + 1, page, per)._replace(
+        page_table=torch.arange(b * per, dtype=torch.int32,
+                                device=model.device).view(b, per))
+
+
+def moe_teacher_forced(model, params, tokens, lens, steps, forced=None):
+    """One prefill of ``tokens [B, S]`` and ``steps`` decode steps on a
+    fresh state, each decode step fed ``forced[t]`` (or its own argmax);
+    returns the logits of each call ``[steps + 1, B, V]`` (f32), the tokens
+    fed, and the expert ids of every ``router_topk`` call in order."""
+    import torch
+    from repro_torch.models import moe
+    st = moe_state(model, *tokens.shape, steps)
+    ids, real = [], moe.router_topk
+
+    def tap(p, x, k):
+        out = real(p, x, k)
+        ids.append(out[0].sort(-1).values)
+        return out
+    moe.router_topk = tap
+    try:
+        logits, st = model.prefill(params, tokens, lens, st)
+        out, fed = [logits.float()], []
+        for t in range(steps):
+            tok = (forced[t] if forced is not None
+                   else out[-1].argmax(-1).to(torch.int32))
+            fed.append(tok)
+            logits, st = model.decode_step(params, tok, st)
+            out.append(logits.float())
+    finally:
+        moe.router_topk = real
+    return torch.stack(out), fed, ids
+
+
+def logits_gap(a, b, a_ids, b_ids, n_moe: int) -> dict:
+    """How far two teacher-forced runs (:func:`moe_teacher_forced`) are
+    apart: each call's worst row error relative to that row's largest
+    logit in ``b``, the share of (token, layer) expert sets alike, the
+    layer calls fully alike, and the share alike by MoE layer (the mean
+    over its calls)."""
+    rel = ((a - b).abs().amax(-1) / b.abs().amax(-1)).amax(-1)
+    alike = [float((x == y).all(-1).float().mean())
+             for x, y in zip(a_ids, b_ids)]
+    total = sum(x.shape[0] for x in a_ids)
+    same = sum(f * x.shape[0] for f, x in zip(alike, a_ids))
+    return dict(rel=[float(r) for r in rel], same=same, total=total,
+                calls=sum(f == 1 for f in alike), n_calls=len(alike),
+                by_layer=[statistics.mean(alike[j::n_moe])
+                          for j in range(n_moe)])
+
+
+def log_gap(what: str, gap: dict) -> None:
+    log(f"moe logits ({what}, teacher forced): worst row error / row peak: "
+        f"prefill {gap['rel'][0]:.4g}, decode steps "
+        + ", ".join(f"{r:.4g}" for r in gap["rel"][1:])
+        + f"; expert sets equal for {gap['same']:.0f} of {gap['total']} "
+        f"(token, layer) pairs ({100 * gap['same'] / gap['total']:.3f}%), "
+        f"{gap['calls']} of {gap['n_calls']} layer calls fully alike; by MoE "
+        "layer: " + ", ".join(f"{100 * x:.1f}%" for x in gap["by_layer"])
+        + " (printed, not required)")
+
+
+def moe_logits_phase(cfg, model, params) -> float:
+    """The kernel path against the plain path (``use_kernels=False``, what
+    ``ServeConfig.use_ref_path`` serves) on the card in bf16, teacher
+    forced on the same tokens: one prefill of 4 x 256 tokens, then 8 decode
+    steps fed the kernel path's greedy tokens.  The witness that tells
+    rounding from a fault: both paths again in f32 on the same weights
+    (upcast; the CUDA-core routes, exact f32 sums), fed the same tokens.
+    Prints, for kernel vs plain in bf16 and in f32, and for the bf16 kernel
+    path and the bf16 plain path each against the f32 plain path, each
+    call's worst row error relative to that row's largest logit and the
+    share of (token, layer) expert sets alike; a measurement, not a gate.
+    Also counts the ``ragged_dot`` launches of one decode step (eager);
+    returns them."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    rng = np.random.default_rng(9)
+    b, s, steps = 4, 256, LOGIT_STEPS
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32)).cuda()
+    lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    n_moe = sum(model.is_moe(i) for i in range(cfg.num_layers))
+
+    def plain_of(m):
+        m = copy.copy(m)
+        m.use_kernels = False
+        return m
+
+    k_logits, fed, k_ids = moe_teacher_forced(model, params, tokens, lens,
+                                              steps)
+    ops.reset_launch_counts()
+    p_logits, _, p_ids = moe_teacher_forced(plain_of(model), params, tokens,
+                                            lens, steps, forced=fed)
+    require(sum(ops.launch_counts().values()) == 0,
+            "moe logits: the plain path launched a kernel")
+    model32 = build_model(dataclasses.replace(cfg, param_dtype="float32"),
+                          device="cuda")
+    params32 = to_device(params, torch.float32)
+    k32, _, k32_ids = moe_teacher_forced(model32, params32, tokens, lens,
+                                         steps, forced=fed)
+    p32, _, p32_ids = moe_teacher_forced(plain_of(model32), params32, tokens,
+                                         lens, steps, forced=fed)
+    del params32
+    require(all(bool(torch.isfinite(x).all())
+                for x in (k_logits, p_logits, k32, p32)),
+            "moe logits: non-finite logits")
+    for what, a, a_ids, ref_, ref_ids in (
+            ("kernel vs plain path, bf16", k_logits, k_ids, p_logits, p_ids),
+            ("kernel vs plain path, f32", k32, k32_ids, p32, p32_ids),
+            ("bf16 kernel path vs f32 plain path", k_logits, k_ids, p32,
+             p32_ids),
+            ("bf16 plain path vs f32 plain path", p_logits, p_ids, p32,
+             p32_ids)):
+        log_gap(what, logits_gap(a, ref_, a_ids, ref_ids, n_moe))
+    # launches of one decode step on the kernel path, eager
+    ops.reset_launch_counts()
+    moe_teacher_forced(model, params, tokens[:, :16], lens.clamp(max=16), 1)
+    per_prefill = ops.launch_counts()["ragged_dot"]
+    ops.reset_launch_counts()
+    moe_teacher_forced(model, params, tokens[:, :16], lens.clamp(max=16), 2)
+    per_step = ops.launch_counts()["ragged_dot"] - per_prefill
+    require(per_step == 3 * n_moe,
+            f"moe: {per_step} ragged_dot launches a decode step, want "
+            f"3 a MoE layer ({3 * n_moe})")
+    log(f"moe: {per_step} ragged_dot launches per decode token-step (3 per "
+        f"MoE layer x {n_moe})")
+    return per_step
+
+
+def moe_decode_profile(cfg, model, params, steps: int = 8) -> None:
+    """An untimed, traced repeat (torch.profiler) of ``steps`` eager decode
+    steps of 4 lanes after a 4 x 256-token prefill: device time by kernel
+    per decode token-step, and ``ragged_dot``'s share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import print_profile
+    rng = np.random.default_rng(10)
+    b, s = 4, 256
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32)).cuda()
+    lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    logits, st = model.prefill(params, tokens, lens,
+                               moe_state(model, b, s, steps))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, st = model.decode_step(
+                params, logits.argmax(-1).to(torch.int32), st)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(f"moe profile: {steps} eager decode steps of {b} lanes (device time "
+        "by kernel; divide by the steps for one token-step):")
+    print_profile(prof, wall, top=15)
+    ms, count, share = kernel_share(prof, "ragged_mma_kernel")
+    log(f"moe profile: ragged_dot {ms / steps:.3f} ms and {count / steps:.0f} "
+        f"launches per decode token-step, {share:.1f}% of device time")
+
+
+def moe_operands(gen, m, k, n, e, top, sizes=None):
+    """bf16 operands of one grouped product at granite-moe's widths: rows
+    routed top-``top`` over ``e`` experts (``m / top`` tokens), or
+    ``sizes``."""
+    import torch
+    xs = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((e, k, n), generator=gen, device="cuda")
+         / k ** 0.5).bfloat16()
+    if sizes is None:
+        logits = torch.randn((m // top, e), generator=gen, device="cuda")
+        ids = logits.topk(top, dim=-1).indices.flatten()
+        sizes = torch.bincount(ids, minlength=e).int()
+    else:
+        sizes = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    return xs, w, sizes
+
+
+def grouped_mm(xs, w, sizes):
+    """``torch._grouped_mm`` on the same operands (the yardstick: the port
+    never calls it), with the layout it takes, or ``None`` and why."""
+    import torch
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "torch has no _grouped_mm"
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    errors = []
+    for layout, wl in (("row-major w", w),
+                       ("column-major w", w.transpose(1, 2).contiguous()
+                        .transpose(1, 2))):
+        try:
+            fn(xs, wl, offs=offs)
+            torch.cuda.synchronize()
+            return (lambda: fn(xs, wl, offs=offs)), layout
+        except (RuntimeError, TypeError, ValueError) as err:
+            errors.append(f"{layout}: {str(err).splitlines()[0][:120]}")
+    return None, "; ".join(errors)
+
+
+def moe_kernel_rows(cfg, launches, per_step) -> list[dict]:
+    """``ragged_dot`` against its plain version at granite-moe's full-width
+    shapes (bf16, tensor-core route): decode rows (4 lanes x 8 = 32) and a
+    2,048-token prefill (16,384 rows) for the up/gate product (1024 ->
+    512) and the down product (512 -> 1024), an expert left empty, one
+    expert holding every row; each held by ``bf16_rows_check``.  Then the
+    device times of kernel, plain version and ``torch._grouped_mm`` beside
+    the bound: the bytes of xs, of the touched experts' weights and of the
+    output over HBM bandwidth, or 2 M K N over the bf16 tensor-core peak,
+    whichever is longer."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ragged_dot import ragged_dot
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    m_dec = MOE_SERVE["max_batch"] * cfg.experts_per_token
+    m_pre = 2048 * cfg.experts_per_token
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    shapes = (
+        ("ragged_dot", "decode up/gate", m_dec, d, f, None),
+        ("ragged_dot_decode_down", "decode down", m_dec, f, d, None),
+        ("ragged_dot_prefill", "prefill up/gate", m_pre, d, f, None),
+        ("ragged_dot_prefill_down", "prefill down", m_pre, f, d, None),
+        ("ragged_dot_empty", "one expert empty", m_dec, d, f,
+         [0] + [m_dec // (e - 1)] * (e - 2) + [m_dec - m_dec // (e - 1)
+                                              * (e - 2)]),
+        ("ragged_dot_all_rows", "one expert holds every row", m_pre, d, f,
+         [0] * (e - 1) + [m_pre]),
+    )
+    rows = []
+    for name, what, m, k, n, sizes in shapes:
+        xs, w, gs = moe_operands(gen, m, k, n, e, cfg.experts_per_token,
+                                 sizes)
+        ops.reset_launch_counts()
+        got = ops.ragged_dot(xs, w, gs)
+        require(ops.route_counts()["ragged_dot"] == {"mma": 1, "simt": 0},
+                f"{name}: off the tensor-core route")
+        want = ref.ragged_dot_ref(xs, w, gs)
+        err, peak = bf16_rows_check(name, got, want)
+        touched = int((gs > 0).sum())
+        nbytes = (m * k + touched * k * n + m * n) * 2 + e * 4
+        b_ms, b_by = bound(nbytes, 2.0 * m * k * n)
+        ms = time_ms(lambda: ragged_dot(xs, w, gs))
+        plain_ms = time_ms(lambda: ref.ragged_dot_ref(xs, w, gs), n=5,
+                           reps=3)
+        lib, layout = grouped_mm(xs, w, gs)
+        lib_ms = None
+        if lib is not None:
+            lib_err = max_err(lib(), want)
+            lib_ms = time_ms(lib)
+            layout += f", |err| vs plain {lib_err:.3g}"
+        rows.append(dict(
+            name=name, shape=f"{what}: xs [{m}, {k}] @ w [{e}, {k}, {n}] "
+            f"bf16, {touched} experts touched",
+            max_abs_err=err, max_abs_want=peak, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library=f"torch._grouped_mm ({layout})",
+            launches=launches["ragged_dot"] if name == "ragged_dot"
+            else None))
+        del xs, w, gs, got, want
+    print_rows(rows)
+    dec = rows[0]
+    log(f"kernel ragged_dot: {per_step} launches per decode token-step "
+        f"(3 per MoE layer); decode up/gate {dec['ms']:.4f} ms = "
+        f"{dec['ms'] / dec['bound_ms']:.2f}x its bound; the whole decode "
+        f"step's grouped products {per_step // 3} x (2 up/gate + 1 down) "
+        f"~{per_step // 3 * (2 * dec['ms'] + rows[1]['ms']):.3f} ms")
+    return rows[:1]
+
+
+def moe_attention_checks(cfg, model, params) -> None:
+    """The copy and attention kernels at the MoE path's own shapes (Hkv 8,
+    G 2, head_dim 64): granite-moe's cold, int8 and radix runs repeated,
+    untimed, inside ``disable_graphs()`` with :func:`record_inputs`, plus
+    the radix workload on int8 pools (the int8 continuation attention),
+    then :func:`attention_checks` on the largest call of each."""
+    from repro_torch.serve import disable_graphs
+    cold, int8, radix = (run[1:] for run in moe_runs(cfg))
+    radix_int8 = (dataclasses.replace(radix[0], kv_dtype="int8"), None,
+                  radix_workload(cfg.vocab_size, n=4, max_new=16))
+    with disable_graphs():      # the recorders read each call's inputs
+        rec, rec_q, rec_pq = record_inputs(model, params, cold, int8,
+                                           [radix], radix_int8)
+    require(all(r.best is not None for r in (*rec.values(), rec_q, rec_pq)),
+            "moe: a copy or attention kernel was never called while "
+            "recording")
+    attention_checks("moe", rec, rec_q, rec_pq)
+
+
+def moe_phases() -> list[dict]:
+    """The granite-moe-1b-a400m phases: serve (graphs and eager), the copy
+    and attention kernels checked at the path's shapes, the logits
+    comparison, a traced decode, and the ``ragged_dot`` rows; the weights
+    are freed on return."""
+    cfg, model, params = moe_full_model()
+    launches = moe_serve_phase(cfg, model, params)
+    moe_attention_checks(cfg, model, params)
+    per_step = moe_logits_phase(cfg, model, params)
+    moe_decode_profile(cfg, model, params)
+    return moe_kernel_rows(cfg, launches, per_step)
+
+
 def print_rows(rows) -> None:
     for r in rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -3076,15 +3744,21 @@ def dense_phases() -> list[dict]:
     """The qwen2-7b phases (cold, int8, horizon, continuation, graphs,
     buckets, router) and their kernel rows; the model and every recorded input are
     freed on return."""
-    from repro_torch.serve import disable_graphs
+    from repro_torch.serve import ServeConfig, disable_graphs
     cfg, model, params = full_model()
     launches, launches_q = serve_phase(cfg, model, params)
     counts = continuation_phase(cfg, model, params)
     graph_phase(cfg, model, params)
     bucket_phase(cfg, model, params)
     router_phase(cfg, model, params)
+    runs = [run[1:] for run in continuation_runs(cfg)]
+    scfg = ServeConfig(**SERVE)
     with disable_graphs():      # the recorders read each call's inputs
-        rec, rec_q, rec_pq = record_inputs(cfg, model, params)
+        rec, rec_q, rec_pq = record_inputs(
+            model, params,
+            (scfg, None, serve_workload(cfg.vocab_size, **WORKLOAD)),
+            (dataclasses.replace(scfg, kv_dtype="int8"), None,
+             serve_workload(cfg.vocab_size, **SHORT)), runs[:2], runs[2])
     rows = full_checks(rec, rec_q, launches, launches_q)
     rows += continuation_checks(rec, rec_pq, counts)
     return rows
@@ -3124,6 +3798,7 @@ def main() -> int:
         reduced_checks()
         reduced_wkv_checks()
         reduced_engine_check()
+        reduced_moe_check()
         reduced_router_check()
         reduced_rwkv_check()
         reduced_vm_checks()
@@ -3136,6 +3811,11 @@ def main() -> int:
         log(f"freed qwen2-7b: {torch.cuda.memory_allocated() / 1e9:.1f} GB "
             "allocated")
         rows += rwkv_phases()
+        gc.collect()                   # free the rwkv6-7b weights first
+        torch.cuda.empty_cache()
+        rows += moe_phases()
+        gc.collect()
+        torch.cuda.empty_cache()
         rows += vm_phases()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -27,7 +27,7 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_copy", "flash_attention", "paged_attention",
            "paged_prefill_attention", "wkv6", "wkv6_chunked", "paged_gather",
-           "matmul")
+           "matmul", "ragged_dot")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -63,6 +63,8 @@ SIGNATURES = {
     "matmul": ("matmul", "matmul_launch",
                [_P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I, _I, _I,
                 _P]),
+    "ragged_dot": ("ragged_dot", "ragged_dot_launch",
+                   [_P] * 4 + [_I] * 4 + [_LL] * 4 + [_I, _P]),
 }
 
 _lock = threading.Lock()

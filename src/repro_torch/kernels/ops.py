@@ -41,6 +41,10 @@ from repro_torch.kernels.paged_prefill_attention import (
     check_paged_prefill_attention,
     paged_prefill_attention as _paged_prefill_kernel,
 )
+from repro_torch.kernels.ragged_dot import (
+    check_ragged_dot,
+    ragged_dot as _ragged_dot_kernel,
+)
 from repro_torch.kernels.wkv6 import check_wkv6, wkv6 as _wkv6_kernel
 from repro_torch.kernels.wkv6_chunked import (
     CHUNK as WKV6_CHUNK,
@@ -59,6 +63,7 @@ KERNELS = {
     "wkv6_chunked": _wkv6_chunked_kernel,
     "paged_gather": _paged_gather_kernel,
     "matmul": _matmul_kernel,
+    "ragged_dot": _ragged_dot_kernel,
 }
 
 
@@ -80,7 +85,8 @@ def route_counts() -> dict[str, dict[str, int]]:
     ``matmul_route``; ``flash_attention``: ``flash_route``;
     ``paged_decode_attention``: ``decode_route``;
     ``paged_prefill_attention``: ``prefill_route``; ``paged_copy`` and
-    ``paged_copy_at``: ``copy_route``)."""
+    ``paged_copy_at``: ``copy_route``; ``ragged_dot``:
+    ``ragged_route``)."""
     return {name: dict(fn.routes) for name, fn in KERNELS.items()
             if hasattr(fn, "routes")}
 
@@ -115,6 +121,15 @@ def matmul(x, y, *, out_dtype=None, use_kernel: bool = True):
         check_matmul(x, y, out_dtype)
         return ref.matmul_ref(x, y, out_dtype)
     return _matmul_kernel(x, y, out_dtype=out_dtype)
+
+
+def ragged_dot(xs, w, group_sizes, *, use_kernel: bool = True):
+    """Grouped product ``xs [M, K] @ w[g(m)]`` over rows sorted by group
+    (``group_sizes [E]`` int32 on xs's device), ``[M, N]`` in xs's dtype."""
+    if _plain(xs, use_kernel):
+        check_ragged_dot(xs, w, group_sizes)
+        return ref.ragged_dot_ref(xs, w, group_sizes)
+    return _ragged_dot_kernel(xs, w, group_sizes)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -21,6 +21,24 @@ def matmul_ref(x: torch.Tensor, y: torch.Tensor,
     return (x.float() @ y.float()).to(out_dtype or x.dtype)
 
 
+def ragged_dot_ref(xs: torch.Tensor, w: torch.Tensor,
+                   group_sizes: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.ragged_dot``: row ``m`` of ``xs [M, K]`` times ``w[g]
+    [K, N]`` of the group ``g`` that holds it (groups own consecutive rows,
+    ``group_sizes [E]`` >= 0 of them each); rows past the last group are
+    zero.  f32 products and sums, cast to xs's dtype.  One masked product a
+    group, with no host read of the sizes (a CUDA graph captures it)."""
+    m = xs.shape[0]
+    ends = torch.cumsum(group_sizes.long(), 0)
+    gid = torch.searchsorted(ends, torch.arange(m, device=xs.device),
+                             right=True)                       # [M]
+    x32 = xs.float()
+    out = torch.zeros((m, w.shape[2]), dtype=torch.float32, device=xs.device)
+    for g in range(w.shape[0]):
+        out = torch.where((gid == g)[:, None], x32 @ w[g].float(), out)
+    return out.to(xs.dtype)
+
+
 def flash_attention_ref(
     q: torch.Tensor,      # [B, Hq, Sq, D]
     k: torch.Tensor,      # [B, Hkv, Sk, D]

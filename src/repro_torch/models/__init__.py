@@ -1,5 +1,6 @@
-"""Model zoo of the port: the dense GQA transformer and the RWKV-6 family
-(later slices add the MoE, VLM, audio and RG-LRU families)."""
+"""Model zoo of the port: the GQA transformer (dense and MoE families) and
+the RWKV-6 family (later slices add the VLM, audio and RG-LRU
+families)."""
 
 from typing import Any
 
@@ -10,7 +11,6 @@ from repro_torch.models.transformer import PagedKVState, TransformerLM
 
 #: the slice of the port that brings each family not ported yet
 _LATER = {
-    "moe": "the MoE slice",
     "vlm": "the VLM slice",
     "audio": "the audio slice",
     "hybrid_rglru": "the RG-LRU slice",
@@ -19,7 +19,7 @@ _LATER = {
 
 def build_model(cfg: ModelConfig, **kwargs: Any) -> TransformerLM | RWKV6LM:
     """Factory: the family's LM (``device=None`` means the card)."""
-    if cfg.family == "dense":
+    if cfg.family in transformer.FAMILIES:
         return TransformerLM(cfg, **kwargs)
     if cfg.family == "rwkv6":
         return RWKV6LM(cfg, **kwargs)

@@ -1,10 +1,18 @@
-"""Decoder-only dense GQA transformer LM — the serve paths, in PyTorch.
+"""Decoder-only GQA transformer LM (dense and MoE) — the serve paths, in
+PyTorch.
 
-Port of the dense family of ``src/repro/models/transformer.py``:
+Port of the dense and MoE families of ``src/repro/models/transformer.py``:
   * params are plain dicts of tensors; the JAX package stacks the repeated
-    block along a leading layer axis (``params["blocks"]["sub0"]``), the
-    port keeps one dict per layer (``params["blocks"][i]``) and loops in
-    Python — :func:`params_from_jax` unstacks;
+    superblock of ``moe_every`` layers along a leading axis
+    (``params["blocks"]["sub0" | "sub1"]``), the port keeps one dict per
+    layer (``params["blocks"][i]``, layer ``i`` being ``sub{i % m}[i //
+    m]``) and loops in Python — :func:`params_from_jax` unstacks;
+  * MoE (``moe.py``): the last layer of each superblock routes, the others
+    are dense (llama4's ``moe_every = 2`` interleave; granite-moe routes in
+    every layer); a serve call of at most 2,048 tokens dispatches
+    drop-free through the grouped-product kernel, a longer one per row
+    with capacity factor 2.0 (JAX's rule, decided by the static shapes, so
+    per captured program);
   * weights keep the JAX ``[in, out]`` layout and are applied as ``x @ W``
     (no transpose in the bridge);
   * serving reads/writes the KV cache through the paged virtual-memory
@@ -33,6 +41,7 @@ from repro_torch.core.vmem import INVALID_PAGE
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.config import ModelConfig
 
 Params = dict[str, Any]
@@ -51,17 +60,26 @@ class PagedKVState(NamedTuple):
         return self.k_pools.shape[2]
 
 
+#: serve calls of at most this many tokens take the drop-free MoE dispatch
+#: (``src/repro/models/transformer.py:336``)
+RAGGED_MAX_TOKENS = 2048
+#: capacity factor of the per-row sorted dispatch of longer serve calls
+SERVE_CAPACITY_FACTOR = 2.0
+FAMILIES = ("dense", "moe")
+
+
 class TransformerLM:
-    """Dense GQA transformer (the ``dense`` family) on one device."""
+    """GQA transformer (the ``dense`` and ``moe`` families) on one
+    device."""
 
     KV_INT8_SCALE = 24.0  # fixed-point scale (values are post-norm, O(1))
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  use_kernels: bool = True, kv_dtype: str = "native"):
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not served by TransformerLM: the "
-                "MoE, VLM and audio families and RG-LRU come in later slices "
+                "VLM and audio families and RG-LRU come in later slices "
                 "of the PyTorch port (ROADMAP.md); RWKV-6 is RWKV6LM "
                 "(build_model picks it)")
         if kv_dtype not in ("native", "int8"):
@@ -74,6 +92,16 @@ class TransformerLM:
         self.use_kernels = use_kernels
         self.kv_dtype = kv_dtype
         self.dtype = L.DTYPES[cfg.param_dtype]
+        #: layers a superblock; only its last one routes (JAX ``_is_moe_sub``)
+        self.moe_every = cfg.moe_every if cfg.family == "moe" else 1
+        if cfg.num_layers % self.moe_every:
+            raise ValueError(f"num_layers {cfg.num_layers} is not a multiple "
+                             f"of moe_every {self.moe_every}")
+
+    def is_moe(self, layer: int) -> bool:
+        """Whether layer ``layer`` has an MoE FFN."""
+        return (self.cfg.family == "moe"
+                and layer % self.moe_every == self.moe_every - 1)
 
     # ------------------------------------------------------------------
     # init
@@ -85,12 +113,13 @@ class TransformerLM:
         cfg, dt = self.cfg, self.dtype
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         blocks = []
-        for _ in range(cfg.num_layers):
+        for li in range(cfg.num_layers):
             blocks.append({
                 "ln1": L.rmsnorm_init(cfg.d_model, dt, self.device),
                 "attn": L.attention_init(gen, cfg, dt),
                 "ln2": L.rmsnorm_init(cfg.d_model, dt, self.device),
-                "mlp": L.swiglu_init(gen, cfg.d_model, cfg.d_ff, dt),
+                "mlp": (M.moe_init(gen, cfg, dt) if self.is_moe(li) else
+                        L.swiglu_init(gen, cfg.d_model, cfg.d_ff, dt)),
             })
         p: Params = {
             "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
@@ -155,8 +184,25 @@ class TransformerLM:
                                 cfg)
         return L.rotate(q, *rope), L.rotate(k, *rope), v
 
-    def _ffn_serve(self, p, x):
-        return x + L.swiglu(p["mlp"], L.rmsnorm(p["ln2"], x, self.cfg.norm_eps))
+    def _ffn_serve(self, p, x, is_moe: bool):
+        cfg = self.cfg
+        hn = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        if not is_moe:
+            return x + L.swiglu(p["mlp"], hn)
+        shp = hn.shape
+        if shp[0] * shp[1] <= RAGGED_MAX_TOKENS:
+            # decode and short prefill: drop-free grouped products
+            ff, _ = M.moe_apply_ragged(
+                p["mlp"], hn.reshape(-1, shp[-1]),
+                num_experts=cfg.num_experts, k=cfg.experts_per_token,
+                use_kernel=self.use_kernels)
+        else:
+            # long prefill: per-row sorted dispatch with generous capacity
+            ff, _ = M.moe_apply_sorted_rows(
+                p["mlp"], hn, num_experts=cfg.num_experts,
+                k=cfg.experts_per_token,
+                capacity_factor=SERVE_CAPACITY_FACTOR)
+        return x + ff.reshape(shp)
 
     @torch.no_grad()
     def prefill(self, params: Params, tokens: torch.Tensor,
@@ -191,7 +237,7 @@ class TransformerLM:
                 causal=True, use_kernel=self.use_kernels,
             )                                         # [B, Hq, S, hd]
             x = x + o.transpose(1, 2).reshape(b, s, -1) @ block_p["attn"]["wo"]
-            x = self._ffn_serve(block_p, x)
+            x = self._ffn_serve(block_p, x, self.is_moe(li))
         x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         last_idx = (prompt_lens.long() - 1).clamp(min=0)
         last = x[torch.arange(b, device=x.device), last_idx]
@@ -241,7 +287,7 @@ class TransformerLM:
                 use_kernel=self.use_kernels,
             )                                         # [B, S, Hkv, G, hd]
             x = x + o.reshape(b, s, hkv * g * hd) @ block_p["attn"]["wo"]
-            x = self._ffn_serve(block_p, x)
+            x = self._ffn_serve(block_p, x, self.is_moe(li))
         x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         last_idx = (chunk_lens.long() - 1).clamp(min=0)
         last = x[torch.arange(b, device=x.device), last_idx]
@@ -287,7 +333,7 @@ class TransformerLM:
                 use_kernel=self.use_kernels,
             )                                          # [B, Hkv, G, hd]
             x = x + o.reshape(b, 1, hkv * g * hd) @ block_p["attn"]["wo"]
-            x = self._ffn_serve(block_p, x)
+            x = self._ffn_serve(block_p, x, self.is_moe(li))
         x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         logits = self.logits_fn(params, x[:, 0])
         return logits, state._replace(seq_lens=new_lens)
@@ -342,13 +388,17 @@ def params_from_jax(np_params: Params, cfg: ModelConfig, device) -> Params:
     """Bridge: the JAX ``TransformerLM.init`` pytree (as numpy arrays) to
     the port's parameters on ``device``.
 
-    The JAX pytree stacks each block leaf along a leading layer axis under
-    ``params["blocks"]["sub0"]``; the port keeps one dict per layer.
-    Weights keep their ``[in, out]`` layout.  Dense family only
-    (:func:`repro_torch.models.params_from_jax` dispatches by family)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r}: not the dense "
-                                  "family's pytree")
+    The JAX pytree stacks each block leaf of a superblock of ``m =
+    moe_every`` layers along a leading axis under
+    ``params["blocks"]["sub0"]`` ... ``["sub{m-1}"]``; the port keeps one
+    dict per layer, layer ``i`` from ``sub{i % m}[i // m]``.  Weights keep
+    their ``[in, out]`` layout (experts ``[E, in, out]``).  Dense and MoE
+    families (:func:`repro_torch.models.params_from_jax` dispatches by
+    family)."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r}: not the dense or "
+                                  "MoE family's pytree")
+    m = cfg.moe_every if cfg.family == "moe" else 1
     dev = resolve_device(device)
 
     def t(a):
@@ -358,10 +408,11 @@ def params_from_jax(np_params: Params, cfg: ModelConfig, device) -> Params:
         return {k: layer(v, i) if isinstance(v, dict) else t(v[i])
                 for k, v in tree.items()}
 
-    stacked = np_params["blocks"]["sub0"]
+    subs = np_params["blocks"]
     out: Params = {
         "embed": t(np_params["embed"]),
-        "blocks": [layer(stacked, i) for i in range(cfg.num_layers)],
+        "blocks": [layer(subs[f"sub{i % m}"], i // m)
+                   for i in range(cfg.num_layers)],
         "ln_f": {"scale": t(np_params["ln_f"]["scale"])},
     }
     if "head" in np_params:

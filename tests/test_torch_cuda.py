@@ -13,7 +13,9 @@ continuation attention and the tensor-core routes four bf16 steps of the
 largest output (``4 * 2^-8 * max|want|``); the integer-valued layout
 probes of the tensor-core routes are exact; the copies are bit-identical on the whole pool;
 the WKV recurrences (f32) 1e-4 sequential and 3e-4 chunked, 1e-3 at a
-decay of 1e-6, as their CPU tests against the Pallas kernels.
+decay of 1e-6, as their CPU tests against the Pallas kernels;
+``ragged_dot`` f32 1e-5 of each row's largest output (an f32 dot over up
+to 1,024 terms), bf16 four bf16 steps of each row's largest output.
 """
 
 import pytest
@@ -53,7 +55,8 @@ def test_paged_copy_bit_identical(gen, dtype):
 
 
 @pytest.mark.parametrize("dtype,hq,hkv,d", [
-    (torch.float32, 4, 2, 14), (torch.bfloat16, 28, 4, 128)])
+    (torch.float32, 4, 2, 14), (torch.bfloat16, 28, 4, 128),
+    (torch.bfloat16, 16, 8, 64)])
 @pytest.mark.parametrize("s", [16, 100, 257])
 def test_flash_attention(gen, dtype, hq, hkv, d, s):
     q = torch.randn((2, s, hq, d), generator=gen, device="cuda").to(dtype)
@@ -67,7 +70,8 @@ def test_flash_attention(gen, dtype, hq, hkv, d, s):
 
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("dtype,hkv,g,d,page", [
-    (torch.float32, 2, 2, 14, 4), (torch.bfloat16, 4, 7, 128, 16)])
+    (torch.float32, 2, 2, 14, 4), (torch.bfloat16, 4, 7, 128, 16),
+    (torch.bfloat16, 8, 2, 64, 16)])
 def test_paged_decode_attention(gen, quant, dtype, hkv, g, d, page):
     b, frames, maxp = 4, 64, 12
     lens = [page * 5 + 3, 0, 1, page * maxp]
@@ -283,7 +287,8 @@ def test_paged_copy_single_forms_take_the_burst_route(gen, at):
 
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("dtype,hkv,g,d,page", [
-    (torch.float32, 2, 2, 14, 4), (torch.bfloat16, 4, 7, 128, 16)])
+    (torch.float32, 2, 2, 14, 4), (torch.bfloat16, 4, 7, 128, 16),
+    (torch.bfloat16, 8, 2, 64, 16)])
 def test_paged_prefill_attention(gen, quant, dtype, hkv, g, d, page):
     """Rows at mid-page, page-aligned and zero starts with chunks of 37, 1
     and 16 tokens (a padded batch of S = 37), -1 entries past each row's
@@ -1543,3 +1548,169 @@ def test_capture_survives_garbage_collection(reduced, monkeypatch):
     assert eng.drain()[0].status == "done"
     eng.close()
     gc.collect()
+
+
+# ---------------------------------------------------------------------------
+# ragged_dot (the MoE path's grouped expert product) and the MoE engines
+# ---------------------------------------------------------------------------
+
+
+def ragged_sizes(gen, m, e, spec):
+    """int32 group sizes on the card: ``spec`` as given, or ``m`` rows of
+    random experts (top-8 routing of ``m / 8`` tokens: empty experts are
+    likely at decode sizes)."""
+    if spec != "random":
+        return torch.tensor(spec, dtype=torch.int32, device="cuda")
+    ids = torch.randint(0, e, (m,), generator=gen, device="cuda")
+    return torch.bincount(ids, minlength=e).int()
+
+
+def ragged_within(got, want, dtype):
+    """Each row within 1e-5 (f32) or four bf16 steps of its largest
+    output."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    peak = want.float().abs().amax(-1)
+    step = 1e-5 if dtype == torch.float32 else 4 * 2**-8
+    assert bool((diff <= step * peak + 1e-6).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "simt")])
+@pytest.mark.parametrize("m,k,n,e,spec", [
+    (32, 1024, 512, 32, "random"),           # granite decode, 4 lanes
+    (32, 512, 1024, 32, "random"),           # its down projection
+    (16384, 1024, 512, 32, "random"),        # a 2,048-token prefill
+    (300, 512, 1024, 32, [0] * 31 + [300]),  # one expert holds every row
+    (70, 64, 72, 4, [10, 0, 50, 0]),         # empty groups, 10 rows past
+    (5, 16, 8, 8, [0, 1, 0, 1, 1, 0, 2, 0]),
+])
+def test_ragged_dot_against_plain_version(gen, dtype, route, m, k, n, e,
+                                          spec):
+    xs = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    w = torch.randn((e, k, n), generator=gen, device="cuda").div(
+        k ** 0.5).to(dtype)
+    gs = ragged_sizes(gen, m, e, spec)
+    ops.reset_launch_counts()
+    got = ops.ragged_dot(xs, w, gs)
+    assert ops.route_counts()["ragged_dot"] == {**{"mma": 0, "simt": 0},
+                                                route: 1}
+    want = ref.ragged_dot_ref(xs, w, gs)
+    torch.cuda.synchronize()
+    ragged_within(got, want, dtype)
+    assert not got[int(gs.sum()):].any()
+
+
+def test_ragged_dot_bf16_off_the_tensor_cores_raises(gen):
+    """A bf16 view whose base is off 16 bytes, or an N not a multiple of 8,
+    is refused before any launch: bf16 runs on the tensor cores only."""
+    xs = torch.randn((40, 65), generator=gen, device="cuda").bfloat16()
+    w = torch.randn((3, 64, 24), generator=gen, device="cuda").bfloat16()
+    gs = torch.tensor([7, 0, 30], dtype=torch.int32, device="cuda")
+    ops.reset_launch_counts()
+    for x_, w_ in ((xs[:, 1:], w), (xs[:, :64], w[:, :, :20])):
+        with pytest.raises(ValueError, match="tensor cores only"):
+            ops.ragged_dot(x_, w_, gs)
+    assert ops.launch_counts()["ragged_dot"] == 0
+
+
+def test_ragged_dot_exact_layout_probe(gen):
+    """Integer-valued bf16 operands small enough that every sum is exact:
+    a wrong fragment map, ldmatrix address or group offset shows as a
+    mismatch, not as rounding."""
+    m, k, n, e = 200, 64, 128, 5
+    xs = torch.randint(-3, 4, (m, k), generator=gen, device="cuda").bfloat16()
+    w = torch.randint(-3, 4, (e, k, n), generator=gen,
+                      device="cuda").bfloat16()
+    gs = torch.tensor([64, 1, 0, 70, 65], dtype=torch.int32, device="cuda")
+    got = ops.ragged_dot(xs, w, gs)
+    assert torch.equal(got, ref.ragged_dot_ref(xs, w, gs))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_graph_replay_ragged_dot_with_new_group_sizes(gen, dtype):
+    """One capture, replayed after the group sizes and rows change in
+    place on the card: the kernel reads the sizes from device memory, so
+    the replay computes the new grouping."""
+    m, k, n, e = 96, 128, 64, 6
+    xs = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    w = torch.randn((e, k, n), generator=gen, device="cuda").to(dtype)
+    gs = torch.tensor([96, 0, 0, 0, 0, 0], dtype=torch.int32, device="cuda")
+    graph, got = captured(lambda: ops.ragged_dot(xs, w, gs))
+    for sizes in ([0, 40, 0, 56, 0, 0], [10, 10, 10, 10, 10, 46],
+                  [0, 0, 0, 0, 0, 90]):
+        gs.copy_(torch.tensor(sizes, dtype=torch.int32))
+        xs.copy_(torch.randn((m, k), generator=gen, device="cuda"))
+        graph.replay()
+        torch.cuda.synchronize()
+        ragged_within(got, ref.ragged_dot_ref(xs, w, gs), dtype)
+        assert not got[sum(sizes):].any()
+
+
+MOE_ARCHS = ("granite-moe-1b-a400m", "llama4-maverick-400b-a17b")
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("case", ["cold", "int8", "radix", "buckets"])
+def test_moe_engine_graphs_equal_eager_and_cpu(arch, case):
+    """The reduced MoE engine (f32) on the card with graphs, inside
+    ``disable_graphs()`` and on the CPU: identical greedy tokens and
+    counters (less ``prefill_bytes_gathered``, which counts by route);
+    graph and eager identical in launches and routes, ``ragged_dot`` on
+    its CUDA-core route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig, disable_graphs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, reduced=True)
+    cpu = build_model(cfg, device="cpu")
+    cpu_params = cpu.init(0)
+    card = build_model(cfg, device="cuda")
+    params = on(cpu_params, "cuda")
+    kw = REDUCED_WARM if case == "radix" else REDUCED_COLD
+    extra = {"int8": dict(kv_dtype="int8"),
+             "buckets": dict(aot_buckets=(8, 16))}.get(case, {})
+    scfg = ServeConfig(**kw, **extra)
+    prefix, reqs = reduced_workload(cfg, "radix" if case == "radix"
+                                    else "cold")
+    graph = serve_counted(card, params, scfg, prefix, reqs)
+    with disable_graphs():
+        eager = serve_counted(card, params, scfg, prefix, reqs)
+    plain = serve_counted(cpu, cpu_params, scfg, prefix, reqs)
+    assert graph[:5] == eager[:5]
+    for c in (graph[1], plain[1]):
+        c.pop("prefill_bytes_gathered", None)
+    assert graph[:3] == plain[:3]
+    assert graph[3]["ragged_dot"] > 0
+    assert graph[4]["ragged_dot"] == {"mma": 0,
+                                      "simt": graph[3]["ragged_dot"]}
+
+
+@pytest.mark.parametrize("dispatch", ["ragged", "sorted_rows"])
+def test_graph_capture_of_moe_dispatches(gen, dispatch):
+    """Each MoE dispatch of the serve path captures as a CUDA graph (a
+    host sync inside would make the capture raise) and its replay on new
+    inputs equals an eager call: routing, sort, group sizes, capacity
+    drops and combine all read device memory only."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    cfg = get_config("granite-moe-1b-a400m", reduced=True)
+    params = M.moe_init(gen, cfg, torch.bfloat16)
+    x = torch.randn((3, 40, cfg.d_model), generator=gen,
+                    device="cuda").bfloat16()
+    kw = dict(num_experts=cfg.num_experts, k=cfg.experts_per_token)
+
+    def call():
+        if dispatch == "ragged":
+            return M.moe_apply_ragged(params, x.view(-1, cfg.d_model),
+                                      **kw)[0]
+        return M.moe_apply_sorted_rows(params, x, capacity_factor=0.5,
+                                       **kw)[0]
+    graph, got = captured(call)
+    for _ in range(2):
+        x.copy_(torch.randn(x.shape, generator=gen, device="cuda"))
+        graph.replay()
+        want = call()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)

@@ -301,9 +301,8 @@ def test_non_dense_family_names_its_slice():
     cfg = get_config("recurrentgemma-9b", reduced=True)
     with pytest.raises(NotImplementedError, match="RG-LRU slice"):
         build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        build_model(get_config("granite-moe-1b-a400m", reduced=True),
-                    device="cpu")
+    with pytest.raises(NotImplementedError, match="VLM slice"):
+        build_model(get_config("qwen2-vl-7b", reduced=True), device="cpu")
 
 
 def test_paged_state_layout(models):
