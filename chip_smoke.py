@@ -35,7 +35,10 @@ printing its lines; any failure exits non-zero before the last line:
    groups, one group holding every row, rows past the last group) and
    the reduced granite-moe and llama4 engines (f32; llama4 routes every
    other layer) on the card against the CPU, cold, int8 and default
-   policy, with identical tokens and counters; and the reduced rwkv6-7b
+   policy, with identical tokens and counters; the reduced qwen2-vl
+   (M-RoPE) and musicgen (``[len, 4]`` codebook prompts, ``[4]`` tokens a
+   step) engines likewise, with identical switch stats; and the reduced
+   rwkv6-7b
    (prefill + 16 greedy decode steps, both ``tm_impl``s, 32- and 27-token
    prompts) on the card against the CPU: identical tokens, logits within
    1e-4;
@@ -146,7 +149,33 @@ printing its lines; any failure exits non-zero before the last line:
    2,048-token prefill of 16,384 rows, both products, an empty expert,
    one expert holding every row; ``bf16_rows_check``) and timed beside
    its plain version, ``torch._grouped_mm`` and its bound;
-13. the paper's VM loop (after the reduced checks above, which also hold
+13. VLM: the granite-moe weights are freed, qwen2-vl-7b at full width
+   (28 layers, qwen2-7b's shapes, M-RoPE sections (16, 24, 24), bf16,
+   random weights, depth not cut) serves the cold workload of 4 and a
+   default-policy radix run, each with CUDA graphs and inside
+   ``disable_graphs()`` (identical tokens, counters, switch stats,
+   launches and routes; every attention and copy launch on its Hopper
+   route; one copy launch a layer of each prefill), the cold run traced
+   in both modes; a direct ``prefill`` of 2 x 512 tokens whose first 256
+   positions are a stub vision prefix (patch embeddings, normal x 0.02),
+   kernel path against plain path (within 32 bf16 steps of each row's
+   peak and well below the prefix's own shift); the kernel path's logits
+   against the plain path's, teacher forced (2 x 256 tokens, 8 decode
+   steps), in bf16 and on f32 weights (printed, not required); tok/s,
+   TTFT and TPOT p50, traced busy share and kernels per decode
+   token-step beside the card's name and power limit;
+14. audio: the qwen2-vl-7b weights are freed, musicgen-large at full
+   width (48 layers, d_model 2048, 32 heads of 64 with 32 KV heads (G
+   1), 4 codebooks of 2048, bf16, depth not cut) serves ``[len, 4]``
+   prompts: the cold workload, an int8 run and a default-policy radix
+   run whose pool preempts and restores, each with graphs and eager as
+   in 13, the cold run traced; the runs repeated untimed with the
+   recorders of 9 and each copy and attention kernel held against its
+   plain version on the largest call it got (Hkv 32, G 1, head_dim 64,
+   page 16; on its Hopper route, the tolerances of 9); the G 1 rows of
+   both paged attention kernels timed as in 9, with the audio runs'
+   launches;
+15. the paper's VM loop (after the reduced checks above, which also hold
    ``paged_gather`` bit-identical to its plain version over f32/bf16/int8,
    W 4/14/512, page 8/16, any order with repeats, -1 entries, positions
    past the reach and N = 1, and ``matmul`` within 1e-4 of the largest
@@ -160,13 +189,13 @@ printing its lines; any failure exits non-zero before the last line:
    random) are gathered bit-identical through the kernel, the plain
    version and the coalesced route, with each stream's translation counts
    and 16-entry DTLB report (host numpy); the random stream is timed;
-14. the paper's matmul: n = 45, 90, 181 in f32 and qwen2-7b's gate
+16. the paper's matmul: n = 45, 90, 181 in f32 and qwen2-7b's gate
    projection for a 2,048-token prefill (bf16 [2048, 3584] @ [3584,
    18944] -> bf16) through ``ops.matmul`` with the launch counts zeroed
    before and read after (the f32 products on the CUDA-core route, the
    gate projection on ``wgmma``), each against its plain version, then
    the largest and the n = 181 product timed beside ``torch.matmul``;
-15. the kernel JSON line, then the device JSON line, last.
+17. the kernel JSON line, then the device JSON line, last.
 """
 
 from __future__ import annotations
@@ -210,6 +239,10 @@ KERNELS = {
     "ragged_dot": ("src/repro_torch/kernels/csrc/ragged_dot.cu",
                    "src/repro/models/moe.py:132"),
 }
+
+
+#: the card's name and power limit (``nvidia-smi``), set by :func:`probe`
+CARD = "not probed"
 
 
 class SmokeFailure(RuntimeError):
@@ -367,6 +400,8 @@ def probe() -> str:
         capture_output=True, text=True, timeout=60)
     require(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     card = out.stdout.strip().splitlines()[0]
+    global CARD
+    CARD = card
     log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -813,16 +848,18 @@ def reduced_engine_check() -> None:
             f"{e_cpu.counters.get('prefill_bytes_gathered')}")
 
 
-def reduced_radix_workload(vocab: int):
+def reduced_radix_workload(vocab: int, tok: tuple = ()):
     """The shared-base workload of tests/test_torch_continuation.py: 7
-    prompts, the first 8 tokens of one base and a 4-13-token tail each."""
+    prompts, the first 8 tokens of one base and a 4-13-token tail each
+    (``tok``: a token's trailing shape, ``(K,)`` for audio codebooks)."""
     import numpy as np
     from repro_torch.serve import ServeRequest
     rng = np.random.default_rng(13)
-    base = rng.integers(0, vocab, size=12).astype(np.int32)
+    base = rng.integers(0, vocab, size=(12,) + tok).astype(np.int32)
     return [ServeRequest(req_id=i, max_new_tokens=12, prompt=np.concatenate(
-        [base[:8], rng.integers(0, vocab, size=int(
-            rng.integers(4, 14))).astype(np.int32)])) for i in range(7)]
+        [base[:8], rng.integers(0, vocab, size=(int(
+            rng.integers(4, 14)),) + tok).astype(np.int32)]))
+        for i in range(7)]
 
 
 def reduced_router_check() -> None:
@@ -886,13 +923,15 @@ def reduced_router_check() -> None:
 
 
 def serve_workload(vocab: int, n: int, lo: int, hi: int, max_new: int,
-                   seed: int):
+                   seed: int, tok: tuple = ()):
+    """``n`` requests of ``lo``-``hi``-token prompts (``tok``: a token's
+    trailing shape, ``(K,)`` for audio codebooks)."""
     import numpy as np
     from repro_torch.serve import ServeRequest
     rng = np.random.default_rng(seed)
     return [ServeRequest(req_id=i, prompt=rng.integers(
-        0, vocab, size=int(rng.integers(lo, hi + 1))).astype(np.int32),
-        max_new_tokens=max_new) for i in range(n)]
+        0, vocab, size=(int(rng.integers(lo, hi + 1)),) + tok).astype(
+            np.int32), max_new_tokens=max_new) for i in range(n)]
 
 
 #: the full-width serve phase: 8 requests, 64-512-token prompts, 32 new
@@ -971,16 +1010,19 @@ CONT = dict(page_size=16, num_pages=64, max_pages_per_seq=36, max_batch=4,
             max_horizon=8)
 
 
-def radix_workload(vocab: int, n: int = 8, seed: int = 2, max_new: int = 32):
+def radix_workload(vocab: int, n: int = 8, seed: int = 2, max_new: int = 32,
+                   tok: tuple = ()):
     """Prompt i is the first 0, 128 or 256 tokens (by ``i % 3``) of one
-    256-token base, then a 16-256-token tail of its own."""
+    256-token base, then a 16-256-token tail of its own (``tok``: a
+    token's trailing shape)."""
     import numpy as np
     from repro_torch.serve import ServeRequest
     rng = np.random.default_rng(seed)
-    base = rng.integers(0, vocab, size=256).astype(np.int32)
+    base = rng.integers(0, vocab, size=(256,) + tok).astype(np.int32)
     return [ServeRequest(req_id=i, max_new_tokens=max_new, prompt=np.concatenate(
-        [base[: (0, 128, 256)[i % 3]], rng.integers(0, vocab, size=int(
-            rng.integers(16, 257))).astype(np.int32)])) for i in range(n)]
+        [base[: (0, 128, 256)[i % 3]], rng.integers(0, vocab, size=(int(
+            rng.integers(16, 257)),) + tok).astype(np.int32)]))
+        for i in range(n)]
 
 
 def fork_workload(vocab: int, n: int = 8, seed: int = 3, max_new: int = 32):
@@ -1238,11 +1280,18 @@ def served(model, params, scfg, reqs, prefix=None, *, graphs: bool):
         dt = time.perf_counter() - t0
         eng.close()
     return dict(eng=eng, res=res, dt=dt, build=build,
-                tokens={i: r.tokens for i, r in res.items()},
+                tokens=token_lists(res),
                 counters=dict(eng.counters.counters),
                 switch=eng.stats()["switch_stats"],
                 launches=ops.launch_counts(), routes=ops.route_counts(),
                 replays=eng.executor.replays)
+
+
+def token_lists(res) -> dict:
+    """Each request's tokens as nested lists (an audio token is a ``[K]``
+    array), so two runs compare with ``==``."""
+    import numpy as np
+    return {i: np.asarray(r.tokens).tolist() for i, r in res.items()}
 
 
 def require_same(tag, g, e) -> None:
@@ -2286,7 +2335,6 @@ def full_checks(rec, rec_q, launches, launches_q) -> list[dict]:
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.paged_attention import paged_decode_attention
     rows = []
 
     # paged_copy — the pair launch, one tensor and the floor
@@ -2316,40 +2364,49 @@ def full_checks(rec, rec_q, launches, launches_q) -> list[dict]:
     print_rows([flash_long_row()])
 
     # paged decode attention (bf16 pools, then int8 pools)
-    for tag, best, counts in (
-            ("paged_decode_attention", rec["paged_decode_attention"].best,
-             launches),
-            ("paged_decode_attention_int8", rec_q.best, launches_q)):
-        err, peak = decode_check(tag, best)
-        (q, kp, vp, pt, sl), kw = best
-        kw = dict(kw)
-        kw.pop("use_kernel", None)
-        bsz, hkv, g, d = q.shape
-        n_tok = int(sl[:bsz].sum())
-        flops = 4.0 * g * d * hkv * n_tok
-        n_pages = int(((sl[:bsz] + kw["page_size"] - 1)
-                       // kw["page_size"]).sum())
-        kv_tok = 2 * hkv * d * kp.element_size()       # one token, K + V
-        nbytes = (n_tok * kv_tok
-                  + 2 * q.numel() * q.element_size() + bsz * 4 + n_pages * 4)
-        # the tensor-core route copies the rows [lo, len) of each sequence
-        # and nothing past len; lo = 0 without a window
-        fetched = n_tok * kv_tok
-        ms = time_ms(lambda: paged_decode_attention(q, kp, vp, pt, sl, **kw))
-        plain = time_ms(lambda: ref.paged_decode_attention_ref(
-            q, kp, vp, pt, sl, **kw))
-        b_ms, b_by = bound(nbytes, flops)
-        rows.append(dict(name=tag, shape=f"q {list(q.shape)} {q.dtype}, "
-                         f"pool {list(kp.shape)} {kp.dtype}, {n_tok} cached "
-                         f"tokens; kernel fetches {fetched} B of K/V, the "
-                         f"bound counts {n_tok * kv_tok} B",
-                         max_abs_err=err, max_abs_want=peak,
-                         ms=ms, plain_ms=plain,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                         library=None,
-                         launches=counts["paged_decode_attention"]))
+    rows.append(decode_row("paged_decode_attention",
+                           rec["paged_decode_attention"].best,
+                           launches["paged_decode_attention"]))
+    rows.append(decode_row("paged_decode_attention_int8", rec_q.best,
+                           launches_q["paged_decode_attention"]))
     print_rows(rows)
     return rows
+
+
+def decode_row(tag, best, n_launch) -> dict:
+    """:func:`decode_check` on a recorded ``paged_decode_attention`` call,
+    then the device times of kernel and plain version beside the bound:
+    each cached token's K and V once, q read and the output written once,
+    the lengths and the page-table entries."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    err, peak = decode_check(tag, best)
+    (q, kp, vp, pt, sl), kw = best
+    kw = dict(kw)
+    kw.pop("use_kernel", None)
+    bsz, hkv, g, d = q.shape
+    n_tok = int(sl[:bsz].sum())
+    flops = 4.0 * g * d * hkv * n_tok
+    n_pages = int(((sl[:bsz] + kw["page_size"] - 1)
+                   // kw["page_size"]).sum())
+    kv_tok = 2 * hkv * d * kp.element_size()       # one token, K + V
+    nbytes = (n_tok * kv_tok
+              + 2 * q.numel() * q.element_size() + bsz * 4 + n_pages * 4)
+    # the tensor-core route copies the rows [lo, len) of each sequence
+    # and nothing past len; lo = 0 without a window
+    fetched = n_tok * kv_tok
+    ms = time_ms(lambda: paged_decode_attention(q, kp, vp, pt, sl, **kw))
+    plain = time_ms(lambda: ref.paged_decode_attention_ref(
+        q, kp, vp, pt, sl, **kw))
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(name=tag, shape=f"q {list(q.shape)} {q.dtype}, "
+                f"pool {list(kp.shape)} {kp.dtype}, {n_tok} cached "
+                f"tokens; kernel fetches {fetched} B of K/V, the "
+                f"bound counts {n_tok * kv_tok} B",
+                max_abs_err=err, max_abs_want=peak,
+                ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                library=None, launches=n_launch)
 
 
 #: a 4,096-token qwen2-7b prefill: the shape where the tensor cores, not
@@ -2401,13 +2458,6 @@ def continuation_checks(rec, rec_pq, counts) -> list[dict]:
     q, the output, and each row's key/value pages up to its last real
     query, once (the kernel fetches a page once per query block; it prints
     those bytes too)."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.paged_prefill_attention import (
-        paged_prefill_attention,
-        pages_touched,
-        prefill_route,
-        query_block,
-    )
     rows = []
     served = {k: counts["radix"][k] + counts["fork"][k]
               for k in CONT_KERNELS}
@@ -2417,52 +2467,65 @@ def continuation_checks(rec, rec_pq, counts) -> list[dict]:
                           served["paged_copy_at"]))
 
     # paged_prefill_attention (bf16 pools, then int8 pools)
-    for tag, r, n_launch in (
-            ("paged_prefill_attention", rec["paged_prefill_attention"],
-             served["paged_prefill_attention"]),
-            ("paged_prefill_attention_int8", rec_pq,
-             counts["radix int8"]["paged_prefill_attention"])):
-        err, peak = prefill_check(tag, r)
-        (q, kp, vp, pt, starts), kw = r.best
-        kw = dict(kw)
-        kw.pop("use_kernel", None)
-        page = kw["page_size"]
-        b, s, hkv, g, d = q.shape
-        chunks = r.extra[:b].tolist()
-        st = starts[:b].tolist()
-        max_pages = pt.shape[1]
-        kv_row = page * hkv * d * 2 * kp.element_size()   # one page, K + V
-        needed = sum(min(-(-(x + c) // page), max_pages)
-                     for x, c in zip(st, chunks))
-        route = prefill_route(q, kp, vp, page)
-        fetched = sum(pages_touched(x, s, max_pages, page_size=page,
-                                    bq=query_block(g, route)) for x in st)
-        fetched_simt = sum(pages_touched(x, s, max_pages, page_size=page,
-                                         bq=query_block(g, "simt"))
-                           for x in st)
-        # q read and o written for the real chunk rows (padded rows are
-        # don't-care), each reached K/V page once, the starts and entries
-        nbytes = (2 * sum(chunks) * hkv * g * d * q.element_size()
-                  + needed * kv_row + b * 4 + needed * 4)
-        flops = 4.0 * d * g * hkv * attended_pairs(st, chunks)
-        ms = time_ms(lambda: paged_prefill_attention(q, kp, vp, pt, starts,
-                                                     **kw))
-        plain = time_ms(lambda: ref.paged_prefill_attention_ref(
-            q, kp, vp, pt, starts, **kw))
-        b_ms, b_by = bound(nbytes, flops)
-        rows.append(dict(name=tag, shape=f"q {list(q.shape)} {q.dtype}, "
-                         f"pool {list(kp.shape)} {kp.dtype}, starts {st}, "
-                         f"chunks {chunks}; kernel fetches "
-                         f"{fetched * kv_row} B of K/V (bq "
-                         f"{query_block(g, route)}; {fetched_simt * kv_row} B "
-                         f"at the CUDA-core bq {query_block(g, 'simt')}), "
-                         f"the bound counts {needed * kv_row} B",
-                         max_abs_err=err,
-                         max_abs_want=peak, ms=ms, plain_ms=plain,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                         library=None, launches=n_launch))
+    rows.append(prefill_row("paged_prefill_attention",
+                            rec["paged_prefill_attention"],
+                            served["paged_prefill_attention"]))
+    rows.append(prefill_row("paged_prefill_attention_int8", rec_pq,
+                            counts["radix int8"]["paged_prefill_attention"]))
     print_rows(rows)
     return rows
+
+
+def prefill_row(tag, r, n_launch) -> dict:
+    """:func:`prefill_check` on a recorded ``paged_prefill_attention``
+    call (a :class:`Recorder` that kept the chunk lengths), then the
+    device times of kernel and plain version beside the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_prefill_attention import (
+        paged_prefill_attention,
+        pages_touched,
+        prefill_route,
+        query_block,
+    )
+    err, peak = prefill_check(tag, r)
+    (q, kp, vp, pt, starts), kw = r.best
+    kw = dict(kw)
+    kw.pop("use_kernel", None)
+    page = kw["page_size"]
+    b, s, hkv, g, d = q.shape
+    chunks = r.extra[:b].tolist()
+    st = starts[:b].tolist()
+    max_pages = pt.shape[1]
+    kv_row = page * hkv * d * 2 * kp.element_size()   # one page, K + V
+    needed = sum(min(-(-(x + c) // page), max_pages)
+                 for x, c in zip(st, chunks))
+    route = prefill_route(q, kp, vp, page)
+    fetched = sum(pages_touched(x, s, max_pages, page_size=page,
+                                bq=query_block(g, route)) for x in st)
+    fetched_simt = sum(pages_touched(x, s, max_pages, page_size=page,
+                                     bq=query_block(g, "simt"))
+                       for x in st)
+    # q read and o written for the real chunk rows (padded rows are
+    # don't-care), each reached K/V page once, the starts and entries
+    nbytes = (2 * sum(chunks) * hkv * g * d * q.element_size()
+              + needed * kv_row + b * 4 + needed * 4)
+    flops = 4.0 * d * g * hkv * attended_pairs(st, chunks)
+    ms = time_ms(lambda: paged_prefill_attention(q, kp, vp, pt, starts,
+                                                 **kw))
+    plain = time_ms(lambda: ref.paged_prefill_attention_ref(
+        q, kp, vp, pt, starts, **kw))
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(name=tag, shape=f"q {list(q.shape)} {q.dtype}, "
+                f"pool {list(kp.shape)} {kp.dtype}, starts {st}, "
+                f"chunks {chunks}; kernel fetches "
+                f"{fetched * kv_row} B of K/V (bq "
+                f"{query_block(g, route)}; {fetched_simt * kv_row} B "
+                f"at the CUDA-core bq {query_block(g, 'simt')}), "
+                f"the bound counts {needed * kv_row} B",
+                max_abs_err=err,
+                max_abs_want=peak, ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                library=None, launches=n_launch)
 
 
 # ---------------------------------------------------------------------------
@@ -3418,7 +3481,7 @@ def moe_serve_phase(cfg, model, params) -> dict[str, int]:
     return main
 
 
-def moe_state(model, b: int, s: int, steps: int):
+def fresh_state(model, b: int, s: int, steps: int):
     """A fresh page-16 KV state with distinct frames for ``b`` rows of
     ``s`` prompt tokens and ``steps`` decode tokens (one scratch frame)."""
     import torch
@@ -3429,14 +3492,15 @@ def moe_state(model, b: int, s: int, steps: int):
                                 device=model.device).view(b, per))
 
 
-def moe_teacher_forced(model, params, tokens, lens, steps, forced=None):
+def teacher_forced(model, params, tokens, lens, steps, forced=None):
     """One prefill of ``tokens [B, S]`` and ``steps`` decode steps on a
     fresh state, each decode step fed ``forced[t]`` (or its own argmax);
     returns the logits of each call ``[steps + 1, B, V]`` (f32), the tokens
-    fed, and the expert ids of every ``router_topk`` call in order."""
+    fed, and the expert ids of every ``router_topk`` call in order (none
+    for a model without MoE layers)."""
     import torch
     from repro_torch.models import moe
-    st = moe_state(model, *tokens.shape, steps)
+    st = fresh_state(model, *tokens.shape, steps)
     ids, real = [], moe.router_topk
 
     def tap(p, x, k):
@@ -3459,11 +3523,11 @@ def moe_teacher_forced(model, params, tokens, lens, steps, forced=None):
 
 
 def logits_gap(a, b, a_ids, b_ids, n_moe: int) -> dict:
-    """How far two teacher-forced runs (:func:`moe_teacher_forced`) are
+    """How far two teacher-forced runs (:func:`teacher_forced`) are
     apart: each call's worst row error relative to that row's largest
     logit in ``b``, the share of (token, layer) expert sets alike, the
     layer calls fully alike, and the share alike by MoE layer (the mean
-    over its calls)."""
+    over its calls; all empty for a model without MoE layers)."""
     rel = ((a - b).abs().amax(-1) / b.abs().amax(-1)).amax(-1)
     alike = [float((x == y).all(-1).float().mean())
              for x, y in zip(a_ids, b_ids)]
@@ -3475,65 +3539,71 @@ def logits_gap(a, b, a_ids, b_ids, n_moe: int) -> dict:
                           for j in range(n_moe)])
 
 
-def log_gap(what: str, gap: dict) -> None:
-    log(f"moe logits ({what}, teacher forced): worst row error / row peak: "
-        f"prefill {gap['rel'][0]:.4g}, decode steps "
+def log_gap(tag: str, what: str, gap: dict) -> None:
+    experts = ""
+    if gap["total"]:
+        experts = (
+            f"; expert sets equal for {gap['same']:.0f} of {gap['total']} "
+            f"(token, layer) pairs ({100 * gap['same'] / gap['total']:.3f}%)"
+            f", {gap['calls']} of {gap['n_calls']} layer calls fully alike; "
+            "by MoE layer: "
+            + ", ".join(f"{100 * x:.1f}%" for x in gap["by_layer"]))
+    log(f"{tag} logits ({what}, teacher forced): worst row error / row "
+        f"peak: prefill {gap['rel'][0]:.4g}, decode steps "
         + ", ".join(f"{r:.4g}" for r in gap["rel"][1:])
-        + f"; expert sets equal for {gap['same']:.0f} of {gap['total']} "
-        f"(token, layer) pairs ({100 * gap['same'] / gap['total']:.3f}%), "
-        f"{gap['calls']} of {gap['n_calls']} layer calls fully alike; by MoE "
-        "layer: " + ", ".join(f"{100 * x:.1f}%" for x in gap["by_layer"])
-        + " (printed, not required)")
+        + experts + " (printed, not required)")
 
 
-def moe_logits_phase(cfg, model, params) -> float:
-    """The kernel path against the plain path (``use_kernels=False``, what
-    ``ServeConfig.use_ref_path`` serves) on the card in bf16, teacher
-    forced on the same tokens: one prefill of 4 x 256 tokens, then 8 decode
-    steps fed the kernel path's greedy tokens.  The witness that tells
-    rounding from a fault: both paths again in f32 on the same weights
-    (upcast; the CUDA-core routes, exact f32 sums), fed the same tokens.
-    Prints, for kernel vs plain in bf16 and in f32, and for the bf16 kernel
-    path and the bf16 plain path each against the f32 plain path, each
-    call's worst row error relative to that row's largest logit and the
-    share of (token, layer) expert sets alike; a measurement, not a gate.
-    Also counts the ``ragged_dot`` launches of one decode step (eager);
-    returns them."""
+def plain_of(model):
+    """The model's plain-path twin (``use_kernels=False``, what
+    ``ServeConfig.use_ref_path`` serves): a shallow copy."""
     import copy
+    twin = copy.copy(model)
+    twin.use_kernels = False
+    return twin
+
+
+def logits_phase(tag, cfg, model, params, b: int, s: int,
+                 steps: int = LOGIT_STEPS) -> dict[str, dict]:
+    """The kernel path against the plain path on the card in bf16, teacher
+    forced on the same tokens: one prefill of ``b`` x ``s`` tokens, then
+    ``steps`` decode steps fed the kernel path's greedy tokens.  The
+    witness that tells rounding from a fault: both paths again in f32 on
+    the same weights (upcast; the CUDA-core routes, exact f32 sums), fed
+    the same tokens.  Prints, for kernel vs plain in bf16 and in f32, and
+    for the bf16 kernel path and the bf16 plain path each against the f32
+    plain path, each call's worst row error relative to that row's largest
+    logit (and, for MoE, the share of (token, layer) expert sets alike); a
+    measurement, not a gate.  Returns the four gaps by name."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     rng = np.random.default_rng(9)
-    b, s, steps = 4, 256, LOGIT_STEPS
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(
         np.int32)).cuda()
     lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
     n_moe = sum(model.is_moe(i) for i in range(cfg.num_layers))
-
-    def plain_of(m):
-        m = copy.copy(m)
-        m.use_kernels = False
-        return m
-
-    k_logits, fed, k_ids = moe_teacher_forced(model, params, tokens, lens,
-                                              steps)
+    k_logits, fed, k_ids = teacher_forced(model, params, tokens, lens, steps)
     ops.reset_launch_counts()
-    p_logits, _, p_ids = moe_teacher_forced(plain_of(model), params, tokens,
-                                            lens, steps, forced=fed)
+    p_logits, _, p_ids = teacher_forced(plain_of(model), params, tokens,
+                                        lens, steps, forced=fed)
     require(sum(ops.launch_counts().values()) == 0,
-            "moe logits: the plain path launched a kernel")
+            f"{tag} logits: the plain path launched a kernel")
     model32 = build_model(dataclasses.replace(cfg, param_dtype="float32"),
                           device="cuda")
     params32 = to_device(params, torch.float32)
-    k32, _, k32_ids = moe_teacher_forced(model32, params32, tokens, lens,
-                                         steps, forced=fed)
-    p32, _, p32_ids = moe_teacher_forced(plain_of(model32), params32, tokens,
-                                         lens, steps, forced=fed)
+    log(f"{tag} logits: f32 weights on the card, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    k32, _, k32_ids = teacher_forced(model32, params32, tokens, lens,
+                                     steps, forced=fed)
+    p32, _, p32_ids = teacher_forced(plain_of(model32), params32, tokens,
+                                     lens, steps, forced=fed)
     del params32
     require(all(bool(torch.isfinite(x).all())
                 for x in (k_logits, p_logits, k32, p32)),
-            "moe logits: non-finite logits")
+            f"{tag} logits: non-finite logits")
+    gaps = {}
     for what, a, a_ids, ref_, ref_ids in (
             ("kernel vs plain path, bf16", k_logits, k_ids, p_logits, p_ids),
             ("kernel vs plain path, f32", k32, k32_ids, p32, p32_ids),
@@ -3541,13 +3611,27 @@ def moe_logits_phase(cfg, model, params) -> float:
              p32_ids),
             ("bf16 plain path vs f32 plain path", p_logits, p_ids, p32,
              p32_ids)):
-        log_gap(what, logits_gap(a, ref_, a_ids, ref_ids, n_moe))
+        gaps[what] = logits_gap(a, ref_, a_ids, ref_ids, n_moe)
+        log_gap(tag, what, gaps[what])
+    return gaps
+
+
+def moe_logits_phase(cfg, model, params) -> float:
+    """:func:`logits_phase` on granite-moe (4 x 256 tokens, 8 decode
+    steps), then the ``ragged_dot`` launches of one decode step (eager);
+    returns them."""
+    import torch
+    from repro_torch.kernels import ops
+    logits_phase("moe", cfg, model, params, 4, 256)
+    tokens = torch.zeros((4, 16), dtype=torch.int32, device="cuda")
+    lens = torch.full((4,), 16, dtype=torch.int32, device="cuda")
+    n_moe = sum(model.is_moe(i) for i in range(cfg.num_layers))
     # launches of one decode step on the kernel path, eager
     ops.reset_launch_counts()
-    moe_teacher_forced(model, params, tokens[:, :16], lens.clamp(max=16), 1)
+    teacher_forced(model, params, tokens, lens, 1)
     per_prefill = ops.launch_counts()["ragged_dot"]
     ops.reset_launch_counts()
-    moe_teacher_forced(model, params, tokens[:, :16], lens.clamp(max=16), 2)
+    teacher_forced(model, params, tokens, lens, 2)
     per_step = ops.launch_counts()["ragged_dot"] - per_prefill
     require(per_step == 3 * n_moe,
             f"moe: {per_step} ragged_dot launches a decode step, want "
@@ -3571,7 +3655,7 @@ def moe_decode_profile(cfg, model, params, steps: int = 8) -> None:
         np.int32)).cuda()
     lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
     logits, st = model.prefill(params, tokens, lens,
-                               moe_state(model, b, s, steps))
+                               fresh_state(model, b, s, steps))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3728,6 +3812,370 @@ def moe_phases() -> list[dict]:
     return moe_kernel_rows(cfg, launches, per_step)
 
 
+# ---------------------------------------------------------------------------
+# the VLM (qwen2-vl-7b) and audio (musicgen-large) families
+# ---------------------------------------------------------------------------
+
+
+#: the configs of the VLM and audio families
+FAMILY_ARCHS = ("qwen2-vl-7b", "musicgen-large")
+
+
+def reduced_family_check() -> None:
+    """The reduced qwen2-vl (M-RoPE, biases) and musicgen (4 codebooks:
+    ``[len, 4]`` prompts, ``[4]`` tokens a step) engines, f32 and 2
+    layers, on the card (graphs) against the same engines and weights on
+    the CPU: cold (preemption), int8 pools and the default policy (radix
+    hits), with identical greedy tokens, every counter (less
+    ``prefill_bytes_gathered``, which counts by route) and switch stats,
+    and the path's kernels launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch, reduced=True)
+        cpu_model = build_model(cfg, device="cpu")
+        cpu_params = cpu_model.init(0)
+        gpu_model = build_model(cfg, device="cuda")
+        gpu_params = to_device(cpu_params, "cuda")
+        tok = cpu_model.token_shape
+        cold = dict(page_size=4, num_pages=16, max_pages_per_seq=16,
+                    max_batch=3, prefix_cache=False, restore_patience=0)
+        cases = (
+            ("cold", ServeConfig(**cold), serve_workload(
+                cfg.vocab_size, n=7, lo=4, hi=13, max_new=12, seed=13,
+                tok=tok)),
+            ("int8", ServeConfig(**cold, kv_dtype="int8"), serve_workload(
+                cfg.vocab_size, n=7, lo=4, hi=13, max_new=12, seed=13,
+                tok=tok)),
+            ("default policy", ServeConfig(
+                page_size=4, num_pages=16, max_pages_per_seq=16,
+                max_batch=3), reduced_radix_workload(cfg.vocab_size, tok)),
+        )
+        for tag, scfg, reqs in cases:
+            ops.reset_launch_counts()
+            e_gpu, r_gpu, _ = run_engine(gpu_model, gpu_params, scfg, reqs)
+            launches = ops.launch_counts()
+            e_cpu, r_cpu, _ = run_engine(cpu_model, cpu_params, scfg, reqs)
+            c_cpu = dict(e_cpu.counters.counters)
+            c_gpu = dict(e_gpu.counters.counters)
+            for c in (c_cpu, c_gpu):
+                c.pop("prefill_bytes_gathered", None)
+            diff = {k: (c_cpu.get(k), c_gpu.get(k))
+                    for k in set(c_cpu) | set(c_gpu)
+                    if c_cpu.get(k) != c_gpu.get(k)}
+            require(not diff, f"reduced {arch} ({tag}) counters differ card "
+                              f"vs cpu: {diff}")
+            require(token_lists(r_cpu) == token_lists(r_gpu),
+                    f"reduced {arch} ({tag}) tokens differ card vs cpu")
+            require(e_gpu.stats()["switch_stats"]
+                    == e_cpu.stats()["switch_stats"],
+                    f"reduced {arch} ({tag}) switch stats differ")
+            require(all(np_shape(r.tokens) == (12,) + tok
+                        for r in r_gpu.values()),
+                    f"reduced {arch} ({tag}): a request's tokens are not "
+                    f"[12{', ' + str(tok[0]) if tok else ''}]")
+            for n in CONT_KERNELS if tag == "default policy" \
+                    else COLD_KERNELS:
+                require(launches[n] > 0,
+                        f"reduced {arch} ({tag}): {n} never launched")
+            if tag == "default policy":
+                require(c_gpu.get("prefix_hits", 0) > 0,
+                        f"reduced {arch}: no prefix hit")
+            else:
+                require(c_gpu.get("preemptions", 0) > 0,
+                        f"reduced {arch} ({tag}): no preemption")
+            log(f"check reduced {arch} engine ({tag}): card == cpu greedy "
+                f"tokens, all counters and switch stats; preemptions "
+                f"{c_gpu.get('preemptions', 0)}, prefix_hits "
+                f"{c_gpu.get('prefix_hits', 0)}; launches "
+                + json.dumps({k: v for k, v in launches.items() if v}))
+
+
+def np_shape(tokens) -> tuple:
+    import numpy as np
+    return np.shape(np.asarray(tokens))
+
+
+def family_full_model(arch: str):
+    """``arch`` at full width on the card, all its layers, random bf16
+    weights from seed 0."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch)                 # depth not cut
+    model = build_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    n_params = tree_numel(params)
+    log(f"{arch}: full width ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} kv of "
+        f"{cfg.head_dim} (G {cfg.q_per_kv}), d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}"
+        + (f" x {cfg.num_codebooks} codebooks" if model.token_shape else "")
+        + (f", M-RoPE sections {cfg.mrope_sections}"
+           if cfg.mrope_sections else "")
+        + f", bf16, {n_params / 1e9:.2f} B parameters) initialised on the "
+        f"card in {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB")
+    return cfg, model, params
+
+
+def tree_numel(p) -> int:
+    if isinstance(p, dict):
+        return sum(tree_numel(v) for v in p.values())
+    if isinstance(p, list):
+        return sum(tree_numel(v) for v in p)
+    return p.numel()
+
+
+def family_runs(cfg, model):
+    """``(tag, ServeConfig, prefix, requests)`` of a family's serve phase:
+    the dense path's cold workload (8 requests of 64-512 tokens, 32 new,
+    72 frames, radix off), for audio an int8 run of the short workload, and
+    the default policy on the radix workload (64 frames: preemptions and
+    restores).  Audio prompts are ``[len, K]`` codebook frames."""
+    from repro_torch.serve import ServeConfig
+    tag, tok = ("audio", model.token_shape) if model.token_shape else \
+        ("vlm", ())
+    scfg = ServeConfig(**SERVE)
+    runs = [(f"{tag} cold", scfg, None,
+             serve_workload(cfg.vocab_size, **WORKLOAD, tok=tok))]
+    if tok:
+        runs.append((f"{tag} int8", dataclasses.replace(scfg, kv_dtype="int8"),
+                     None, serve_workload(cfg.vocab_size, **SHORT, tok=tok)))
+    runs.append((f"{tag} radix", ServeConfig(**CONT), None,
+                 radix_workload(cfg.vocab_size, tok=tok)))
+    return runs
+
+
+def family_serve_phase(cfg, model, params, runs) -> dict[str, dict]:
+    """Each run with CUDA graphs and inside ``disable_graphs()``: identical
+    greedy tokens, counters, switch stats, launches and routes; decode
+    replays in the graph run only; every attention and copy launch on its
+    tensor-core or ``burst`` route (``flash_attention`` on ``wgmma``); one
+    copy launch a layer of every prefill; the path's kernels launched;
+    every request done with ``max_new`` tokens of the model's token shape
+    inside the vocabulary.  Then the cold run traced, graphs and eager.
+    Returns, by tag, the graph run's launches and counters, tok/s, TTFT
+    and TPOT p50, and the traced cold runs' splits."""
+    out = {}
+    for tag, scfg, prefix, reqs in runs:
+        runs_ = {}
+        for mode in ("graph", "eager"):
+            with PrefillTap(model) as tap:
+                runs_[mode] = served(model, params, scfg, reqs, prefix,
+                                     graphs=mode == "graph")
+                tap.require_copy_launches(f"{tag} {mode}",
+                                          runs_[mode]["launches"],
+                                          cfg.num_layers)
+        for mode, r in runs_.items():
+            report(f"{tag} {mode}", r["eng"], r["res"], r["dt"], CONT_KEYS)
+            log(f"{tag} {mode}: engine built in {r['build']:.2f}s")
+        g, e = runs_["graph"], runs_["eager"]
+        require_same(tag, g, e)
+        require(replays_of(g["replays"], "decode", "decode_multi") > 0
+                and e["replays"] == {},
+                f"{tag}: no decode replay in the graph run, or a replay in "
+                "the eager run")
+        require_tensor_core_routes(tag, g["launches"])
+        require(g["routes"]["flash_attention"] == {
+            "wgmma": g["launches"]["flash_attention"], "simt": 0},
+            f"{tag}: flash_attention off the tensor-core route: "
+            f"{g['routes']['flash_attention']}")
+        for n in COLD_KERNELS if not tag.endswith("radix") else CONT_KERNELS:
+            require(g["launches"][n] > 0, f"{tag}: {n} never launched")
+        want = (reqs[0].max_new_tokens,) + model.token_shape
+        require(all(r.status == "done" and np_shape(r.tokens) == want
+                    for r in g["res"].values())
+                and all(0 <= t < cfg.vocab_size for toks in
+                        g["tokens"].values() for t in flat(toks)),
+                f"{tag}: a request did not finish with {list(want)} tokens "
+                "inside the vocabulary")
+        c = g["counters"]
+        if tag.endswith("cold"):
+            require(c.get("preemptions", 0) > 0
+                    and g["switch"]["bytes_spilled"]
+                    == g["switch"]["bytes_restored"] > 0,
+                    f"{tag}: no preemption, or bytes spilled != restored")
+        if tag.endswith("int8"):
+            require(c.get("quant_dispatches", 0) > 0, f"{tag}: no int8 steps")
+        if tag.endswith("radix"):
+            require(c.get("prefix_hits", 0) > 0, f"{tag}: no prefix hit")
+            if model.token_shape:
+                require(c.get("preemptions", 0) > 0
+                        and c.get("restores", 0) > 0,
+                        f"{tag}: the pool never preempted and restored")
+        res = g["res"]
+        done = [r for r in res.values() if r.status == "done"]
+        out[tag] = dict(
+            launches=g["launches"], counters=c,
+            tok_s=sum(len(r.tokens) for r in res.values()) / g["dt"],
+            ttft=sorted(r.ttft for r in done)[len(done) // 2],
+            tpot=sorted(r.tpot for r in done)[len(done) // 2])
+        log(f"{tag}: graph == eager in greedy tokens, counters, switch "
+            f"stats, launches and routes; replays "
+            + json.dumps({f"{k}:{n}": v for (k, n), v in g["replays"].items()})
+            + "; launches " + json.dumps(g["launches"]) + "; routes "
+            + json.dumps(g["routes"]))
+        del runs_, g, e
+    tag, scfg, prefix, reqs = runs[0]
+    for mode in ("graph", "eager"):
+        out[tag][f"traced {mode}"] = traced_run(
+            f"{tag} {mode}", model, params, scfg, reqs, prefix,
+            graphs=mode == "graph")
+    return out
+
+
+def flat(toks) -> list:
+    """A request's tokens as one flat list of ints."""
+    import numpy as np
+    return np.asarray(toks).reshape(-1).tolist()
+
+
+def report_family(arch, model, out) -> None:
+    """The end-to-end line of each run (frames of K codebook tokens for
+    audio), with the card's name and power limit."""
+    unit = (f"frames of {model.token_shape[0]} tokens" if model.token_shape
+            else "tokens")
+    for tag, r in out.items():
+        traced = ""
+        if "traced graph" in r:
+            tg, te = r["traced graph"], r["traced eager"]
+            traced = (f"; traced cold: {tg['share']:.1f}% busy with graphs "
+                      f"({te['share']:.1f}% eager), "
+                      f"{tg['kernels_per_step']:.1f} kernels and "
+                      f"{tg['device_ms_per_step']:.2f} ms of kernel time per "
+                      "decode token-step")
+        log(f"{arch} {tag} [{CARD}]: {r['tok_s']:.1f} {unit}/s, TTFT p50 "
+            f"{r['ttft'] * 1e3:.1f} ms, TPOT p50 {r['tpot'] * 1e3:.2f} ms"
+            + traced)
+
+
+#: the stub vision prefix of the dense VLM serve check: ``N_VIS`` patch
+#: embeddings (``src/repro/launch/specs.py``), in a 512-token prompt
+N_VIS, VIS_PROMPT = 256, 512
+
+
+def vision_prefill_check(cfg, model, params) -> None:
+    """A direct ``prefill`` of 2 rows of 512 tokens whose first 256
+    positions are a stub vision prefix (precomputed patch embeddings,
+    seeded normal x 0.02, as the data pipeline draws them), through the
+    kernel path (one copy and one flash launch a layer, on their fast
+    routes) and the plain path: the worst row's logit gap as a share of
+    that row's peak, against the shift the prefix itself causes (the same
+    tokens without it).  A gap past 32 bf16 steps of the row's peak, or
+    not well below the prefix's own shift, fails."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(12)
+    b, s = 2, VIS_PROMPT
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32)).cuda()
+    lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    vis = torch.from_numpy((rng.normal(size=(b, N_VIS, cfg.d_model))
+                            * 0.02).astype(np.float32)).cuda()
+    ops.reset_launch_counts()
+    k_logits, _ = model.prefill(params, tokens, lens,
+                                fresh_state(model, b, s, 0),
+                                vision_embeds=vis)
+    launches, routes = ops.launch_counts(), ops.route_counts()
+    require(launches["paged_copy"] == launches["flash_attention"]
+            == cfg.num_layers
+            and routes["flash_attention"]["wgmma"] == cfg.num_layers
+            and routes["paged_copy"]["burst"] == cfg.num_layers,
+            f"vlm vision prefill: launches {launches}, routes {routes}")
+    p_logits, _ = plain_of(model).prefill(params, tokens, lens,
+                                          fresh_state(model, b, s, 0),
+                                          vision_embeds=vis)
+    t_logits, _ = model.prefill(params, tokens, lens,
+                                fresh_state(model, b, s, 0))
+    k, p, t = (x.float() for x in (k_logits, p_logits, t_logits))
+    require(all(bool(torch.isfinite(x).all()) for x in (k, p, t))
+            and k.shape == (b, cfg.vocab_size),
+            "vlm vision prefill: non-finite logits or a wrong shape")
+    peak = p.abs().amax(-1)
+    gap = float(((k - p).abs().amax(-1) / peak).max())
+    shift = float(((t - k).abs().amax(-1) / peak).min())
+    require(gap <= 32 * 2**-8 and gap < shift / 2,
+            f"vlm vision prefill: kernel vs plain gap {gap:.4g} of the row "
+            f"peak (limit {32 * 2**-8:.4g}, and below half the prefix's "
+            f"own shift {shift:.4g})")
+    log(f"vlm vision prefill ({b} x {s} tokens, the first {N_VIS} a stub "
+        f"vision prefix): kernel vs plain path worst row gap {gap:.4g} of "
+        f"the row peak; the prefix moves the logits by >= {shift:.4g} of "
+        f"the row peak; {cfg.num_layers} paged_copy (burst) and "
+        f"{cfg.num_layers} flash_attention (wgmma) launches [{CARD}]")
+
+
+def vlm_phases() -> None:
+    """qwen2-vl-7b at full width (28 layers, M-RoPE): the cold and radix
+    serve runs (graphs == eager, traced cold), the vision-prefix prefill,
+    and the kernel-vs-plain logits in bf16 and f32 (qwen2-7b's geometry:
+    Hkv 4, G 7, head_dim 128).  No kernel rows: its kernels run at the
+    dense path's shapes, which :func:`dense_phases` times."""
+    cfg, model, params = family_full_model("qwen2-vl-7b")
+    out = family_serve_phase(cfg, model, params, family_runs(cfg, model))
+    report_family("qwen2-vl-7b", model, out)
+    vision_prefill_check(cfg, model, params)
+    logits_phase("vlm", cfg, model, params, 2, 256)
+
+
+def audio_attention_checks(cfg, model, params, runs):
+    """The copy and attention kernels at musicgen's own recorded shapes
+    (Hkv 32, G 1, head_dim 64, page 16): the cold, int8 and radix runs and
+    the radix workload on int8 pools repeated, untimed, inside
+    ``disable_graphs()`` with :func:`record_inputs`, then
+    :func:`attention_checks` on the largest call of each.  Returns the
+    recorders."""
+    from repro_torch.serve import disable_graphs
+    cold, int8, radix = (run[1:] for run in runs)
+    # all 8 radix prompts (16 new): the first 4 hold no radix hit when
+    # their tails are frames of 4 codebooks
+    radix_int8 = (dataclasses.replace(radix[0], kv_dtype="int8"), None,
+                  radix_workload(cfg.vocab_size, max_new=16,
+                                 tok=model.token_shape))
+    with disable_graphs():      # the recorders read each call's inputs
+        rec, rec_q, rec_pq = record_inputs(model, params, cold, int8,
+                                           [radix], radix_int8)
+    require(all(r.best is not None for r in (*rec.values(), rec_q, rec_pq)),
+            "audio: a copy or attention kernel was never called while "
+            "recording")
+    attention_checks("audio", rec, rec_q, rec_pq)
+    return rec, rec_q, rec_pq
+
+
+def audio_phases() -> list[dict]:
+    """musicgen-large at full width (48 layers, 4 codebooks): the cold,
+    int8 and radix serve runs (graphs == eager, traced cold), the copy and
+    attention kernels held against their plain versions at its G 1
+    shapes, and the G 1 rows of both paged attention kernels (timed, with
+    the audio runs' launches); the weights are freed on return."""
+    cfg, model, params = family_full_model("musicgen-large")
+    runs = family_runs(cfg, model)
+    out = family_serve_phase(cfg, model, params, runs)
+    report_family("musicgen-large", model, out)
+    rec, rec_q, rec_pq = audio_attention_checks(cfg, model, params, runs)
+    cold, int8, radix = (out[tag]["launches"] for tag in
+                         ("audio cold", "audio int8", "audio radix"))
+    rows = [decode_row("paged_decode_attention_g1",
+                       rec["paged_decode_attention"].best,
+                       cold["paged_decode_attention"]),
+            decode_row("paged_decode_attention_int8_g1", rec_q.best,
+                       int8["paged_decode_attention"]),
+            prefill_row("paged_prefill_attention_g1",
+                        rec["paged_prefill_attention"],
+                        radix["paged_prefill_attention"])]
+    print_rows(rows)
+    log(f"audio: kernel launches on the serve runs [{CARD}]: cold "
+        + json.dumps(cold) + ", int8 " + json.dumps(int8) + ", radix "
+        + json.dumps(radix))
+    return rows
+
+
 def print_rows(rows) -> None:
     for r in rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -3792,6 +4240,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     quick = "--quick" in sys.argv[1:]
+    t0 = time.perf_counter()
     try:
         probe()
         build()
@@ -3799,6 +4248,7 @@ def main() -> int:
         reduced_wkv_checks()
         reduced_engine_check()
         reduced_moe_check()
+        reduced_family_check()
         reduced_router_check()
         reduced_rwkv_check()
         reduced_vm_checks()
@@ -3814,15 +4264,24 @@ def main() -> int:
         gc.collect()                   # free the rwkv6-7b weights first
         torch.cuda.empty_cache()
         rows += moe_phases()
+        gc.collect()                   # free the granite-moe weights first
+        torch.cuda.empty_cache()
+        vlm_phases()
+        gc.collect()                   # free the qwen2-vl-7b weights first
+        torch.cuda.empty_cache()
+        rows += audio_phases()
         gc.collect()
         torch.cuda.empty_cache()
         rows += vm_phases()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f}s "
+        f"[{CARD}]")
     kernels = []
     for r in rows:
-        source, replaces = KERNELS[r["name"].removesuffix("_int8")
+        source, replaces = KERNELS[r["name"].removesuffix("_g1")
+                                   .removesuffix("_int8")
                                    .removesuffix("_decode")
                                    .removesuffix("_f32")]
         kernels.append(dict(

@@ -18,7 +18,11 @@ the engines share one model and one weight set, each has its own pools,
 page table and CUDA graphs, and each is preloaded with the prefix.
 
 The model is the arch's reduced config unless ``--full`` asks for the
-published widths; ``--num-layers`` cuts depth only.  Recurrent families
+published widths; ``--num-layers`` cuts depth only.  An audio arch
+(``musicgen-large``) gets ``[plen, num_codebooks]`` codebook prompts, as
+in the JAX launcher; a VLM (``qwen2-vl-7b``) serves text prompts (the
+engine passes no vision embeddings, nor does the JAX engine).
+Recurrent families
 (``rwkv6-7b``, ``recurrentgemma-9b``) are refused before a model is built,
 as the JAX launcher refuses them: they decode through the model's own
 ``prefill`` / ``decode_step``.  ``--device cpu``
@@ -128,9 +132,12 @@ def main() -> None:
           f"{cfg.d_model}, {cfg.param_dtype}) on {device_name(model.device)}")
     if model.device.type == "cuda":
         build.build_all()          # nvcc at first use: keep it out of timing
+    # a prompt's trailing shape: [plen, K] codebook streams for audio
+    tok_shape = model.token_shape
     warm = Engine(model, params, serve_cfg)   # first-call costs, untimed
-    warm.submit(ServeRequest(prompt=np.zeros(args.page_size, np.int32),
-                             max_new_tokens=2))
+    warm.submit(ServeRequest(
+        prompt=np.zeros((args.page_size,) + tok_shape, np.int32),
+        max_new_tokens=2))
     warm.drain()
     warm.close()
     engines = [Engine(model, params, serve_cfg)
@@ -158,7 +165,8 @@ def main() -> None:
     for _ in range(args.requests):
         plen = int(rng.integers(args.prompt_len // 2, args.prompt_len + 1))
         front.submit(ServeRequest(
-            prompt=rng.integers(0, cfg.vocab_size, size=plen).astype(np.int32),
+            prompt=rng.integers(0, cfg.vocab_size,
+                                size=(plen,) + tok_shape).astype(np.int32),
             max_new_tokens=args.max_new_tokens, share_prefix=share,
         ))
     ctx = contextlib.nullcontext()

@@ -1,6 +1,6 @@
-"""Model zoo of the port: the GQA transformer (dense and MoE families) and
-the RWKV-6 family (later slices add the VLM, audio and RG-LRU
-families)."""
+"""Model zoo of the port: the GQA transformer (dense, MoE, VLM and audio
+families) and the RWKV-6 family (a later slice adds the RG-LRU
+family)."""
 
 from typing import Any
 
@@ -11,8 +11,6 @@ from repro_torch.models.transformer import PagedKVState, TransformerLM
 
 #: the slice of the port that brings each family not ported yet
 _LATER = {
-    "vlm": "the VLM slice",
-    "audio": "the audio slice",
     "hybrid_rglru": "the RG-LRU slice",
 }
 

@@ -1,4 +1,5 @@
-"""Dense-transformer layers in PyTorch: norms, RoPE, GQA projections, MLP.
+"""Dense-transformer layers in PyTorch: norms, RoPE and M-RoPE, GQA
+projections, MLP.
 
 Conventions (those of ``src/repro/models/layers.py``):
   * params are plain dicts of tensors; weights keep the JAX ``[in, out]``
@@ -99,6 +100,29 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
     return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
 
 
+def mrope_tables(positions3: torch.Tensor, head_dim: int, theta: float,
+                 sections: tuple[int, int, int]):
+    """M-RoPE (qwen2-vl) tables ``[B, S, 1, D/2]`` in f32 for
+    ``positions3 [3, B, S]`` (temporal, height, width streams): the D/2
+    frequency slots are split into t/h/w sections, each slot taking the
+    angle of the stream its section names
+    (``src/repro/models/layers.py:86-110``).  The sections are contiguous,
+    so the selection is three slices (no index tensor to upload, so a
+    CUDA graph can capture it).  Text tokens carry t == h == w, which
+    reduces to :func:`rope_tables`."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not cover "
+                         f"head_dim // 2 = {head_dim // 2}")
+    inv = rope_freqs(head_dim, theta, positions3.device)    # [D/2]
+    ang_thw = positions3[..., None].float() * inv           # [3, B, S, D/2]
+    parts, off = [], 0
+    for stream, n in enumerate(sections):
+        parts.append(ang_thw[stream, ..., off:off + n])
+        off += n
+    ang = torch.cat(parts, dim=-1)                          # [B, S, D/2]
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
 def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     """Split-half rotation (``src/repro/models/layers.py:72-83``) of
     ``x [..., S, H, D]`` by precomputed tables."""
@@ -111,6 +135,13 @@ def apply_rope(x: torch.Tensor,            # [..., S, H, D]
                positions: torch.Tensor,    # [..., S]
                theta: float) -> torch.Tensor:
     return rotate(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def apply_mrope(x: torch.Tensor,             # [B, S, H, D]
+                positions3: torch.Tensor,    # [3, B, S]
+                theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    return rotate(x, *mrope_tables(positions3, x.shape[-1], theta, sections))
 
 
 def qkv_project(params: Params, x: torch.Tensor, cfg):

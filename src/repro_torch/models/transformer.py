@@ -1,7 +1,8 @@
-"""Decoder-only GQA transformer LM (dense and MoE) — the serve paths, in
-PyTorch.
+"""Decoder-only GQA transformer LM (dense, MoE, VLM and audio) — the serve
+paths, in PyTorch.
 
-Port of the dense and MoE families of ``src/repro/models/transformer.py``:
+Port of the dense, MoE, VLM and audio families of
+``src/repro/models/transformer.py``:
   * params are plain dicts of tensors; the JAX package stacks the repeated
     superblock of ``moe_every`` layers along a leading axis
     (``params["blocks"]["sub0" | "sub1"]``), the port keeps one dict per
@@ -13,6 +14,13 @@ Port of the dense and MoE families of ``src/repro/models/transformer.py``:
     drop-free through the grouped-product kernel, a longer one per row
     with capacity factor 2.0 (JAX's rule, decided by the static shapes, so
     per captured program);
+  * VLM (qwen2-vl): M-RoPE, whose three position streams are identical on
+    the serve paths (text positions), and a stub vision front end:
+    ``prefill`` takes precomputed patch embeddings (``vision_embeds``)
+    that overwrite the first positions of the embedded prompt;
+  * audio (musicgen): tokens ``[..., K]`` over K EnCodec codebooks, a
+    per-codebook embedding summed over the codebooks and a per-codebook
+    head, so logits are ``[..., K, V]`` and a decode lane samples K tokens;
   * weights keep the JAX ``[in, out]`` layout and are applied as ``x @ W``
     (no transpose in the bridge);
   * serving reads/writes the KV cache through the paged virtual-memory
@@ -65,12 +73,12 @@ class PagedKVState(NamedTuple):
 RAGGED_MAX_TOKENS = 2048
 #: capacity factor of the per-row sorted dispatch of longer serve calls
 SERVE_CAPACITY_FACTOR = 2.0
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 class TransformerLM:
-    """GQA transformer (the ``dense`` and ``moe`` families) on one
-    device."""
+    """GQA transformer (the ``dense``, ``moe``, ``vlm`` and ``audio``
+    families) on one device."""
 
     KV_INT8_SCALE = 24.0  # fixed-point scale (values are post-norm, O(1))
 
@@ -78,10 +86,9 @@ class TransformerLM:
                  use_kernels: bool = True, kv_dtype: str = "native"):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not served by TransformerLM: the "
-                "VLM and audio families and RG-LRU come in later slices "
-                "of the PyTorch port (ROADMAP.md); RWKV-6 is RWKV6LM "
-                "(build_model picks it)")
+                f"family {cfg.family!r} is not served by TransformerLM: "
+                "RG-LRU comes in a later slice of the PyTorch port "
+                "(ROADMAP.md); RWKV-6 is RWKV6LM (build_model picks it)")
         if kv_dtype not in ("native", "int8"):
             raise ValueError(f"kv_dtype must be 'native' or 'int8', got "
                              f"{kv_dtype!r}")
@@ -97,6 +104,10 @@ class TransformerLM:
         if cfg.num_layers % self.moe_every:
             raise ValueError(f"num_layers {cfg.num_layers} is not a multiple "
                              f"of moe_every {self.moe_every}")
+        #: a token's trailing shape: ``(K,)`` codebooks for multi-codebook
+        #: audio (tokens ``[..., K]``), ``()`` otherwise
+        self.token_shape = ((cfg.num_codebooks,) if cfg.family == "audio"
+                            and cfg.num_codebooks > 1 else ())
 
     def is_moe(self, layer: int) -> bool:
         """Whether layer ``layer`` has an MoE FFN."""
@@ -121,13 +132,22 @@ class TransformerLM:
                 "mlp": (M.moe_init(gen, cfg, dt) if self.is_moe(li) else
                         L.swiglu_init(gen, cfg.d_model, cfg.d_ff, dt)),
             })
+        books = cfg.num_codebooks if self.token_shape else 0
+
+        def table(init, d_in, d_out):
+            # audio: one per codebook, stacked (MusicGen over EnCodec
+            # streams): embed [K, V, D], head [K, D, V]
+            if not books:
+                return init(gen, d_in, d_out, dt)
+            return torch.stack([init(gen, d_in, d_out, dt)
+                                for _ in range(books)])
         p: Params = {
-            "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
+            "embed": table(L.embed_init, cfg.vocab_size, cfg.d_model),
             "blocks": blocks,
             "ln_f": L.rmsnorm_init(cfg.d_model, dt, self.device),
         }
-        if not cfg.tie_embeddings:
-            p["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size, dt)
+        if books or not cfg.tie_embeddings:
+            p["head"] = table(L.dense_init, cfg.d_model, cfg.vocab_size)
         return p
 
     # ------------------------------------------------------------------
@@ -135,9 +155,17 @@ class TransformerLM:
     # ------------------------------------------------------------------
 
     def embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        if self.token_shape:
+            # tokens [..., K]: the sum of the per-codebook rows
+            books = torch.arange(self.cfg.num_codebooks,
+                                 device=tokens.device)
+            per_book = params["embed"][books, tokens.long()]   # [..., K, D]
+            return per_book.sum(dim=-2).to(self.dtype)
         return params["embed"][tokens.long()]
 
     def logits_fn(self, params: Params, h: torch.Tensor) -> torch.Tensor:
+        if self.token_shape:
+            return torch.einsum("...d,kdv->...kv", h, params["head"])
         if self.cfg.tie_embeddings:
             return h @ params["embed"].T
         return h @ params["head"]
@@ -174,8 +202,16 @@ class TransformerLM:
         )
 
     def _rope(self, positions: torch.Tensor):
-        """RoPE tables for ``positions``, computed once per serve call."""
-        return L.rope_tables(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        """RoPE tables for ``positions [B, S]``, computed once per serve
+        call; M-RoPE tables where the config has sections, with the
+        positions as all three streams (the serve paths carry text
+        positions, as in JAX)."""
+        cfg = self.cfg
+        if cfg.mrope_sections:
+            pos3 = positions.expand(3, *positions.shape)
+            return L.mrope_tables(pos3, cfg.head_dim, cfg.rope_theta,
+                                  cfg.mrope_sections)
+        return L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
     def _block_serve_qkv(self, p, x, rope):
         """Shared q/k/v + rope for serve paths. x [B, T, D]."""
@@ -206,18 +242,24 @@ class TransformerLM:
 
     @torch.no_grad()
     def prefill(self, params: Params, tokens: torch.Tensor,
-                prompt_lens: torch.Tensor, state: PagedKVState
+                prompt_lens: torch.Tensor, state: PagedKVState,
+                vision_embeds: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, PagedKVState]:
-        """Run padded prompts ``tokens [B, S]`` (true lengths
-        ``prompt_lens [B]`` int32), write KV through the page table (burst
-        copies, in place).  Returns (last-token logits [B, V], state with
-        seq_lens = prompt_lens)."""
+        """Run padded prompts ``tokens [B, S]`` (``[B, S, K]`` audio; true
+        lengths ``prompt_lens [B]`` int32), write KV through the page table
+        (burst copies, in place).  ``vision_embeds [B, Nvis, D]``
+        (precomputed patch embeddings, the stub vision front end) replace
+        the first ``Nvis`` embedded positions.  Returns (last-token logits
+        [B, V] or [B, K, V], state with seq_lens = prompt_lens)."""
         cfg = self.cfg
         b, s = tokens.shape[:2]
         page = state.page_size
         hkv, hd = cfg.num_kv_heads, cfg.head_dim
         rope = self._rope(torch.arange(s, device=tokens.device).expand(b, s))
         x = self.embed(params, tokens)
+        if vision_embeds is not None:
+            nvis = vision_embeds.shape[1]
+            x = torch.cat([vision_embeds.to(x.dtype), x[:, nvis:]], dim=1)
         for li, block_p in enumerate(params["blocks"]):
             q, k, v = self._block_serve_qkv(block_p, x, rope)
             # unit-stride burst write of K and V through the page table
@@ -353,8 +395,9 @@ class TransformerLM:
         Lane ``i`` is active at inner step ``t`` iff ``t < steps_left[i]``;
         inactive lanes get their page-table row masked to the invalid
         sentinel, which routes their KV write to the scratch row and
-        freezes their ``seq_lens``.  Returns ``(token_block [horizon, B],
-        state)``; block rows at ``t >= steps_left[i]`` are scratch."""
+        freezes their ``seq_lens``.  Returns ``(token_block [horizon, B]``
+        (``[horizon, B, K]`` audio)``, state)``; block rows at ``t >=
+        steps_left[i]`` are scratch."""
         ptab = state.page_table
         toks, seq_lens = tokens, state.seq_lens
         block = []
@@ -365,7 +408,9 @@ class TransformerLM:
                 params, toks, state._replace(page_table=masked,
                                              seq_lens=seq_lens))
             new_tok = sample(logits, gen, temperature, greedy).to(toks.dtype)
-            toks = torch.where(active, new_tok, toks)
+            # the lane mask along the lane axis, whatever a token's shape
+            lane = active.reshape((-1,) + (1,) * (toks.dim() - 1))
+            toks = torch.where(lane, new_tok, toks)
             seq_lens = ns.seq_lens
             block.append(new_tok)
         return torch.stack(block), state._replace(seq_lens=seq_lens)
@@ -392,12 +437,13 @@ def params_from_jax(np_params: Params, cfg: ModelConfig, device) -> Params:
     moe_every`` layers along a leading axis under
     ``params["blocks"]["sub0"]`` ... ``["sub{m-1}"]``; the port keeps one
     dict per layer, layer ``i`` from ``sub{i % m}[i // m]``.  Weights keep
-    their ``[in, out]`` layout (experts ``[E, in, out]``).  Dense and MoE
-    families (:func:`repro_torch.models.params_from_jax` dispatches by
-    family)."""
+    their ``[in, out]`` layout (experts ``[E, in, out]``; audio's stacked
+    per-codebook ``embed [K, V, D]`` and ``head [K, D, V]`` carry across as
+    they are).  The dense, MoE, VLM and audio families
+    (:func:`repro_torch.models.params_from_jax` dispatches by family)."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r}: not the dense or "
-                                  "MoE family's pytree")
+        raise NotImplementedError(f"family {cfg.family!r}: not a "
+                                  "TransformerLM family's pytree")
     m = cfg.moe_every if cfg.family == "moe" else 1
     dev = resolve_device(device)
 

@@ -27,11 +27,13 @@ one model and one weight set) and drives each through the same
 the router's N=1 instance.  On the card the executor captures its step
 programs as CUDA graphs when it is built (each decode horizon, the K=1
 step, the bucket programs) and replays them;
-``serve.executor.disable_graphs()`` runs the same steps eagerly.  The engine refuses, at construction, every config
-that would reach an unported path (a serve mesh, the VLM and audio
-families), and recurrent families, which the JAX engine does not serve
-either: they decode through their model's own ``prefill`` /
-``decode_step``.
+``serve.executor.disable_graphs()`` runs the same steps eagerly.  The
+dense, MoE, VLM and audio families serve (audio requests carry ``[len,
+K]`` codebook prompts and get ``[K]`` tokens a step).  The engine
+refuses, at construction, a serve mesh (not ported yet), AOT buckets
+with an audio model (the JAX engine fails to build them) and recurrent
+families, which the JAX engine does not serve either: they decode
+through their model's own ``prefill`` / ``decode_step``.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from typing import Any, Callable
 import numpy as np
 
 from repro_torch.core import CostModel, PerfCounters, VirtualMemory, VMemConfig
-from repro_torch.models.transformer import FAMILIES, TransformerLM
+from repro_torch.models.transformer import TransformerLM
 from repro_torch.serve.api import ServeRequest, ServeResult, to_internal
 from repro_torch.serve.detokenize import AsyncDetokenizer
 from repro_torch.serve.executor import Executor
@@ -83,13 +85,10 @@ def check_ported(model: TransformerLM, cfg: ServeConfig) -> None:
     if cfg.serve_mesh not in (None, "off"):
         refused.append(f"serve_mesh={cfg.serve_mesh!r} (sharded executor: "
                        "later slice)")
-    if model.cfg.family not in FAMILIES:
-        refused.append(f"family {model.cfg.family!r} (the VLM and audio "
-                       "families come in later slices)")
     if refused:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(refused)
-            + ".  Serve with serve_mesh='off' and a dense or MoE model.")
+            + ".  Serve with serve_mesh='off'.")
 
 
 class Engine:

@@ -14,9 +14,10 @@ place.
     not by rewriting table rows on the host;
   * decode runs in fused K-step horizons (``decode_multi``): K chained
     ``decode_step``s with on-device sampling and per-lane retire masking,
-    then ONE host transfer of the ``[K, B]`` token block, so the host
-    round-trip and the page-table delta sync are paid once per horizon
-    (``host_syncs`` / ``decode_horizon`` counters);
+    then ONE host transfer of the ``[K, B]`` token block (``[K, B, C]``
+    for audio's C codebooks: every token buffer carries the model's token
+    shape), so the host round-trip and the page-table delta sync are paid
+    once per horizon (``host_syncs`` / ``decode_horizon`` counters);
   * compiled serve programs, the counterpart of JAX's jitted steps and
     AOT executables: each decode horizon on the scheduler's ladder, the
     K=1 step and, with ``ServeConfig.aot_buckets``, a prefill and a
@@ -41,7 +42,10 @@ place.
     wrappers) or ``ref_path_dispatches`` (the explicit plain-version hatch,
     ``ServeConfig.use_ref_path``).
 
-Not ported yet: the serve mesh, which the engine refuses.
+Not ported yet: the serve mesh, which the engine refuses.  AOT buckets
+take 1-D token prompts only, so an audio model with ``aot_buckets`` is
+refused when the executor is built (the JAX engine fails there too, while
+it compiles its bucket programs).
 """
 
 from __future__ import annotations
@@ -243,6 +247,13 @@ class Executor:
     def __init__(self, model: TransformerLM, params: Any, cfg: ServeConfig,
                  vmem: VirtualMemory, cost: CostModel | None = None,
                  counters: PerfCounters | None = None):
+        if cfg.aot_buckets and model.token_shape:
+            raise ValueError(
+                f"{model.cfg.name}: aot_buckets take 1-D token prompts, and "
+                f"this model's tokens carry {model.token_shape[0]} codebooks "
+                "each; the JAX engine fails to build its bucket programs for "
+                "such a model, so the port refuses the combination (serve "
+                "audio without aot_buckets)")
         if cfg.kv_dtype != model.kv_dtype:
             # quantized-pool twin FIRST: the pools below allocate its dtype
             model = _kv_dtype_model(model, cfg.kv_dtype)
@@ -272,13 +283,15 @@ class Executor:
         #: ("decode_multi", K) for K on the horizon ladder, and the bucket
         #: programs ("prefill" / "continue", bucket)
         vec = ((cfg.max_batch,), torch.int32)
+        #: one token per lane: ``[max_batch]``, ``[max_batch, C]`` audio
+        toks = ((cfg.max_batch,) + model.token_shape, torch.int32)
         self._programs: dict[tuple[str, int], StepProgram] = {
             ("decode", 1): StepProgram(dict(
-                tokens=vec, pre_lens=vec,
+                tokens=toks, pre_lens=vec,
                 active=((cfg.max_batch,), torch.bool)), self.device)}
         for k in horizon_ladder(cfg.max_horizon):
             self._programs[("decode_multi", k)] = StepProgram(
-                dict(tokens=vec, pre_lens=vec, steps_left=vec), self.device)
+                dict(tokens=toks, pre_lens=vec, steps_left=vec), self.device)
         #: the bucket programs of THIS engine, (kind, bucket) -> program,
         #: bound at build (``ServeConfig.aot_buckets``)
         self._aot: dict[tuple[str, int], StepProgram] = {}
@@ -341,12 +354,15 @@ class Executor:
     def _select_aot(self, kind: str, reqs: list[Request]) -> int | None:
         """The bucket of this batch, or ``None`` to run the eager step.
         Hits and misses are counted only when bucketing is configured; a
-        miss is a batch whose burst-aligned width exceeds every bucket."""
+        miss is a batch whose burst-aligned width exceeds every bucket (or
+        whose prompts are not 1-D, which the buckets were not built for)."""
         if not self._aot:
             return None
         page = self.cfg.page_size
         smax = -(-max(len(r.prompt) for r in reqs) // page) * page
-        bucket = select_bucket(smax, self.cfg.aot_buckets)
+        bucket = None
+        if not reqs[0].prompt.shape[1:]:     # 1-D token prompts only
+            bucket = select_bucket(smax, self.cfg.aot_buckets)
         if bucket is None:
             self.counters.inc("aot_misses")
             return None
@@ -360,7 +376,8 @@ class Executor:
     def _body(self, key: tuple[str, int]):
         """The step function of program ``key`` over its inputs; reads and
         writes the persistent pools and page table in place and returns
-        the logits (``[B, V]``) or the token block (``[K, B]``)."""
+        the logits (``[B, V]``; ``[B, C, V]`` audio) or the token block
+        (``[K, B]``; ``[K, B, C]`` audio)."""
         kind, n = key
         if kind == "decode_multi":
             return functools.partial(self._decode_multi_body, horizon=n)
@@ -481,7 +498,8 @@ class Executor:
 
     def _pad_prompt_batch(self, reqs: list[Request],
                           bucket: int | None = None):
-        """Burst-aligned ``[B, smax]`` prompt matrix + true lengths (numpy)
+        """Burst-aligned ``[B, smax]`` prompt matrix (``[B, smax, C]``
+        audio) + true lengths (numpy)
         + the batch's page-table rows (on the device) — shared by cold and
         forked admission, so padding and slot lookup cannot drift between
         them.
@@ -500,7 +518,7 @@ class Executor:
             self.counters.inc("bucket_pad_tokens",
                               self.cfg.max_batch * bucket - nrows * smax)
             smax, rows = bucket, self.cfg.max_batch
-        tokens = np.zeros((rows, smax), np.int32)
+        tokens = np.zeros((rows, smax) + reqs[0].prompt.shape[1:], np.int32)
         for i, r in enumerate(reqs):
             tokens[i, : len(r.prompt)] = r.prompt
         lens = np.zeros((rows,), np.int32)
@@ -543,7 +561,8 @@ class Executor:
     def decode_multi(self, plan: DecodePlan) -> np.ndarray:
         """Fused K-step decode horizon: ``plan.horizon`` chained decode
         steps with on-device sampling and per-lane retire masking, then the
-        whole ``[K, B]`` token block in one host transfer."""
+        whole ``[K, B]`` (``[K, B, C]`` audio) token block in one host
+        transfer."""
         key = ("decode_multi", plan.horizon)
         if key not in self._programs:
             raise ValueError(f"horizon {plan.horizon} is not on the ladder "

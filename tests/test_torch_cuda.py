@@ -1714,3 +1714,134 @@ def test_graph_capture_of_moe_dispatches(gen, dispatch):
         want = call()
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the VLM and audio families: musicgen's G 1 shapes, the reduced engines
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_decode_attention_mma_musicgen_shape(gen, quant):
+    """musicgen-large's decode shape (Hkv 32, G 1: one query row of the
+    m16 tile live, D 64, page 16) at the serve batch: lengths past a
+    page, an empty lane, a 1-token lane and a long one that splits; each
+    output row within four bf16 steps of its largest value, on the
+    tensor-core route, bf16 and int8 pools."""
+    b, hkv, g, d, page, maxp = 4, 32, 1, 64, 16, 36
+    frames = b * maxp
+    lens = [page * 9 + 5, 0, 1, page * maxp - 3]
+    q = torch.randn((b, hkv, g, d), generator=gen, device="cuda").bfloat16()
+    kp, vp = pools(gen, frames, page, hkv, d, quant)
+    table = mapped_table(gen, b, maxp, frames, [-(-n // page) for n in lens])
+    sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kvs = 1 / 24 if quant else None
+    ops.reset_launch_counts()
+    got = ops.paged_decode_attention(q, kp, vp, table, sl, page_size=page,
+                                     kv_scale=kvs)
+    assert ops.route_counts()["paged_decode_attention"] == {
+        "mma": 1, "simt": 0}
+    want = ref.paged_decode_attention_ref(q, kp, vp, table, sl,
+                                          page_size=page, kv_scale=kvs)
+    torch.cuda.synchronize()
+    rows_within(got, want)
+    assert float(got[1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_prefill_attention_wgmma_musicgen_shape(gen, quant):
+    """musicgen-large's continuation shape (Hkv 32, G 1, D 64, page 16:
+    128 query tokens a block): a radix hit's chunk of 321 tokens after 128
+    cached ones, a mid-page start with a 17-token chunk and a zero start;
+    q the strided view of the projection; each real row within four bf16
+    steps of its largest value, on the tensor-core route, bf16 and int8
+    pools."""
+    from repro_torch.kernels.paged_prefill_attention import query_block
+    b, hkv, g, d, page, maxp = 3, 32, 1, 64, 16, 36
+    frames = b * maxp
+    s = 336
+    starts_l, chunks = [128, 261, 0], [321, 17, 200]
+    assert query_block(g, "wgmma") == 128
+    q = torch.randn((b, s, hkv * g * d), generator=gen,
+                    device="cuda").bfloat16().view(b, s, hkv, g, d)
+    kp, vp = pools(gen, frames, page, hkv, d, quant)
+    table = mapped_table(gen, b, maxp, frames, [
+        min(-(-(st + c) // page), maxp) for st, c in zip(starts_l, chunks)])
+    starts = torch.tensor(starts_l, dtype=torch.int32, device="cuda")
+    kvs = 1 / 24 if quant else None
+    ops.reset_launch_counts()
+    got = ops.paged_prefill_attention(q, kp, vp, table, starts,
+                                      page_size=page, kv_scale=kvs)
+    assert ops.route_counts()["paged_prefill_attention"] == {
+        "wgmma": 1, "simt": 0}
+    want = ref.paged_prefill_attention_ref(q, kp, vp, table, starts,
+                                           page_size=page, kv_scale=kvs)
+    torch.cuda.synchronize()
+    for i, c in enumerate(chunks):
+        rows_within(got[i, :c], want[i, :c])
+
+
+def family_workload(cfg, tok, kind):
+    """The reduced cold or shared-base workload with prompts of ``tok``
+    trailing shape (``(K,)``: audio frames of K codebook tokens)."""
+    import numpy as np
+    from repro_torch.serve import ServeRequest
+    rng = np.random.default_rng(13)
+    v = cfg.vocab_size
+    if kind == "radix":
+        base = rng.integers(0, v, size=(12,) + tok).astype(np.int32)
+        return [ServeRequest(req_id=i, max_new_tokens=12, prompt=np.
+                             concatenate([base[:8], rng.integers(
+                                 0, v, size=(int(rng.integers(4, 14)),)
+                                 + tok).astype(np.int32)]))
+                for i in range(7)]
+    return [ServeRequest(req_id=i, max_new_tokens=12, prompt=rng.integers(
+        0, v, size=(int(rng.integers(4, 14)),) + tok).astype(np.int32))
+        for i in range(7)]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "musicgen-large"])
+@pytest.mark.parametrize("case", ["cold", "int8", "radix"])
+def test_family_engine_graphs_equal_eager_and_cpu(arch, case):
+    """The reduced VLM (M-RoPE) and audio (``[B, 4]`` tokens through the
+    step programs' buffers, the captured horizons' ``[K, B, 4]`` blocks)
+    engines, f32, on the card with graphs, inside ``disable_graphs()`` and
+    on the CPU: identical greedy tokens, counters (less
+    ``prefill_bytes_gathered``, which counts by route) and switch stats;
+    graph and eager identical in launches and routes, decode replayed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig, disable_graphs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, reduced=True)
+    cpu = build_model(cfg, device="cpu")
+    cpu_params = cpu.init(0)
+    card = build_model(cfg, device="cuda")
+    params = on(cpu_params, "cuda")
+    kw = REDUCED_WARM if case == "radix" else REDUCED_COLD
+    extra = {"int8": dict(kv_dtype="int8")}.get(case, {})
+    scfg = ServeConfig(**kw, **extra)
+    reqs = family_workload(cfg, card.token_shape, case)
+
+    def tokens(run):
+        return {i: np.asarray(t).tolist() for i, t in run[0].items()}
+    graph = serve_counted(card, params, scfg, None, reqs)
+    with disable_graphs():
+        eager = serve_counted(card, params, scfg, None, reqs)
+    plain = serve_counted(cpu, cpu_params, scfg, None, reqs)
+    assert tokens(graph) == tokens(eager) == tokens(plain)
+    assert graph[1:5] == eager[1:5]
+    for c in (graph[1], plain[1]):
+        c.pop("prefill_bytes_gathered", None)
+    assert graph[1:3] == plain[1:3]
+    assert all(np.shape(t) == (12,) + card.token_shape
+               for t in graph[0].values())
+    assert eager[5] == {}
+    assert sum(n for (k, _), n in graph[5].items()
+               if k.startswith("decode")) > 0
+    for n in ("paged_prefill_attention",) if case == "radix" else (
+            "paged_copy", "flash_attention", "paged_decode_attention"):
+        assert graph[3][n] > 0

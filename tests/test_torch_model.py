@@ -298,11 +298,15 @@ class TestServePaths:
 
 
 def test_non_dense_family_names_its_slice():
+    """RG-LRU is the one family still to come and names its slice; the VLM
+    and audio families build as ``TransformerLM``s."""
     cfg = get_config("recurrentgemma-9b", reduced=True)
     with pytest.raises(NotImplementedError, match="RG-LRU slice"):
         build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="VLM slice"):
-        build_model(get_config("qwen2-vl-7b", reduced=True), device="cpu")
+    for arch, family in (("qwen2-vl-7b", "vlm"), ("musicgen-large", "audio")):
+        model = build_model(get_config(arch, reduced=True), device="cpu")
+        assert type(model).__name__ == "TransformerLM"
+        assert model.cfg.family == family
 
 
 def test_paged_state_layout(models):
