@@ -32,7 +32,9 @@ printing its lines; any failure exits non-zero before the last line:
    (identical tokens, statuses, router and replica counters, switch
    stats), and the rescue of a stranded request, native and int8, card
    against CPU; ``ragged_dot`` in f32 against its plain version (empty
-   groups, one group holding every row, rows past the last group) and
+   groups, one group holding every row, rows past the last group), in
+   bf16 on its ``"mma"`` and ``"wgmma"`` routes (groups ending inside a
+   tile, launched twice for bit-identical outputs) and
    the reduced granite-moe and llama4 engines (f32; llama4 routes every
    other layer) on the card against the CPU, cold, int8 and default
    policy, with identical tokens and counters; the reduced qwen2-vl
@@ -129,8 +131,10 @@ printing its lines; any failure exits non-zero before the last line:
    tokens: one prefill of 2,560 tokens takes the per-row sorted dispatch,
    the rest the ragged one; a preemption), an int8 run and a radix run,
    each with CUDA graphs and inside ``disable_graphs()``, identical in
-   tokens, counters, switch stats, launches and routes (``ragged_dot`` on
-   its tensor-core route); the count of each dispatch, tok/s, TTFT, TPOT;
+   tokens, counters, switch stats, launches and routes (``ragged_dot``'s
+   launches per route as ``ragged_route`` implies for each ragged
+   dispatch: decode on ``"mma"``, prefills on ``"wgmma"``, both
+   printed); the count of each dispatch, tok/s, TTFT, TPOT;
    the cold run traced in both modes (busy share, kernels per decode
    token-step); the three runs and the radix workload on int8 pools
    repeated untimed inside ``disable_graphs()`` with the recorders of 9,
@@ -147,8 +151,10 @@ printing its lines; any failure exits non-zero before the last line:
    ``ragged_dot`` launches per decode token-step; ``ragged_dot`` against
    its plain version at the full-width shapes (decode 32 rows, a
    2,048-token prefill of 16,384 rows, both products, an empty expert,
-   one expert holding every row; ``bf16_rows_check``) and timed beside
-   its plain version, ``torch._grouped_mm`` and its bound;
+   one expert holding every row; each on its route, ``bf16_rows_check``,
+   rows past the last group zero, two launches bit-identical) and timed
+   beside its plain version, ``torch._grouped_mm`` and its bound, the
+   route printed at each shape;
 13. VLM: the granite-moe weights are freed, qwen2-vl-7b at full width
    (28 layers, qwen2-7b's shapes, M-RoPE sections (16, 24, 24), bf16,
    random weights, depth not cut) serves the cold workload of 4 and a
@@ -188,7 +194,10 @@ printing its lines; any failure exits non-zero before the last line:
    four streams (unit stride, stride 4, random with repeats, sorted
    random) are gathered bit-identical through the kernel, the plain
    version and the coalesced route, with each stream's translation counts
-   and 16-entry DTLB report (host numpy); the random stream is timed;
+   and 16-entry DTLB report (host numpy); the random stream is timed
+   beside ``index_select`` in 11 batches of each, taken in turns, each
+   batch printed with both medians and spreads and whether the kernel is
+   behind the call beyond the spread;
 16. the paper's matmul: n = 45, 90, 181 in f32 and qwen2-7b's gate
    projection for a 2,048-token prefill (bf16 [2048, 3584] @ [3584,
    18944] -> bf16) through ``ops.matmul`` with the launch counts zeroed
@@ -312,18 +321,32 @@ def time_ms(fn, n: int = 50, reps: int = 5) -> float:
     """Device time of one call of ``fn`` with a cold L2: CUDA events around
     ``n`` back-to-back calls, each after a 128 MB write that evicts the L2,
     less the same writes alone; median over ``reps`` batches."""
+    return statistics.median(paired_batches((fn,), n, reps)[0])
+
+
+def paired_batches(fns, n: int = 50, reps: int = 5) -> list[list[float]]:
+    """Per-batch device times of one call of each of ``fns``, as
+    :func:`time_ms` takes them: ``reps`` batches of each, taken in turns
+    (a b, b a, a b, ...) so a drift of the card falls on all alike, each
+    less the median of the L2-evicting writes alone."""
     flush = _flush_buffer()
 
-    def flushed():
-        flush.zero_()
-        fn()
+    def flushed(fn):
+        def call():
+            flush.zero_()
+            fn()
+        return call
 
     def flush_only():
         flush.zero_()
 
-    both = statistics.median(_batch_ms(flushed, n) for _ in range(reps))
+    both = [[] for _ in fns]
+    for i in range(reps):
+        order = range(len(fns)) if i % 2 == 0 else reversed(range(len(fns)))
+        for j in order:
+            both[j].append(_batch_ms(flushed(fns[j]), n))
     alone = statistics.median(_batch_ms(flush_only, n) for _ in range(reps))
-    return (both - alone) / n
+    return [[(b - alone) / n for b in bs] for bs in both]
 
 
 def max_err(a, b) -> float:
@@ -2787,14 +2810,14 @@ def rwkv_profile(model, params, tokens, steps: int = 8) -> None:
     print_profile(prof, wall, top=8)
 
 
-def kernel_share(prof, needle: str) -> tuple[float, int, float]:
+def kernel_share(prof, *needles: str) -> tuple[float, int, float]:
     """Device milliseconds, launches and percent of all device time of the
-    traced kernels whose name holds ``needle``."""
+    traced kernels whose name holds one of ``needles``."""
     from torch.autograd import DeviceType
     from repro_torch.launch.serve import _device_us
     rows = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
     busy = sum(_device_us(e) for e in rows)
-    mine = [e for e in rows if needle in e.key]
+    mine = [e for e in rows if any(n in e.key for n in needles)]
     us = sum(_device_us(e) for e in mine)
     return us / 1e3, sum(e.count for e in mine), 100 * us / max(busy, 1e-9)
 
@@ -3103,10 +3126,20 @@ def gather_phase(launches) -> list[dict]:
     distinct_rows = int(torch.unique(p).numel())
     distinct_pages = int(torch.unique(vpn).numel())
     nbytes = (distinct_rows + n) * w * 2 + 4 * n + 4 * distinct_pages
-    ms = time_ms(lambda: paged_gather(pool, row, p, page_size=page))
+    k_ms, l_ms = paired_batches(
+        (lambda: paged_gather(pool, row, p, page_size=page),
+         lambda: flat.index_select(0, flat_rows)), reps=GATHER_BATCHES)
+    ms, lib = statistics.median(k_ms), statistics.median(l_ms)
     plain = time_ms(lambda: ref.paged_gather_ref(pool, row, p,
                                                  page_size=page))
-    lib = time_ms(lambda: flat.index_select(0, flat_rows))
+    log("gather random: per-batch ms (50 calls a batch, taken in turns), "
+        f"kernel {' '.join(f'{t:.5f}' for t in k_ms)}; index_select "
+        f"{' '.join(f'{t:.5f}' for t in l_ms)}; kernel median {ms:.5f} "
+        f"spread {min(k_ms):.5f}-{max(k_ms):.5f}, index_select median "
+        f"{lib:.5f} spread {min(l_ms):.5f}-{max(l_ms):.5f}: the kernel is "
+        + ("behind the call beyond the spread" if min(k_ms) > max(l_ms)
+           else "ahead of the call beyond the spread" if max(k_ms) < min(l_ms)
+           else "level with the call within the spread"))
     coal_ms = time_ms(lambda: ops.paged_gather_coalesced(pool, row, p,
                                                          page_size=page))
     b_ms, b_by = bound(nbytes, 0)
@@ -3120,6 +3153,11 @@ def gather_phase(launches) -> list[dict]:
                  plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                  library_ms=lib, library="index_select on precomputed rows",
                  launches=launches["paged_gather"])]
+
+
+#: batches of the random gather and of ``index_select``, each timed in
+#: turns, for the spread of both
+GATHER_BATCHES = 11
 
 
 #: qwen2-7b's gate projection for a 2,048-token prefill (d_model 3584,
@@ -3257,7 +3295,8 @@ MOE_ARCHS = ("granite-moe-1b-a400m", "llama4-maverick-400b-a17b")
 def reduced_moe_check() -> None:
     """``ragged_dot`` against its plain version at reduced f32 shapes (the
     CUDA-core route: empty groups, one group holding every row, rows past
-    the last group), then reduced granite-moe and llama4 (f32, 2 layers;
+    the last group) and in bf16 on both tensor-core routes (``"mma"``,
+    ``"wgmma"``), then reduced granite-moe and llama4 (f32, 2 layers;
     llama4 routes in layer 1 only) engines on the card against the same
     engines and weights on the CPU: cold (preemption), int8 pools and the
     default policy (radix hits, partial restores) with identical greedy
@@ -3285,6 +3324,31 @@ def reduced_moe_check() -> None:
     log(f"check reduced: ragged_dot f32 (simt) with empty groups, one group "
         f"holding every row and rows past the last group within 1e-5 of "
         f"the largest output (largest |err| {worst:.3g})")
+    from repro_torch.kernels.ragged_dot import ragged_route
+    for m, k, n, sizes, route in (
+            (70, 64, 72, [10, 0, 50, 0], "mma"),
+            (40, 128, 64, [3, 0, 0, 5, 9, 0, 20, 2], "mma"),
+            (600, 64, 136, [100, 300, 0, 150], "wgmma"),
+            (300, 192, 256, [0, 0, 300, 0], "wgmma")):
+        xs = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        w = (torch.randn((len(sizes), k, n), generator=gen, device="cuda")
+             / k ** 0.5).bfloat16()
+        gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        require(ragged_route(xs, w) == route,
+                f"ragged_dot: route {ragged_route(xs, w)} at M = {m}")
+        ops.reset_launch_counts()
+        got, again = ops.ragged_dot(xs, w, gs), ops.ragged_dot(xs, w, gs)
+        require(ops.route_counts()["ragged_dot"][route] == 2,
+                f"ragged_dot: off its {route} route")
+        bf16_rows_check(f"ragged_dot {route} M {m}", got,
+                        ref.ragged_dot_ref(xs, w, gs))
+        require(torch.equal(got, again) and not got[sum(sizes):].any(),
+                f"ragged_dot {route} M {m}: two launches differ, or rows "
+                "past the last group are not zero")
+    log("check reduced: ragged_dot bf16 on mma and wgmma (groups ending "
+        "inside a tile, N not a multiple of the tile, rows past the last "
+        "group) within four bf16 steps of each row's peak, bit-identical "
+        "twice")
     for arch in MOE_ARCHS:
         cfg = get_config(arch, reduced=True)
         cpu_model = build_model(cfg, device="cpu")
@@ -3335,25 +3399,37 @@ def reduced_moe_check() -> None:
 
 class DispatchTap:
     """Within ``with``: counts the MoE dispatches of each kind (calls of
-    ``moe_apply_ragged`` and ``moe_apply_sorted_rows`` by the model) and
-    the largest token count each saw.  A graph replay calls no Python, so
-    only eager runs (and captures) are seen."""
+    ``moe_apply_ragged`` and ``moe_apply_sorted_rows`` by the model), the
+    largest token count each saw, and the ``ragged_dot`` launches that
+    ``ragged_route`` implies for the ragged ones (three a dispatch, on the
+    route of its ``[tokens x k, d_model]`` rows).  A graph replay calls no
+    Python, so only eager runs (and captures) are seen."""
 
     NAMES = ("moe_apply_ragged", "moe_apply_sorted_rows")
 
     def __enter__(self):
+        from repro_torch.kernels.ragged_dot import ROUTES
         from repro_torch.models import moe
         self.mod, self.calls = moe, dict.fromkeys(self.NAMES, 0)
         self.tokens = dict.fromkeys(self.NAMES, 0)
+        self.routes = dict.fromkeys(ROUTES, 0)
         self.saved = {n: getattr(moe, n) for n in self.NAMES}
         for name, fn in self.saved.items():
             setattr(moe, name, self._counted(name, fn))
         return self
 
     def _counted(self, name, fn):
+        import torch
+        from repro_torch.kernels.ragged_dot import ragged_route
+
         def counted(p, x, **kw):
             self.calls[name] += 1
-            self.tokens[name] = max(self.tokens[name], x.numel() // x.shape[-1])
+            tokens = x.numel() // x.shape[-1]
+            self.tokens[name] = max(self.tokens[name], tokens)
+            if name == "moe_apply_ragged":
+                rows = torch.empty((tokens * kw["k"], x.shape[-1]),
+                                   dtype=x.dtype, device="meta")
+                self.routes[ragged_route(rows, p["w_up"])] += 3
             return fn(p, x, **kw)
         return counted
 
@@ -3374,6 +3450,9 @@ MOE_SERVE = dict(page_size=16, num_pages=130, max_pages_per_seq=48,
 MOE_WORKLOAD = dict(n=8, lo=256, hi=640, max_new=32, seed=0)
 #: the MoE path's kernels on the cold run
 MOE_KERNELS = COLD_KERNELS + ("ragged_dot",)
+#: the device functions of ``ragged_dot``'s routes (``csrc/ragged_dot.cu``)
+RAGGED_KERNELS = ("ragged_mma_kernel", "ragged_wgmma_kernel",
+                  "ragged_simt_kernel")
 
 
 def moe_full_model():
@@ -3412,15 +3491,18 @@ def moe_runs(cfg):
              radix_workload(cfg.vocab_size)))
 
 
-def moe_serve_phase(cfg, model, params) -> dict[str, int]:
+def moe_serve_phase(cfg, model, params) -> tuple[dict, dict]:
     """granite-moe-1b-a400m at full width through the engine: the cold,
     int8 and radix runs each with CUDA graphs and inside
     ``disable_graphs()``, identical in greedy tokens, counters, switch
     stats, kernel launches and routes; every kernel of the path launched
     (``ragged_dot`` on its tensor-core route, the paged attention kernels
     and copies on theirs); both MoE dispatches counted in the eager cold
-    run.  Then the cold run traced, graphs and eager.  Returns the launch
-    counts of the cold graph run (the main path)."""
+    run; ``ragged_dot``'s launches per route in the eager run equal what
+    ``ragged_route`` implies for its ragged dispatches (decode on
+    ``"mma"``, prefills of 128 tokens and more on ``"wgmma"``).  Then the
+    cold run traced, graphs and eager.  Returns the launch counts and the
+    route counts of the cold graph run (the main path)."""
     main = None
     for tag, scfg, prefix, reqs in moe_runs(cfg):
         runs = {}
@@ -3428,7 +3510,8 @@ def moe_serve_phase(cfg, model, params) -> dict[str, int]:
             with DispatchTap() as tap:
                 runs[mode] = served(model, params, scfg, reqs, prefix,
                                     graphs=mode == "graph")
-            runs[mode]["dispatch"] = (dict(tap.calls), dict(tap.tokens))
+            runs[mode]["dispatch"] = (dict(tap.calls), dict(tap.tokens),
+                                      dict(tap.routes))
         for mode, r in runs.items():
             report(f"{tag} {mode}", r["eng"], r["res"], r["dt"], CONT_KEYS)
             log(f"{tag} {mode}: engine built in {r['build']:.2f}s")
@@ -3442,17 +3525,19 @@ def moe_serve_phase(cfg, model, params) -> dict[str, int]:
         for n in MOE_KERNELS if tag != "moe radix" else (
                 CONT_KERNELS + ("ragged_dot",)):
             require(g["launches"][n] > 0, f"{tag}: {n} never launched")
-        require(g["routes"]["ragged_dot"] == {
-            "mma": g["launches"]["ragged_dot"], "simt": 0},
-            f"{tag}: ragged_dot off its tensor-core route: "
-            f"{g['routes']['ragged_dot']}")
+        calls, tokens, implied = e["dispatch"]
+        require(e["routes"]["ragged_dot"] == implied
+                and implied["mma"] > 0 and implied["simt"] == 0
+                and (implied["wgmma"] > 0 or tag == "moe radix"),
+                f"{tag}: ragged_dot launches by route "
+                f"{e['routes']['ragged_dot']}, the route rule implies "
+                f"{implied}")
         require(all(r.status == "done" for r in g["res"].values())
                 and all(len(r.tokens) == reqs[0].max_new_tokens
                         and all(0 <= t < cfg.vocab_size for t in r.tokens)
                         for r in g["res"].values()),
                 f"{tag}: a request did not finish, or a token is outside "
                 "the vocabulary")
-        calls, tokens = e["dispatch"]
         log(f"{tag}: graph == eager in greedy tokens, counters, switch "
             f"stats, launches and routes; MoE dispatches in the eager run: "
             f"ragged {calls['moe_apply_ragged']} (largest "
@@ -3461,8 +3546,11 @@ def moe_serve_phase(cfg, model, params) -> dict[str, int]:
             f"{tokens['moe_apply_sorted_rows']} tokens); launches "
             + json.dumps(g["launches"]) + "; routes "
             + json.dumps(g["routes"]))
+        log(f"{tag}: ragged_dot launches by route as the rule implies: "
+            f"{implied['mma']} decode-shape (mma), {implied['wgmma']} "
+            f"prefill-shape (wgmma)")
         if tag == "moe cold":
-            main = g["launches"]
+            main = g["launches"], g["routes"]
             require(calls["moe_apply_sorted_rows"] > 0
                     and tokens["moe_apply_sorted_rows"] > 2048
                     and calls["moe_apply_ragged"] > 0,
@@ -3668,7 +3756,7 @@ def moe_decode_profile(cfg, model, params, steps: int = 8) -> None:
     log(f"moe profile: {steps} eager decode steps of {b} lanes (device time "
         "by kernel; divide by the steps for one token-step):")
     print_profile(prof, wall, top=15)
-    ms, count, share = kernel_share(prof, "ragged_mma_kernel")
+    ms, count, share = kernel_share(prof, *RAGGED_KERNELS)
     log(f"moe profile: ragged_dot {ms / steps:.3f} ms and {count / steps:.0f} "
         f"launches per decode token-step, {share:.1f}% of device time")
 
@@ -3711,19 +3799,23 @@ def grouped_mm(xs, w, sizes):
     return None, "; ".join(errors)
 
 
-def moe_kernel_rows(cfg, launches, per_step) -> list[dict]:
+def moe_kernel_rows(cfg, routes, per_step) -> list[dict]:
     """``ragged_dot`` against its plain version at granite-moe's full-width
-    shapes (bf16, tensor-core route): decode rows (4 lanes x 8 = 32) and a
-    2,048-token prefill (16,384 rows) for the up/gate product (1024 ->
-    512) and the down product (512 -> 1024), an expert left empty, one
-    expert holding every row; each held by ``bf16_rows_check``.  Then the
-    device times of kernel, plain version and ``torch._grouped_mm`` beside
-    the bound: the bytes of xs, of the touched experts' weights and of the
-    output over HBM bandwidth, or 2 M K N over the bf16 tensor-core peak,
-    whichever is longer."""
+    shapes: decode rows (4 lanes x 8 = 32) and a 2,048-token prefill
+    (16,384 rows) for the up/gate product (1024 -> 512) and the down
+    product (512 -> 1024), every expert but one touched at decode, one
+    expert holding every row; each on the route ``ragged_route`` picks
+    (decode ``"mma"``, prefill ``"wgmma"``), held by ``bf16_rows_check``
+    with the rows past the last group zero, and launched twice for
+    bit-identical outputs.  Then the device times of kernel, plain version
+    and ``torch._grouped_mm`` beside the bound: the bytes of xs, of the
+    touched experts' weights and of the output over HBM bandwidth, or 2 M
+    K N over the bf16 tensor-core peak, whichever is longer.  Returns the
+    decode and prefill up/gate rows, with the cold run's launches on
+    their routes (``routes``)."""
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.ragged_dot import ragged_dot
+    from repro_torch.kernels.ragged_dot import ragged_dot, ragged_route
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
     m_dec = MOE_SERVE["max_batch"] * cfg.experts_per_token
     m_pre = 2048 * cfg.experts_per_token
@@ -3743,12 +3835,21 @@ def moe_kernel_rows(cfg, launches, per_step) -> list[dict]:
     for name, what, m, k, n, sizes in shapes:
         xs, w, gs = moe_operands(gen, m, k, n, e, cfg.experts_per_token,
                                  sizes)
+        route = ragged_route(xs, w)
+        require(route == ("mma" if m == m_dec else "wgmma"),
+                f"{name}: route {route} at M = {m}")
         ops.reset_launch_counts()
         got = ops.ragged_dot(xs, w, gs)
-        require(ops.route_counts()["ragged_dot"] == {"mma": 1, "simt": 0},
-                f"{name}: off the tensor-core route")
+        again = ops.ragged_dot(xs, w, gs)
+        require(ops.route_counts()["ragged_dot"] == {
+            **dict.fromkeys(routes["ragged_dot"], 0), route: 2},
+            f"{name}: off its {route} route")
         want = ref.ragged_dot_ref(xs, w, gs)
         err, peak = bf16_rows_check(name, got, want)
+        require(torch.equal(got, again),
+                f"{name}: two launches on the same operands differ")
+        require(not got[int(gs.sum()):].any(),
+                f"{name}: rows past the last group are not zero")
         touched = int((gs > 0).sum())
         nbytes = (m * k + touched * k * n + m * n) * 2 + e * 4
         b_ms, b_by = bound(nbytes, 2.0 * m * k * n)
@@ -3761,15 +3862,20 @@ def moe_kernel_rows(cfg, launches, per_step) -> list[dict]:
             lib_err = max_err(lib(), want)
             lib_ms = time_ms(lib)
             layout += f", |err| vs plain {lib_err:.3g}"
+        log(f"ragged_dot {what}: route {route}, kernel {ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, {b_ms / ms:.0%} of it), plain "
+            f"{plain_ms:.4f} ms, torch._grouped_mm "
+            + ("-" if lib_ms is None else f"{lib_ms:.4f} ms") + " [" + CARD
+            + "]")
         rows.append(dict(
             name=name, shape=f"{what}: xs [{m}, {k}] @ w [{e}, {k}, {n}] "
-            f"bf16, {touched} experts touched",
+            f"bf16, {touched} experts touched, route {route}",
             max_abs_err=err, max_abs_want=peak, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             library=f"torch._grouped_mm ({layout})",
-            launches=launches["ragged_dot"] if name == "ragged_dot"
-            else None))
-        del xs, w, gs, got, want
+            launches=routes["ragged_dot"][route]
+            if name in ("ragged_dot", "ragged_dot_prefill") else None))
+        del xs, w, gs, got, again, want
     print_rows(rows)
     dec = rows[0]
     log(f"kernel ragged_dot: {per_step} launches per decode token-step "
@@ -3777,7 +3883,7 @@ def moe_kernel_rows(cfg, launches, per_step) -> list[dict]:
         f"{dec['ms'] / dec['bound_ms']:.2f}x its bound; the whole decode "
         f"step's grouped products {per_step // 3} x (2 up/gate + 1 down) "
         f"~{per_step // 3 * (2 * dec['ms'] + rows[1]['ms']):.3f} ms")
-    return rows[:1]
+    return rows[:1] + rows[2:3]
 
 
 def moe_attention_checks(cfg, model, params) -> None:
@@ -3805,11 +3911,11 @@ def moe_phases() -> list[dict]:
     comparison, a traced decode, and the ``ragged_dot`` rows; the weights
     are freed on return."""
     cfg, model, params = moe_full_model()
-    launches = moe_serve_phase(cfg, model, params)
+    _, routes = moe_serve_phase(cfg, model, params)
     moe_attention_checks(cfg, model, params)
     per_step = moe_logits_phase(cfg, model, params)
     moe_decode_profile(cfg, model, params)
-    return moe_kernel_rows(cfg, launches, per_step)
+    return moe_kernel_rows(cfg, routes, per_step)
 
 
 # ---------------------------------------------------------------------------
@@ -4281,6 +4387,7 @@ def main() -> int:
     kernels = []
     for r in rows:
         source, replaces = KERNELS[r["name"].removesuffix("_g1")
+                                   .removesuffix("_prefill")
                                    .removesuffix("_int8")
                                    .removesuffix("_decode")
                                    .removesuffix("_f32")]

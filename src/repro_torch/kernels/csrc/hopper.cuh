@@ -1,8 +1,8 @@
 // Hopper building blocks of the tensor-core kernels (matmul.cu,
-// flash_attention.cu, paged_prefill_attention.cu): TMA tensor maps encoded
-// on the host, mbarriers, the TMA tile load, proxy fences and named
-// barriers, wgmma shared-memory descriptors and instructions, and
-// setmaxnreg.  Every tile lives in shared memory in the 128-byte swizzle
+// flash_attention.cu, paged_prefill_attention.cu, ragged_dot.cu): TMA
+// tensor maps encoded on the host, mbarriers, the TMA tile load, proxy
+// fences and named barriers, wgmma shared-memory descriptors and
+// instructions, and setmaxnreg.  Every tile lives in shared memory in the 128-byte swizzle
 // that TMA writes (CU_TENSOR_MAP_SWIZZLE_128B) and wgmma reads (layout type
 // 1): rows of 128 bytes, 8-row atoms of 1024 bytes, each atom 1024-aligned.
 

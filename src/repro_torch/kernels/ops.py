@@ -85,8 +85,9 @@ def route_counts() -> dict[str, dict[str, int]]:
     ``matmul_route``; ``flash_attention``: ``flash_route``;
     ``paged_decode_attention``: ``decode_route``;
     ``paged_prefill_attention``: ``prefill_route``; ``paged_copy`` and
-    ``paged_copy_at``: ``copy_route``; ``ragged_dot``:
-    ``ragged_route``)."""
+    ``paged_copy_at``: ``copy_route``; ``ragged_dot``: ``ragged_route``,
+    ``"mma"`` for bf16 decode shapes, ``"wgmma"`` for bf16 prefills,
+    ``"simt"`` for f32)."""
     return {name: dict(fn.routes) for name, fn in KERNELS.items()
             if hasattr(fn, "routes")}
 

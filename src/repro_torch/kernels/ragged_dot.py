@@ -9,19 +9,28 @@ that itself, so this replaces no Pallas kernel.
 
 The group sizes are computed on the device inside a CUDA graph (the
 decode horizons, the K=1 step and the bucket programs are captured), so
-the kernel reads them from device memory and its grid is static in M:
-``ceil(M / 64) + E`` row tiles, each block finding its group and rows
-from the sizes and exiting when past the last tile (``csrc/ragged_dot.cu``).
-Two kernels, picked by :func:`ragged_route` before the launch:
+the kernels read them from device memory and the grid is static in the
+shapes: ``ceil(M / BM) + E`` row tiles times the column tiles, each block
+finding its group and rows with one warp's scan of the sizes and exiting
+before any load when past the last tile (``csrc/ragged_dot.cu``).  Three
+kernels, picked by :func:`ragged_route` before the launch from the dtype
+and the static shapes only:
 
-* ``"mma"``: bf16 on the tensor cores (``mma.sync`` m16n8k16, 64 x 64
-  tiles, a 4-stage ``cp.async`` ring of K slabs);
+* ``"mma"``: bf16 with fewer than :data:`WGMMA_ROWS` rows per expert on
+  average (decode): a stream of the touched experts' weights, 32 x 64
+  tiles so their strips spread over every SM, TMA boxes into a 4-stage
+  mbarrier ring (32 KB of weights in flight a block, 4 blocks a SM),
+  ``mma.sync`` m16n8k16 consumers;
+* ``"wgmma"``: bf16 with more (prefill): 128 x 128 tiles of one group,
+  TMA into a 6-stage ring, a producer warpgroup and two consumer
+  warpgroups of ``wgmma`` with w read MN-major (``matmul.cu``'s design);
 * ``"simt"``: f32 (true f32 FMAs: the reduced f32 configs hold parity with
   an f32 dot).
 
-bf16 operands the tensor-core kernel cannot address (K = 0, K or N not a
-multiple of 8, bases or strides off 16 bytes) are refused: the serve path
-never makes one.
+No route splits K, so two launches on the same operands agree bit for
+bit.  bf16 operands the tensor-core kernels cannot address (K = 0, K or N
+not a multiple of 8, bases or strides off 16 bytes) are refused: the
+serve path never makes one.
 """
 
 from __future__ import annotations
@@ -31,9 +40,14 @@ import torch
 from repro_torch.kernels import build
 
 _ELEM = (torch.float32, torch.bfloat16)
-ROUTES = ("mma", "simt")
-#: rows and columns of both kernels' output tile
-BM = BN = 64
+ROUTES = ("mma", "wgmma", "simt")
+#: rows and columns of each route's output tile
+TILES = {"mma": (32, 64), "wgmma": (128, 128), "simt": (64, 64)}
+#: bf16 takes ``"wgmma"`` from this many rows per expert on average: on
+#: the H100 the two routes cross between 24 and 32 (M 768 and 1,024 over
+#: 32 experts at K 1024, N 512)
+WGMMA_ROWS = 32
+_CODES = {"simt": 0, "mma": 1, "wgmma": 2}
 
 
 def check_ragged_dot(xs, w, group_sizes) -> None:
@@ -63,17 +77,24 @@ def check_ragged_dot(xs, w, group_sizes) -> None:
                 "N multiples of 8, and 16-byte-aligned bases and strides "
                 f"expected, got K {k}, N {n}, strides {xs.stride()} and "
                 f"{w.stride()}")
-    if xs.shape[0] >= 1 << 26 or -(-w.shape[2] // BN) > 65535:
-        raise ValueError(f"M = {xs.shape[0]} or N = {w.shape[2]} too large")
+    bm, bn = TILES[ragged_route(xs, w)]
+    m, e, n = xs.shape[0], w.shape[0], w.shape[2]
+    if (m >= 1 << 26 or -(-n // 64) > 65535
+            or (-(-m // bm) + e) * -(-n // bn) >= 1 << 31):
+        raise ValueError(f"M = {m} or N = {n} too large")
     devs = {t.device for t in (xs, w, group_sizes)}
     if len(devs) != 1:
         raise ValueError(f"all operands must share one device, got {devs}")
 
 
 def ragged_route(xs, w) -> str:
-    """Which kernel a call on ``xs``, ``w`` launches: ``"mma"`` for bf16
-    operands, ``"simt"`` for f32.  A pure function of the dtype."""
-    return "mma" if xs.dtype == torch.bfloat16 else "simt"
+    """Which kernel a call on ``xs [M, K]``, ``w [E, K, N]`` launches:
+    ``"simt"`` for f32; for bf16 ``"wgmma"`` when ``M >= WGMMA_ROWS * E``,
+    else ``"mma"``.  A pure function of the dtype and the static shapes:
+    the group sizes never enter."""
+    if xs.dtype != torch.bfloat16:
+        return "simt"
+    return "wgmma" if xs.shape[0] >= WGMMA_ROWS * w.shape[0] else "mma"
 
 
 def ragged_dot(xs, w, group_sizes):
@@ -91,7 +112,7 @@ def ragged_dot(xs, w, group_sizes):
     fn = build.launcher("ragged_dot")
     err = fn(xs.data_ptr(), w.data_ptr(), out.data_ptr(),
              group_sizes.data_ptr(), m, n, k, e, xs.stride(0), w.stride(1),
-             w.stride(0), n, int(route == "mma"),
+             w.stride(0), n, _CODES[route],
              torch.cuda.current_stream(xs.device).cuda_stream)
     build.check(err, "ragged_dot")
     ragged_dot.launches += 1

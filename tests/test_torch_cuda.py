@@ -1574,30 +1574,64 @@ def ragged_within(got, want, dtype):
     assert bool((diff <= step * peak + 1e-6).all()), float(diff.max())
 
 
-@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"),
-                                         (torch.float32, "simt")])
-@pytest.mark.parametrize("m,k,n,e,spec", [
-    (32, 1024, 512, 32, "random"),           # granite decode, 4 lanes
-    (32, 512, 1024, 32, "random"),           # its down projection
-    (16384, 1024, 512, 32, "random"),        # a 2,048-token prefill
-    (300, 512, 1024, 32, [0] * 31 + [300]),  # one expert holds every row
-    (70, 64, 72, 4, [10, 0, 50, 0]),         # empty groups, 10 rows past
-    (5, 16, 8, 8, [0, 1, 0, 1, 1, 0, 2, 0]),
+#: the route rule's threshold over 32 experts (K 256, N 128)
+RAGGED_EDGE = 32 * 32
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n,e,spec,bf16", [
+    (32, 1024, 512, 32, "random", "mma"),           # granite decode, 4 lanes
+    (32, 512, 1024, 32, "random", "mma"),           # its down projection
+    (16384, 1024, 512, 32, "random", "wgmma"),      # a 2,048-token prefill
+    (300, 512, 1024, 32, [0] * 31 + [300], "mma"),  # one expert, every row
+    (70, 64, 72, 4, [10, 0, 50, 0], "mma"),         # empty groups, 10 past
+    (5, 16, 8, 8, [0, 1, 0, 1, 1, 0, 2, 0], "mma"),
+    # groups ending inside a 128-row tile, 50 rows past the last group
+    (600, 64, 136, 4, [100, 300, 0, 150], "wgmma"),
+    (1000, 256, 256, 8, "random", "wgmma"),         # M not a multiple of 128
+    (32, 1024, 512, 32, [0] * 7 + [32] + [0] * 24, "mma"),  # one touched
+    (RAGGED_EDGE - 1, 256, 128, 32, "random", "mma"),    # the route rule's
+    (RAGGED_EDGE, 256, 128, 32, "random", "wgmma"),      # threshold and one
+    (RAGGED_EDGE + 1, 256, 128, 32, "random", "wgmma"),  # row either side
 ])
-def test_ragged_dot_against_plain_version(gen, dtype, route, m, k, n, e,
-                                          spec):
+def test_ragged_dot_against_plain_version(gen, dtype, m, k, n, e, spec,
+                                          bf16):
+    """Each case on the route it names: bf16 ``"mma"`` below 32 rows per
+    expert and ``"wgmma"`` from it, f32 ``"simt"``."""
+    from repro_torch.kernels.ragged_dot import ROUTES, ragged_route
+    route = bf16 if dtype == torch.bfloat16 else "simt"
     xs = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
     w = torch.randn((e, k, n), generator=gen, device="cuda").div(
         k ** 0.5).to(dtype)
     gs = ragged_sizes(gen, m, e, spec)
+    assert ragged_route(xs, w) == route
     ops.reset_launch_counts()
     got = ops.ragged_dot(xs, w, gs)
-    assert ops.route_counts()["ragged_dot"] == {**{"mma": 0, "simt": 0},
+    assert ops.route_counts()["ragged_dot"] == {**dict.fromkeys(ROUTES, 0),
                                                 route: 1}
     want = ref.ragged_dot_ref(xs, w, gs)
     torch.cuda.synchronize()
     ragged_within(got, want, dtype)
     assert not got[int(gs.sum()):].any()
+
+
+@pytest.mark.parametrize("dtype,m,e,route", [
+    (torch.bfloat16, 32, 32, "mma"), (torch.bfloat16, 2048, 32, "wgmma"),
+    (torch.bfloat16, 600, 4, "wgmma"), (torch.float32, 300, 8, "simt")])
+def test_ragged_dot_two_launches_bit_identical(gen, dtype, m, e, route):
+    """No route splits K or adds with atomics: two launches on the same
+    operands agree bit for bit (a graph run and its eager twin must pick
+    the same greedy tokens)."""
+    from repro_torch.kernels.ragged_dot import ragged_route
+    k, n = 512, 256
+    xs = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    w = torch.randn((e, k, n), generator=gen, device="cuda").to(dtype)
+    gs = ragged_sizes(gen, m, e, "random")
+    assert ragged_route(xs, w) == route
+    first = ops.ragged_dot(xs, w, gs)
+    second = ops.ragged_dot(xs, w, gs)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_ragged_dot_bf16_off_the_tensor_cores_raises(gen):
@@ -1613,31 +1647,43 @@ def test_ragged_dot_bf16_off_the_tensor_cores_raises(gen):
     assert ops.launch_counts()["ragged_dot"] == 0
 
 
-def test_ragged_dot_exact_layout_probe(gen):
+@pytest.mark.parametrize("m,sizes,route", [
+    (150, [48, 1, 0, 52, 40], "mma"),          # 30 rows per expert
+    (700, [130, 1, 0, 300, 250], "wgmma")])    # 140
+def test_ragged_dot_exact_layout_probe(gen, m, sizes, route):
     """Integer-valued bf16 operands small enough that every sum is exact:
-    a wrong fragment map, ldmatrix address or group offset shows as a
-    mismatch, not as rounding."""
-    m, k, n, e = 200, 64, 128, 5
+    a wrong fragment map, ldmatrix or swizzle address, wgmma descriptor or
+    group offset shows as a mismatch, not as rounding; on each tensor-core
+    route, with rows past the last group."""
+    from repro_torch.kernels.ragged_dot import ragged_route
+    k, n, e = 64, 128, 5
     xs = torch.randint(-3, 4, (m, k), generator=gen, device="cuda").bfloat16()
     w = torch.randint(-3, 4, (e, k, n), generator=gen,
                       device="cuda").bfloat16()
-    gs = torch.tensor([64, 1, 0, 70, 65], dtype=torch.int32, device="cuda")
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    assert ragged_route(xs, w) == route
     got = ops.ragged_dot(xs, w, gs)
     assert torch.equal(got, ref.ragged_dot_ref(xs, w, gs))
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_graph_replay_ragged_dot_with_new_group_sizes(gen, dtype):
+@pytest.mark.parametrize("dtype,m,route", [(torch.bfloat16, 96, "mma"),
+                                           (torch.float32, 96, "simt"),
+                                           (torch.bfloat16, 384, "wgmma")])
+def test_graph_replay_ragged_dot_with_new_group_sizes(gen, dtype, m, route):
     """One capture, replayed after the group sizes and rows change in
     place on the card: the kernel reads the sizes from device memory, so
-    the replay computes the new grouping."""
-    m, k, n, e = 96, 128, 64, 6
+    the replay computes the new grouping; on every route."""
+    from repro_torch.kernels.ragged_dot import ragged_route
+    k, n, e = 128, 64, 6
     xs = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
     w = torch.randn((e, k, n), generator=gen, device="cuda").to(dtype)
-    gs = torch.tensor([96, 0, 0, 0, 0, 0], dtype=torch.int32, device="cuda")
+    assert ragged_route(xs, w) == route
+    gs = torch.tensor([m, 0, 0, 0, 0, 0], dtype=torch.int32, device="cuda")
     graph, got = captured(lambda: ops.ragged_dot(xs, w, gs))
-    for sizes in ([0, 40, 0, 56, 0, 0], [10, 10, 10, 10, 10, 46],
-                  [0, 0, 0, 0, 0, 90]):
+    q = m // 96
+    for sizes in ([0, 40 * q, 0, 56 * q, 0, 0],
+                  [10 * q, 10 * q, 10 * q, 10 * q, 10 * q, 46 * q],
+                  [0, 0, 0, 0, 0, 90 * q]):
         gs.copy_(torch.tensor(sizes, dtype=torch.int32))
         xs.copy_(torch.randn((m, k), generator=gen, device="cuda"))
         graph.replay()
@@ -1683,7 +1729,7 @@ def test_moe_engine_graphs_equal_eager_and_cpu(arch, case):
         c.pop("prefill_bytes_gathered", None)
     assert graph[:3] == plain[:3]
     assert graph[3]["ragged_dot"] > 0
-    assert graph[4]["ragged_dot"] == {"mma": 0,
+    assert graph[4]["ragged_dot"] == {"mma": 0, "wgmma": 0,
                                       "simt": graph[3]["ragged_dot"]}
 
 

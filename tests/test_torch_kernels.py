@@ -459,3 +459,81 @@ def test_cpu_dispatch_launches_no_kernel():
 
 def test_jax_side_runs_on_cpu():
     assert jax.devices()[0].platform == "cpu"
+
+
+@pytest.mark.parametrize("dtype,m,e,route", [
+    (torch.bfloat16, 32, 32, "mma"),        # granite decode, 4 lanes
+    (torch.bfloat16, 1023, 32, "mma"),      # the threshold (32 rows per
+    (torch.bfloat16, 1024, 32, "wgmma"),    # expert) and one row either
+    (torch.bfloat16, 1025, 32, "wgmma"),    # side of it
+    (torch.bfloat16, 16384, 32, "wgmma"),   # a 2,048-token prefill
+    (torch.bfloat16, 127, 4, "mma"),
+    (torch.bfloat16, 128, 4, "wgmma"),
+    (torch.float32, 32, 32, "simt"),
+    (torch.float32, 16384, 32, "simt"),
+])
+def test_ragged_route_is_a_function_of_static_shapes(dtype, m, e, route):
+    """``ragged_route`` reads the dtype and the static shapes only: the
+    same route for every grouping of the rows (a CUDA graph replays one
+    launch over new sizes) and for shape-only (meta) tensors; the CPU call
+    takes the plain version whatever the route."""
+    import inspect
+
+    from repro_torch.kernels.ragged_dot import ragged_route
+    assert list(inspect.signature(ragged_route).parameters) == ["xs", "w"]
+    k, n = 64, 16
+    rng = np.random.default_rng(m + e)
+    xs = t(rng.standard_normal((m, k), dtype=np.float32)).to(dtype)
+    w = t(rng.standard_normal((e, k, n), dtype=np.float32)).to(dtype)
+    assert ragged_route(xs, w) == route
+    assert ragged_route(xs.to("meta"), w.to("meta")) == route
+    for sizes in ([m] + [0] * (e - 1), [0] * (e - 1) + [m],
+                  rng.multinomial(m, [1 / e] * e), [0] * e):
+        gs = torch.tensor(np.asarray(sizes), dtype=torch.int32)
+        ops.reset_launch_counts()
+        out = ops.ragged_dot(xs, w, gs)
+        assert out.shape == (m, n) and out.dtype == dtype
+        assert ops.launch_counts()["ragged_dot"] == 0
+        assert ragged_route(xs, w) == route
+
+
+def _strided(shape, strides, dtype=torch.bfloat16):
+    base = torch.zeros(sum((d - 1) * s for d, s in zip(shape, strides)) + 1,
+                       dtype=dtype)
+    return base.as_strided(shape, strides)
+
+
+@pytest.mark.parametrize("case", [
+    "k0", "k_odd", "n_odd", "xs_base", "xs_rows", "w_rows", "w_experts"])
+def test_check_ragged_dot_refuses_unaddressable_bf16(case):
+    """bf16 operands that neither tensor-core route can address (TMA needs
+    16-byte-aligned bases and row strides, K and N multiples of 8, K > 0)
+    are refused by ``check_ragged_dot`` on every device, before any
+    launch; the same shapes in f32 take the plain version."""
+    from repro_torch.kernels.ragged_dot import check_ragged_dot
+    m, k, n, e = 40, 64, 16, 4
+    xs, w = torch.zeros((m, k), dtype=torch.bfloat16), torch.zeros(
+        (e, k, n), dtype=torch.bfloat16)
+    if case == "k0":
+        xs, w = xs[:, :0], w[:, :0]
+    elif case == "k_odd":
+        xs, w = xs[:, :20], w[:, :20]
+    elif case == "n_odd":
+        w = w[:, :, :12]
+    elif case == "xs_base":
+        xs = torch.zeros((m, k + 1), dtype=torch.bfloat16)[:, 1:]
+    elif case == "xs_rows":
+        xs = _strided((m, k), (k + 4, 1))
+    elif case == "w_rows":
+        w = _strided((e, k, n), (k * (n + 4), n + 4, 1))
+    elif case == "w_experts":
+        w = _strided((e, k, n), (k * n + 4, n, 1))
+    gs = torch.tensor([10, 0, 20, 5], dtype=torch.int32)
+    with pytest.raises(ValueError, match="tensor cores only"):
+        check_ragged_dot(xs, w, gs)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="tensor cores only"):
+        ops.ragged_dot(xs, w, gs)
+    got = ops.ragged_dot(xs.float(), w.float(), gs)
+    assert got.shape == (m, w.shape[2]) and not got.any()
+    assert ops.launch_counts()["ragged_dot"] == 0

@@ -283,7 +283,7 @@ def test_route_counts_reset_with_launch_counts():
         "paged_copy_at": {"burst": 0, "rows": 0},
         "paged_prefill_attention": {"wgmma": 0, "simt": 0},
         "matmul": {"wgmma": 0, "simt": 0},
-        "ragged_dot": {"mma": 0, "simt": 0}}
+        "ragged_dot": {"mma": 0, "wgmma": 0, "simt": 0}}
 
 
 # ---------------------------------------------------------------------------
