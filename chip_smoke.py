@@ -189,15 +189,21 @@ printing its lines; any failure exits non-zero before the last line:
    shapes and the paper's n = 45/90/181): the quickstart
    (``repro_torch.launch.quickstart``) on the card and on the CPU must
    print the same lines, with ``paged_copy`` 1 and ``paged_gather`` 1
-   launches; then one layer of qwen2-7b's K pool (W = 512, bf16, page 16,
-   2,304 frames) holds a 32,768-token sequence in scrambled frames, and
-   four streams (unit stride, stride 4, random with repeats, sorted
-   random) are gathered bit-identical through the kernel, the plain
-   version and the coalesced route, with each stream's translation counts
-   and 16-entry DTLB report (host numpy); the random stream is timed
-   beside ``index_select`` in 11 batches of each, taken in turns, each
-   batch printed with both medians and spreads and whether the kernel is
-   behind the call beyond the spread;
+   launches (the gather on its ``"lanes"`` route: 16-byte rows); then one
+   layer of qwen2-7b's K pool (W = 512, bf16, page 16, 2,304 frames)
+   holds a 32,768-token sequence in scrambled frames, and four streams
+   (unit stride, stride 4, random with repeats, sorted random) are
+   gathered bit-identical through the kernel (on its ``"bulk"`` route),
+   the plain version and the coalesced route, with each stream's
+   translation counts and 16-entry DTLB report (host numpy); each stream
+   is timed beside ``index_select`` in 11 batches of each, taken in
+   turns, each batch printed with both medians and spreads, the stream's
+   own bound and whether the kernel is behind, level with or ahead of the
+   call beyond the spread; the random stream again with a read-filled L2
+   (a 128 MB read before each call instead of the write); then a pool
+   larger than the L2 (9,216 frames, 151 MB) holding a 131,072-token
+   sequence, read at 32,768 random positions, bit-identical and timed
+   likewise under both fills (printed, off the kernels line);
 16. the paper's matmul: n = 45, 90, 181 in f32 and qwen2-7b's gate
    projection for a 2,048-token prefill (bf16 [2048, 3584] @ [3584,
    18944] -> bf16) through ``ops.matmul`` with the launch counts zeroed
@@ -324,21 +330,35 @@ def time_ms(fn, n: int = 50, reps: int = 5) -> float:
     return statistics.median(paired_batches((fn,), n, reps)[0])
 
 
-def paired_batches(fns, n: int = 50, reps: int = 5) -> list[list[float]]:
+def paired_batches(fns, n: int = 50, reps: int = 5, *,
+                   fill: str = "write") -> list[list[float]]:
     """Per-batch device times of one call of each of ``fns``, as
     :func:`time_ms` takes them: ``reps`` batches of each, taken in turns
     (a b, b a, a b, ...) so a drift of the card falls on all alike, each
-    less the median of the L2-evicting writes alone."""
+    less the median of the L2-evicting passes alone.  ``fill="write"``
+    writes the 128 MB before each call, which leaves the L2 full of dirty
+    lines that the call's own traffic must write back; ``fill="read"``
+    reads them instead, which leaves it full of clean lines."""
+    import torch
+    if fill not in ("write", "read"):
+        raise ValueError(f"fill must be 'write' or 'read', got {fill!r}")
     flush = _flush_buffer()
+    words = flush.view(torch.int64)
+
+    def evict():
+        if fill == "write":
+            flush.zero_()
+        else:
+            words.amax()
 
     def flushed(fn):
         def call():
-            flush.zero_()
+            evict()
             fn()
         return call
 
     def flush_only():
-        flush.zero_()
+        evict()
 
     both = [[] for _ in fns]
     for i in range(reps):
@@ -3031,15 +3051,20 @@ def quickstart_phase() -> dict[str, int]:
     card = lines("cuda")
     torch.cuda.synchronize()
     launches = ops.launch_counts()
+    routes = ops.route_counts()["paged_gather"]
     cpu = lines("cpu")
     require(card == cpu, f"quickstart: the card printed {card}, the CPU {cpu}")
     want = {"paged_copy": 1, "paged_gather": 1}
     require(launches == {**dict.fromkeys(launches, 0), **want},
             f"quickstart launches {launches}, expected {want}")
+    # the quickstart's pool rows are 4 f32 (16 bytes): narrow, so lanes
+    require(routes == {"bulk": 0, "lanes": 1},
+            f"quickstart paged_gather routes {routes}, expected lanes 1")
     for line in card:
         log(f"quickstart | {line}")
     log("quickstart: card == cpu, line for line; launches "
-        + json.dumps({k: launches[k] for k in want}))
+        + json.dumps({k: launches[k] for k in want})
+        + f"; paged_gather routes {json.dumps(routes)}")
     return launches
 
 
@@ -3047,15 +3072,97 @@ def quickstart_phase() -> dict[str, int]:
 #: 16, 2,304 frames) and a 32,768-token sequence (2,048 pages)
 GATHER = dict(page=16, frames=2304, tokens=32768, w=512)
 
+#: a pool larger than the H100's 50 MB L2 (9,216 frames of 16 KB, 151 MB)
+#: holding a 131,072-token sequence, read at 32,768 random positions
+GATHER_BIG = dict(page=16, frames=9216, tokens=131072, w=512, n=32768)
+
+#: batches of a gather and of ``index_select``, each timed in turns, for
+#: the spread of both
+GATHER_BATCHES = 11
+
+
+def gather_streams(tokens: int, n: int | None = None) -> dict:
+    """The four streams of ``benchmarks/bench_translation.py`` over a
+    ``tokens``-token sequence; the random ones draw ``n`` (default
+    ``tokens``) positions."""
+    import numpy as np
+    n = tokens if n is None else n
+    srng = np.random.default_rng(0)
+    return {
+        "unit_stride": np.arange(tokens),
+        "strided_4": np.arange(0, tokens, 4),
+        "random": srng.integers(0, tokens, size=n),
+        "sorted_random": np.sort(srng.integers(0, tokens, size=n)),
+    }
+
+
+def gather_pool(frames: int, page: int, w: int, seed: int = 8):
+    """A seeded bf16 pool ``[frames, page, w]`` on the card."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((frames, page, w), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+
+
+def gather_bound(pool, row, p, page: int) -> tuple[int, float, str]:
+    """The bytes a gather of ``p`` must move, and its bound: each distinct
+    pool row and table entry read once, the positions read once, every
+    output row written once."""
+    import torch
+    w, isz = pool.shape[2], pool.element_size()
+    n = p.numel()
+    vpn = (p.long() // page).clamp(max=row.numel() - 1)
+    nbytes = ((torch.unique(p).numel() + n) * w * isz + 4 * n
+              + 4 * torch.unique(vpn).numel())
+    return (nbytes, *bound(nbytes, 0))
+
+
+def spread_verdict(k_ms, l_ms) -> str:
+    return ("behind the call beyond the spread" if min(k_ms) > max(l_ms)
+            else "ahead of the call beyond the spread" if max(k_ms) < min(l_ms)
+            else "level with the call within the spread")
+
+
+def gather_pair(tag: str, pool, row, p, page: int, *,
+                fill: str = "write") -> tuple[float, float]:
+    """The kernel and ``index_select`` on precomputed rows, timed in
+    :data:`GATHER_BATCHES` paired batches of 50 calls; logs each batch,
+    both medians and spreads, the verdict and the kernel's share of the
+    bound.  Returns the two medians."""
+    from repro_torch.kernels.paged_gather import paged_gather
+    w = pool.shape[2]
+    vpn = (p.long() // page).clamp(max=row.numel() - 1)
+    flat_rows = (row.long()[vpn].clamp(min=0, max=pool.shape[0] - 1) * page
+                 + p.long() % page)
+    flat = pool.view(-1, w)
+    k_ms, l_ms = paired_batches(
+        (lambda: paged_gather(pool, row, p, page_size=page),
+         lambda: flat.index_select(0, flat_rows)),
+        reps=GATHER_BATCHES, fill=fill)
+    ms, lib = statistics.median(k_ms), statistics.median(l_ms)
+    nbytes, b_ms, _ = gather_bound(pool, row, p, page)
+    log(f"{tag} ({fill}-filled L2): per-batch ms (50 calls a batch, taken "
+        f"in turns), kernel {' '.join(f'{t:.5f}' for t in k_ms)}; "
+        f"index_select {' '.join(f'{t:.5f}' for t in l_ms)}; kernel median "
+        f"{ms:.5f} spread {min(k_ms):.5f}-{max(k_ms):.5f}, index_select "
+        f"median {lib:.5f} spread {min(l_ms):.5f}-{max(l_ms):.5f}; bound "
+        f"{b_ms:.5f} ms ({nbytes} B), kernel at {100 * b_ms / ms:.1f} % of "
+        f"it, index_select at {100 * b_ms / lib:.1f} %: the kernel is "
+        + spread_verdict(k_ms, l_ms) + f" [{CARD}]")
+    return ms, lib
+
 
 def gather_phase(launches) -> list[dict]:
     """Map the sequence in scrambled frames, gather the four streams of
     ``benchmarks/bench_translation.py`` at 32,768 tokens through the
-    kernel, the plain version and the coalesced route (bit-identical),
-    print each stream's translation counts and 16-entry DTLB reports, and
-    time the random stream.  The bound counts what the random stream
-    needs: each distinct pool row and table entry read once, every output
-    row written once, the positions read once."""
+    kernel, the plain version and the coalesced route (bit-identical, the
+    kernel on its ``"bulk"`` route), print each stream's translation
+    counts and 16-entry DTLB reports, and time each stream beside
+    ``index_select`` on precomputed rows (:func:`gather_pair`, each with
+    its own bound: each distinct pool row and table entry read once,
+    every output row written once, the positions read once); the random
+    stream again with a read-filled L2; then a pool larger than the L2
+    (:data:`GATHER_BIG`, printed, off the kernels line)."""
     import numpy as np
     import torch
     from repro_torch.core import (
@@ -3085,23 +3192,22 @@ def gather_phase(launches) -> list[dict]:
     adjacent = int(np.sum(np.abs(np.diff(seq.pages)) == 1))
     dev = torch.device("cuda")
     row = vm.device_page_table("cpu")[seq.slot].to(dev)
-    gen = torch.Generator(device=dev).manual_seed(8)
-    pool = torch.randn((frames, page, w), generator=gen,
-                       device=dev).to(torch.bfloat16)
+    pool = gather_pool(frames, page, w)
     log(f"gather: pool {list(pool.shape)} bf16 ({pool.numel() * 2 / 1e6:.1f} "
         f"MB, one layer of qwen2-7b's K pool), {tokens} tokens in {len(seq.pages)} "
         f"frames ({adjacent} of {len(seq.pages) - 1} neighbours in adjacent "
         f"frames after {decoys} decoys)")
-    srng = np.random.default_rng(0)
-    streams = {
-        "unit_stride": np.arange(tokens),
-        "strided_4": np.arange(0, tokens, 4),
-        "random": srng.integers(0, tokens, size=tokens),
-        "sorted_random": np.sort(srng.integers(0, tokens, size=tokens)),
-    }
+    streams = gather_streams(tokens)
+    dev_streams = {}
     for name, pos in streams.items():
         p = torch.as_tensor(pos.astype(np.int32), device=dev)
+        dev_streams[name] = p
+        before = dict(paged_gather.routes)
         got = paged_gather(pool, row, p, page_size=page)
+        routes = {r: paged_gather.routes[r] - before[r] for r in before}
+        require(routes == {"bulk": 1, "lanes": 0},
+                f"gather {name}: paged_gather routes {routes}, expected "
+                "bulk 1")
         want = ref.paged_gather_ref(pool, row, p, page_size=page)
         coal = ops.paged_gather_coalesced(pool, row, p, page_size=page)
         require(torch.equal(got, want) and torch.equal(got, coal),
@@ -3118,35 +3224,22 @@ def gather_phase(launches) -> list[dict]:
             + "; ".join(f"{label} tx {n} misses {r.misses} stall "
                         f"{r.total_cycles:.0f} cyc"
                         for label, (n, r) in reps.items()))
-    p = torch.as_tensor(streams["random"].astype(np.int32), device=dev)
-    vpn = (p.long() // page).clamp(max=row.numel() - 1)
-    flat_rows = row.long()[vpn].clamp(min=0) * page + p.long() % page
-    flat = pool.view(-1, w)
-    n = p.numel()
-    distinct_rows = int(torch.unique(p).numel())
-    distinct_pages = int(torch.unique(vpn).numel())
-    nbytes = (distinct_rows + n) * w * 2 + 4 * n + 4 * distinct_pages
-    k_ms, l_ms = paired_batches(
-        (lambda: paged_gather(pool, row, p, page_size=page),
-         lambda: flat.index_select(0, flat_rows)), reps=GATHER_BATCHES)
-    ms, lib = statistics.median(k_ms), statistics.median(l_ms)
+    ms, lib = {name: gather_pair(f"gather {name}", pool, row, p, page)
+               for name, p in dev_streams.items()}["random"]
+    p = dev_streams["random"]
+    gather_pair("gather random", pool, row, p, page, fill="read")
     plain = time_ms(lambda: ref.paged_gather_ref(pool, row, p,
                                                  page_size=page))
-    log("gather random: per-batch ms (50 calls a batch, taken in turns), "
-        f"kernel {' '.join(f'{t:.5f}' for t in k_ms)}; index_select "
-        f"{' '.join(f'{t:.5f}' for t in l_ms)}; kernel median {ms:.5f} "
-        f"spread {min(k_ms):.5f}-{max(k_ms):.5f}, index_select median "
-        f"{lib:.5f} spread {min(l_ms):.5f}-{max(l_ms):.5f}: the kernel is "
-        + ("behind the call beyond the spread" if min(k_ms) > max(l_ms)
-           else "ahead of the call beyond the spread" if max(k_ms) < min(l_ms)
-           else "level with the call within the spread"))
     coal_ms = time_ms(lambda: ops.paged_gather_coalesced(pool, row, p,
                                                          page_size=page))
-    b_ms, b_by = bound(nbytes, 0)
+    n = p.numel()
+    nbytes, b_ms, b_by = gather_bound(pool, row, p, page)
     log(f"gather random: coalesced route {coal_ms:.4f} ms; the bound counts "
-        f"{distinct_rows} distinct rows of {n} ({nbytes} B; every row read "
-        f"would be {2 * n * w * 2 + 8 * n} B, "
+        f"{torch.unique(p).numel()} distinct rows of {n} ({nbytes} B; "
+        f"every row read would be {2 * n * w * 2 + 8 * n} B, "
         f"{bound(2 * n * w * 2 + 8 * n, 0)[0]:.4f} ms)")
+    big = gather_big()
+    log(f"gather beyond the L2: {big}")
     return [dict(name="paged_gather", shape=f"pool {list(pool.shape)} bf16, "
                  f"{n} random positions with repeats", max_abs_err=0.0,
                  max_abs_want=float(pool.float().abs().max()), ms=ms,
@@ -3155,9 +3248,34 @@ def gather_phase(launches) -> list[dict]:
                  launches=launches["paged_gather"])]
 
 
-#: batches of the random gather and of ``index_select``, each timed in
-#: turns, for the spread of both
-GATHER_BATCHES = 11
+def gather_big() -> str:
+    """:data:`GATHER_BIG`: the sequence in a random permutation of the
+    frames, the random stream gathered bit-identical to the plain version
+    and timed beside ``index_select`` (dirty and read-filled L2).  Whether
+    translation costs more once the rows are not L2-resident."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_gather import paged_gather
+    page, frames, tokens, w, n = (GATHER_BIG[k] for k in (
+        "page", "frames", "tokens", "w", "n"))
+    row = torch.as_tensor(np.random.default_rng(7).permutation(frames)[
+        :tokens // page].astype(np.int32), device="cuda")
+    pool = gather_pool(frames, page, w, seed=10)
+    p = torch.as_tensor(gather_streams(tokens, n)["random"].astype(np.int32),
+                        device="cuda")
+    require(torch.equal(paged_gather(pool, row, p, page_size=page),
+                        ref.paged_gather_ref(pool, row, p, page_size=page)),
+            "gather beyond the L2: kernel and plain version differ")
+    tag = (f"gather beyond the L2, pool {list(pool.shape)} bf16 "
+           f"({pool.numel() * 2 / 1e6:.1f} MB), {tokens} tokens, {n} random "
+           "positions")
+    dirty = gather_pair(tag, pool, row, p, page)
+    clean = gather_pair(tag, pool, row, p, page, fill="read")
+    _, b_ms, _ = gather_bound(pool, row, p, page)
+    return (f"bit-identical; kernel {dirty[0]:.5f} / {clean[0]:.5f} ms "
+            f"(dirty / read-filled L2), index_select {dirty[1]:.5f} / "
+            f"{clean[1]:.5f}, bound {b_ms:.5f} [{CARD}]")
 
 
 #: qwen2-7b's gate projection for a 2,048-token prefill (d_model 3584,

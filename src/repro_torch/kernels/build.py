@@ -59,7 +59,7 @@ SIGNATURES = {
                             [_I, _P]),
     "paged_gather": ("paged_gather", "paged_gather_launch",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
-                      _P]),
+                      _I, _P]),
     "matmul": ("matmul", "matmul_launch",
                [_P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I, _I, _I,
                 _P]),

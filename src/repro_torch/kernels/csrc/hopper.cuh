@@ -1,7 +1,9 @@
 // Hopper building blocks of the tensor-core kernels (matmul.cu,
-// flash_attention.cu, paged_prefill_attention.cu, ragged_dot.cu): TMA
-// tensor maps encoded on the host, mbarriers, the TMA tile load, proxy
-// fences and named barriers, wgmma shared-memory descriptors and
+// flash_attention.cu, paged_prefill_attention.cu, ragged_dot.cu) and of
+// the copy kernels (wkv6.cu, paged_copy.cu, paged_gather.cu): TMA
+// tensor maps encoded on the host, programmatic dependent launches,
+// mbarriers, the TMA tile load, 1-D bulk loads and stores, proxy fences
+// and named barriers, wgmma shared-memory descriptors and
 // instructions, and setmaxnreg.  Every tile lives in shared memory in the 128-byte swizzle
 // that TMA writes (CU_TENSOR_MAP_SWIZZLE_128B) and wgmma reads (layout type
 // 1): rows of 128 bytes, 8-row atoms of 1024 bytes, each atom 1024-aligned.
@@ -79,9 +81,38 @@ static inline int make_bf16_map(CUtensorMap* map, const void* ptr, int rank,
                     dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// Launches `kernel` on `st` as a programmatic dependent of the work before
+// it: its blocks may be scheduled while that work drains, so the kernel
+// calls griddep_wait() before it reads anything.
+template <typename... P, typename... A>
+static inline int launch_dependent(void (*kernel)(P...), dim3 grid,
+                                   int threads, size_t smem, cudaStream_t st,
+                                   A... args)
+{
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+    return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
 // ---------------------------------------------------------------------------
 // device: mbarriers and TMA
 // ---------------------------------------------------------------------------
+
+// In a kernel launched by launch_dependent: waits until the work before it
+// has completed and its writes are visible.
+__device__ __forceinline__ void griddep_wait()
+{
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p)
 {
@@ -166,6 +197,44 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
         :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
            "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
         : "memory");
+}
+
+// 1-D bulk copies (no tensor map): `bytes` a multiple of 16, both ends
+// 16-byte aligned.  A load completes as transaction bytes on `bar`; stores
+// complete in bulk groups, committed and waited for by the issuing thread.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar)
+{
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+                 "::bytes [%0], [%1], %2, [%3];\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes),
+                    "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bulk_store_1d(void* dst, const void* src,
+                                              uint32_t bytes)
+{
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+                 :: "l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit()
+{
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read their
+// shared-memory source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read()
+{
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// Waits until every bulk group of this thread has completed its writes.
+__device__ __forceinline__ void bulk_wait_all()
+{
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // Orders this thread's generic-proxy shared-memory writes before later

@@ -58,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;   // a block
@@ -121,7 +123,7 @@ __global__ void __launch_bounds__(THREADS) paged_copy_kernel(
     // launched as a programmatic dependent: the launch overlaps the tail
     // of the kernel before it, and nothing is read before that kernel's
     // writes are complete and visible
-    asm volatile("griddepcontrol.wait;" ::: "memory");
+    griddep_wait();
     const int burst = blockIdx.x;
     const int b = blockIdx.y;
     const char* src = blockIdx.z ? x.src[1] : x.src[0];
@@ -167,25 +169,6 @@ __global__ void __launch_bounds__(THREADS) paged_copy_kernel(
     }
 }
 
-// Launch `kernel` on `st` as a programmatic dependent of the work before
-// it (griddepcontrol.wait at the kernel's top keeps the order).
-template <typename... P, typename... A>
-int launch_dependent(void (*kernel)(P...), dim3 grid, int threads,
-                     cudaStream_t st, A... args)
-{
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(threads);
-    cfg.stream = st;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[0].val.programmaticStreamSerializationAllowed = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-    return (int)(err != cudaSuccess ? err : cudaGetLastError());
-}
-
 template <typename U, bool BURST>
 int launch(dim3 grid, cudaStream_t st, const Tensors& x, const void* table,
            const void* starts, const void* lens, int S, int page_size,
@@ -194,7 +177,7 @@ int launch(dim3 grid, cudaStream_t st, const Tensors& x, const void* table,
            long long table_sb)
 {
     return launch_dependent(
-        paged_copy_kernel<U, BURST>, grid, THREADS, st, x,
+        paged_copy_kernel<U, BURST>, grid, THREADS, 0, st, x,
         static_cast<const int*>(table),
         static_cast<const int*>(starts), static_cast<const int*>(lens), S,
         page_size, max_pages, (int)(row_bytes / (long long)sizeof(U)),

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.paged_copy import ROUTES as COPY_ROUTES
+from repro_torch.kernels.paged_gather import ROUTES as GATHER_ROUTES
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
 
@@ -520,32 +521,81 @@ def gather_operands(gen, dtype, w, page, n, *, frames=40, max_pages=8):
     return pool, row, pos
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-@pytest.mark.parametrize("w", [4, 14, 512])
-@pytest.mark.parametrize("page", [8, 16])
-@pytest.mark.parametrize("n", [1, 300])
-def test_paged_gather_bit_identical(gen, dtype, w, page, n):
-    pool, row, pos = gather_operands(gen, dtype, w, page, n)
+def gather_launch(pool, row, pos, page, route):
+    """One ``ops.paged_gather`` launch on ``route`` (a literal of the
+    caller's), bit-identical to the plain version and to the coalesced
+    route."""
     ops.reset_launch_counts()
     got = ops.paged_gather(pool, row, pos, page_size=page)
     assert ops.launch_counts()["paged_gather"] == 1
+    assert ops.route_counts()["paged_gather"] == {
+        **dict.fromkeys(GATHER_ROUTES, 0), route: 1}
     want = ref.paged_gather_ref(pool, row, pos, page_size=page)
     torch.cuda.synchronize()
-    assert got.dtype == dtype and torch.equal(got, want)
+    assert got.dtype == pool.dtype and torch.equal(got, want)
     assert torch.equal(ops.paged_gather_coalesced(pool, row, pos,
                                                   page_size=page), want)
 
 
-def test_paged_gather_strided_frames(gen):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("w,route", [(4, "lanes"), (14, "lanes"),
+                                     (512, "bulk")])
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("n", [1, 300])
+def test_paged_gather_bit_identical(gen, dtype, w, route, page, n):
+    pool, row, pos = gather_operands(gen, dtype, w, page, n)
+    gather_launch(pool, row, pos, page, route)
+
+
+#: (dtype, W, route, E): E is the bulk route's batch, 8 KB of rows (at most
+#: 32); a lanes case lists the N around 8 alike
+GATHER_CASES = [
+    (torch.float32, 512, "bulk", 4), (torch.bfloat16, 512, "bulk", 8),
+    (torch.int8, 512, "bulk", 16), (torch.float32, 4, "lanes", 8),
+    (torch.bfloat16, 4, "lanes", 8), (torch.int8, 4, "lanes", 8),
+    (torch.float32, 7, "lanes", 8), (torch.bfloat16, 7, "lanes", 8),
+    (torch.int8, 7, "lanes", 8), (torch.float32, 14, "lanes", 8),
+    (torch.bfloat16, 14, "lanes", 8), (torch.int8, 14, "lanes", 8),
+]
+
+
+@pytest.mark.parametrize("dtype,w,route,e", GATHER_CASES)
+@pytest.mark.parametrize("n", ["1", "e-1", "e", "e+1", "300", "4099",
+                               "32768"])
+def test_paged_gather_batches_and_clamping(gen, dtype, w, route, e, n):
+    """N on each side of the batch and past the bulk grid's stride (396
+    blocks of 4 warps at 1 KB rows: 12,672 elements a pass), with every
+    clamp: positions past the reach, a -1 entry, negative positions and an
+    entry >= P."""
+    n = {"1": 1, "e-1": e - 1, "e": e, "e+1": e + 1}.get(n) or int(n)
+    pool, row, pos = gather_operands(gen, dtype, w, 16, n)
+    row[3] = pool.shape[0] + 5                   # an entry >= P
+    if n > 4:
+        pos[2] = -1
+        pos[n // 2] = -17
+    gather_launch(pool, row, pos, 16, route)
+
+
+@pytest.mark.parametrize("w,route", [(512, "bulk"), (7, "lanes")])
+def test_paged_gather_strided_frames(gen, w, route):
     """A pool whose frames are not adjacent (every other frame of a larger
-    pool) and an odd row width take the narrow copy units."""
-    pool, row, pos = gather_operands(gen, torch.bfloat16, 7, 8, 257,
+    pool): 16-byte aligned 1 KB rows stay on the bulk route, an odd row
+    width takes the narrow copy units."""
+    pool, row, pos = gather_operands(gen, torch.bfloat16, w, 8, 257,
                                      frames=80)
-    view = pool[::2]
-    row = row.clamp(max=39)
-    got = ops.paged_gather(view, row, pos, page_size=8)
-    torch.cuda.synchronize()
-    assert torch.equal(got, ref.paged_gather_ref(view, row, pos, page_size=8))
+    gather_launch(pool[::2], row.clamp(max=39), pos, 8, route)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_paged_gather_offset_view_takes_lanes(gen, dtype):
+    """A pool view one element off its allocation is not 16-byte aligned:
+    the lanes route, at the serve rows' width."""
+    pool, row, pos = gather_operands(gen, dtype, 512, 16, 300)
+    flat = torch.empty(pool.numel() + 1, dtype=dtype, device="cuda")
+    view = flat[1:].view(pool.shape)
+    view.copy_(pool)
+    assert view.data_ptr() % 16
+    gather_launch(view, row, pos, 16, "lanes")
 
 
 @pytest.mark.parametrize("m,k,n", [

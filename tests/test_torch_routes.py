@@ -1,8 +1,9 @@
 """The route rules of the four kernels that have a tensor-core and a
-CUDA-core kernel, and of the paged copy's two routes, on the CPU.
+CUDA-core kernel, and of the paged copy's and the paged gather's two
+routes, on the CPU.
 
-``matmul_route``, ``flash_route``, ``decode_route``, ``prefill_route`` and
-``copy_route`` are pure functions of dtype, shape, strides and alignment,
+``matmul_route``, ``flash_route``, ``decode_route``, ``prefill_route``,
+``copy_route`` and ``gather_route`` are pure functions of dtype, shape, strides and alignment,
 decided before the launch; here they are held to their rules on CPU
 tensors of the same layouts the card sees (the kernels themselves run in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
@@ -33,6 +34,11 @@ from repro_torch.kernels.paged_copy import (
 from repro_torch.kernels.paged_attention import (
     decode_route,
     paged_decode_attention as decode_kernel,
+)
+from repro_torch.kernels.paged_gather import (
+    alignment,
+    gather_route,
+    paged_gather as gather_kernel,
 )
 from repro_torch.kernels.paged_prefill_attention import (
     paged_prefill_attention as prefill_kernel,
@@ -275,6 +281,8 @@ def test_route_counts_reset_with_launch_counts():
     copy_kernel.routes["burst"] += 2
     copy_at_kernel.routes["rows"] += 1
     assert ops.route_counts()["paged_copy_at"]["rows"] >= 1
+    gather_kernel.routes["bulk"] += 1
+    assert ops.route_counts()["paged_gather"]["bulk"] >= 1
     ops.reset_launch_counts()
     assert ops.route_counts() == {
         "paged_copy": {"burst": 0, "rows": 0},
@@ -282,6 +290,7 @@ def test_route_counts_reset_with_launch_counts():
         "paged_decode_attention": {"mma": 0, "simt": 0},
         "paged_copy_at": {"burst": 0, "rows": 0},
         "paged_prefill_attention": {"wgmma": 0, "simt": 0},
+        "paged_gather": {"bulk": 0, "lanes": 0},
         "matmul": {"wgmma": 0, "simt": 0},
         "ragged_dot": {"mma": 0, "wgmma": 0, "simt": 0}}
 
@@ -515,3 +524,70 @@ def test_copy_checks_unchanged_and_refusals_move_no_counter():
         copy_kv_at_kernel(k, v, kp, vp, table, lens, lens, page_size=8)
     assert (copy_kernel.launches, dict(copy_kernel.routes),
             copy_at_kernel.launches, dict(copy_at_kernel.routes)) == before
+
+
+# ---------------------------------------------------------------------------
+# gather_route (the paged gather)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("row_bytes,align,route", [
+    (1024, 16, "bulk"),       # qwen2-7b's K rows, bf16 W 512
+    (64, 16, "bulk"),         # the smallest bulk row
+    (16384, 16, "bulk"),      # the largest: two stages of 4 warps fit
+    (2048, 16, "bulk"), (512, 16, "bulk"),
+    (48, 16, "lanes"),        # narrow rows: the lanes copy is faster
+    (16, 16, "lanes"),        # the quickstart's 4 f32
+    (16400, 16, "lanes"),     # past the bulk stages
+    (1024, 8, "lanes"), (1024, 4, "lanes"), (1024, 2, "lanes"),
+    (1024, 1, "lanes"),       # a base or stride off 16 bytes
+])
+def test_gather_route_cases(row_bytes, align, route):
+    assert gather_route(row_bytes, align) == route
+
+
+@pytest.mark.parametrize("values,align", [
+    ((0, 1024, 16384), 16), ((32, 48), 16), ((8, 1024), 8), ((12, 16), 4),
+    ((2, 1024), 2), ((1024, 7), 1), ((2 ** 40 + 16, 2 ** 20), 16)])
+def test_gather_alignment(values, align):
+    assert alignment(*values) == align
+
+
+def gather_views(pool):
+    """What the wrapper hands ``gather_route``: the row's bytes and the
+    alignment of the pool's base and strides (the output is a fresh
+    allocation, 16-byte aligned)."""
+    isz = pool.element_size()
+    rb = pool.shape[2] * isz
+    return rb, alignment(pool.data_ptr(), rb, pool.stride(0) * isz,
+                         pool.stride(1) * isz)
+
+
+@pytest.mark.parametrize("dtype,w,route", [
+    (BF16, 512, "bulk"), (torch.float32, 512, "bulk"),
+    (torch.int8, 512, "bulk"), (torch.int8, 64, "bulk"),
+    (torch.float32, 4, "lanes"), (BF16, 4, "lanes"), (torch.int8, 4, "lanes"),
+    (BF16, 7, "lanes"), (torch.float32, 14, "lanes")])
+def test_gather_route_on_pools(dtype, w, route):
+    """Contiguous pools and every other frame of a larger one take the
+    route of their row; a view one element off its allocation takes
+    lanes."""
+    pool = torch.zeros((20, 16, w), dtype=dtype)
+    assert gather_route(*gather_views(pool)) == route
+    assert gather_route(*gather_views(pool[::2])) == route
+    flat = torch.zeros(pool.numel() + 1, dtype=dtype)
+    assert gather_route(*gather_views(flat[1:].view(pool.shape))) == "lanes"
+
+
+def test_gather_refusals_move_no_counter():
+    """The kernel wrapper refuses CPU tensors and bad operands before it
+    counts anything."""
+    pool = torch.zeros((4, 8, 512), dtype=BF16)
+    row = torch.zeros(3, dtype=torch.int32)
+    pos = torch.zeros(5, dtype=torch.int32)
+    before = (gather_kernel.launches, dict(gather_kernel.routes))
+    with pytest.raises(ValueError):                      # CUDA only
+        gather_kernel(pool, row, pos, page_size=8)
+    with pytest.raises(TypeError):                       # int64 positions
+        gather_kernel(pool, row, pos.long(), page_size=8)
+    assert (gather_kernel.launches, dict(gather_kernel.routes)) == before

@@ -137,6 +137,67 @@ def test_gather_coalesced_matches_jax(dtype):
     assert torch.equal(got, plain)
 
 
+def scrambled_row(vm_cls, cfg_cls, *table_device, page, frames, tokens):
+    """``tokens`` mapped after ``frames`` one-page decoys left in a random
+    order, so the LIFO free list hands out scrambled frames (as
+    ``chip_smoke.py``'s gather phase maps its sequence); the table row as
+    numpy (``table_device``: the port's table is built on a device)."""
+    vm = vm_cls(cfg_cls(page_size=page, num_pages=frames,
+                        max_pages_per_seq=tokens // page,
+                        max_seqs=frames + 1))
+    for i in range(frames):
+        vm.map_seq(i + 1, page)
+    for i in np.random.default_rng(6).permutation(frames):
+        vm.unmap_seq(int(i) + 1)
+    seq = vm.map_seq(0, tokens)
+    return np.asarray(vm.device_page_table(*table_device)[seq.slot]).astype(
+        np.int32)
+
+
+def translation_streams(tokens):
+    """``benchmarks/bench_translation.py``'s four streams."""
+    rng = np.random.default_rng(0)
+    return {
+        "unit_stride": np.arange(tokens),
+        "strided_4": np.arange(0, tokens, 4),
+        "random": rng.integers(0, tokens, size=tokens),
+        "sorted_random": np.sort(rng.integers(0, tokens, size=tokens)),
+    }
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("stream", ["unit_stride", "strided_4", "random",
+                                    "sorted_random"])
+def test_gather_translation_streams_match_pallas_kernel(dtype, stream):
+    """The four streams of ``bench_translation.py`` over a 256-token
+    sequence in scrambled frames (both packages' VMs hand out the same
+    frames): ``ops.paged_gather`` bit-identical to the Pallas kernel
+    (interpret) and to the JAX oracle."""
+    page, frames, tokens, w = 16, 24, 256, 64
+    row = scrambled_row(VirtualMemory, VMemConfig, "cpu", page=page,
+                        frames=frames, tokens=tokens)
+    np.testing.assert_array_equal(
+        row, scrambled_row(JVirtualMemory, JVMemConfig, page=page,
+                           frames=frames, tokens=tokens))
+    assert np.all(row >= 0) and len(set(row.tolist())) == tokens // page
+    assert np.sum(np.abs(np.diff(row)) == 1) < tokens // page // 2
+    pos = translation_streams(tokens)[stream].astype(np.int32)
+    rng = np.random.default_rng(5)
+    if dtype == "int8":
+        pool = rng.integers(-127, 128, (frames, page, w)).astype(np.int8)
+    else:
+        pool = (rng.standard_normal((frames, page, w)) * 50).astype(np.float32)
+    tp, jp = both(pool, dtype)
+    got = ops.paged_gather(tp, torch.from_numpy(row), torch.from_numpy(pos),
+                           page_size=page)
+    args = (jp, jnp.asarray(row), jnp.asarray(pos))
+    assert got.shape == (pos.size, w) and got.dtype == tp.dtype
+    np.testing.assert_array_equal(
+        as_np(got), as_np(jops.paged_gather(*args, page_size=page)))
+    np.testing.assert_array_equal(
+        as_np(got), as_np(jref.paged_gather_ref(*args, page_size=page)))
+
+
 @pytest.mark.parametrize("lens", [[1], [60], [13, 7, 40], [8, 16, 64]])
 def test_copy_gather_roundtrip(lens):
     """write-through-translation then read-through-translation == id
