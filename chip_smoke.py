@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port serves on the card.
 
-    python3 chip_smoke.py            # one CUDA card, ~8 minutes
+    python3 chip_smoke.py            # one CUDA card, ~9-10 minutes
     python3 chip_smoke.py --quick    # build and the reduced checks only
 
 Imports nothing of JAX and nothing of the JAX package (``src/repro``); it
@@ -43,7 +43,15 @@ printing its lines; any failure exits non-zero before the last line:
    rwkv6-7b
    (prefill + 16 greedy decode steps, both ``tm_impl``s, 32- and 27-token
    prompts) on the card against the CPU: identical tokens, logits within
-   1e-4;
+   1e-4; ``paged_decode_attention`` at recurrentgemma-9b's D 256, G 16
+   (lengths 543, 2,576 and 1; window 2,048, 100 and none) bf16 on
+   ``"mma"`` and f32 on ``"simt"`` against its plain version,
+   ``rglru_scan`` at [8, T, 4096] (T 1, 7, 512) bit-identical to its
+   plain version, and the reduced recurrentgemma-9b (f32, D 16, window
+   16: a 20-token prefill and 12 greedy steps to 32 cached tokens) on the
+   card against the CPU: identical tokens, logits and state within 1e-4,
+   one ``rglru_scan`` a recurrent layer and call, one copy an attention
+   layer and prefill, one decode attention an attention layer and step;
 4. serve: qwen2-7b at full width (bf16, random weights from a seeded
    generator) serves 8 requests (64-512-token prompts, 32 new tokens,
    page 16, horizon 8) cold, in a pool tight enough to preempt; launch
@@ -125,7 +133,24 @@ printing its lines; any failure exits non-zero before the last line:
    untimed repeat of each run's prefill and of 8 decode steps prints the
    device's busy share and device time by kernel, and each prefill's
    ``wkv6`` and ``wkv6_chunked`` time and share of device time;
-12. MoE: the rwkv6-7b weights are freed, granite-moe-1b-a400m at full
+11b. RG-LRU: the rwkv6-7b weights are freed, recurrentgemma-9b at full
+   width (38 layers: 26 RG-LRU and 12 local MQA attention with one KV head
+   of 256 and a 2,048-token window; d_model 4096, d_ff 12288, vocab
+   256,000, bf16, random weights, depth not cut) prefills 8 prompts of 512
+   tokens and decodes 32 greedy tokens, then one 2,560-token prompt
+   decodes 16 steps past the window, each after an untimed warm-up with
+   the launch counts zeroed just before and read just after: 26
+   ``rglru_scan`` launches a call, one copy (on ``"burst"``) an attention
+   layer and prefill, one decode attention (on ``"mma"``) an attention
+   layer and step; prefill and decode times and tok/s; the kernel path
+   against the plain path, teacher forced (2 x 512 tokens, 8 steps), in
+   bf16 at full width and in f32 at full widths cut to 6 layers: prefill
+   logits equal and each decode row within 0.1 (bf16) or 1e-4 (f32) of
+   its peak; a traced repeat (busy share, time by kernel); then the D 256
+   decode attention rows (the batch's largest call, ~543 cached tokens,
+   and the window run's) and the scan rows (prefill [8, 512, 4096] and
+   decode [8, 1, 4096], bit-identical) timed as in 11;
+12. MoE: the recurrentgemma-9b weights are freed, granite-moe-1b-a400m at full
    width (24 layers, d_model 1024, 32 experts top-8, bf16, random
    weights, depth not cut) serves a cold run (8 prompts of 256-640
    tokens: one prefill of 2,560 tokens takes the per-row sorted dispatch,
@@ -253,6 +278,9 @@ KERNELS = {
     # not a TPU kernel: jax.lax.ragged_dot, which XLA lowers itself
     "ragged_dot": ("src/repro_torch/kernels/csrc/ragged_dot.cu",
                    "src/repro/models/moe.py:132"),
+    "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                   "src/repro/models/rglru.py:66 (jax.lax.associative_scan, "
+                   "not a TPU kernel)"),
 }
 
 
@@ -2419,8 +2447,9 @@ def full_checks(rec, rec_q, launches, launches_q) -> list[dict]:
 def decode_row(tag, best, n_launch) -> dict:
     """:func:`decode_check` on a recorded ``paged_decode_attention`` call,
     then the device times of kernel and plain version beside the bound:
-    each cached token's K and V once, q read and the output written once,
-    the lengths and the page-table entries."""
+    each cached token's K and V once (those in the window, when the call
+    has one), q read and the output written once, the lengths and the
+    page-table entries of the pages read."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_decode_attention
     err, peak = decode_check(tag, best)
@@ -2428,28 +2457,31 @@ def decode_row(tag, best, n_launch) -> dict:
     kw = dict(kw)
     kw.pop("use_kernel", None)
     bsz, hkv, g, d = q.shape
-    n_tok = int(sl[:bsz].sum())
+    page, lens = kw["page_size"], sl[:bsz].long()
+    lo = (lens - kw["window"]).clamp(min=0) if kw.get("window") else 0 * lens
+    n_tok = int((lens - lo).sum())
     flops = 4.0 * g * d * hkv * n_tok
-    n_pages = int(((sl[:bsz] + kw["page_size"] - 1)
-                   // kw["page_size"]).sum())
+    n_pages = int(((lens + page - 1) // page - lo // page).sum())
     kv_tok = 2 * hkv * d * kp.element_size()       # one token, K + V
     nbytes = (n_tok * kv_tok
               + 2 * q.numel() * q.element_size() + bsz * 4 + n_pages * 4)
-    # the tensor-core route copies the rows [lo, len) of each sequence
-    # and nothing past len; lo = 0 without a window
-    fetched = n_tok * kv_tok
+    # the tensor-core route copies the rows from lo's page start to len of
+    # each sequence and nothing past len; lo = 0 without a window
+    fetched = int((lens - lo // page * page).sum()) * kv_tok
     ms = time_ms(lambda: paged_decode_attention(q, kp, vp, pt, sl, **kw))
     plain = time_ms(lambda: ref.paged_decode_attention_ref(
         q, kp, vp, pt, sl, **kw))
     b_ms, b_by = bound(nbytes, flops)
+    win = f" in the window of {kw['window']}" if kw.get("window") else ""
     return dict(name=tag, shape=f"q {list(q.shape)} {q.dtype}, "
                 f"pool {list(kp.shape)} {kp.dtype}, {n_tok} cached "
-                f"tokens; kernel fetches {fetched} B of K/V, the "
+                f"tokens{win}; kernel fetches {fetched} B of K/V, the "
                 f"bound counts {n_tok * kv_tok} B",
                 max_abs_err=err, max_abs_want=peak,
                 ms=ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                library=None, launches=n_launch)
+                library="none: a gather and SDPA are two calls",
+                launches=n_launch)
 
 
 #: a 4,096-token qwen2-7b prefill: the shape where the tensor cores, not
@@ -2576,7 +2608,7 @@ def prefill_row(tag, r, n_launch) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def rwkv_decode(model, params, logits, state, steps: int):
+def greedy_decode(model, params, logits, state, steps: int):
     """``steps`` greedy decode steps from prefill ``logits``; the tokens
     stay on the card.  Returns (tokens [B, steps + 1], every step's logits,
     state)."""
@@ -2637,7 +2669,7 @@ def reduced_rwkv_check() -> None:
                 ops.reset_launch_counts()
                 logits, st = model.prefill(params, toks.to(dev), lens.to(dev),
                                            model.init_state(3))
-                out, all_logits, st = rwkv_decode(model, params, logits, st,
+                out, all_logits, st = greedy_decode(model, params, logits, st,
                                                   16)
                 runs[tag] = (out.cpu(), [x.cpu() for x in all_logits],
                              [x.cpu() for x in st], ops.launch_counts())
@@ -2706,7 +2738,7 @@ def rwkv_serve(model, params, tokens):
                                model.init_state(tokens.shape[0]))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    out, _, st = rwkv_decode(model, params, logits, st, RWKV["new"] - 1)
+    out, _, st = greedy_decode(model, params, logits, st, RWKV["new"] - 1)
     torch.cuda.synchronize()
     return out, logits, st, t1 - t0, time.perf_counter() - t1
 
@@ -2823,7 +2855,7 @@ def rwkv_profile(model, params, tokens, steps: int = 8) -> None:
         return
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        rwkv_decode(model, params, logits, st, steps)
+        greedy_decode(model, params, logits, st, steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     log(f"rwkv profile ({model.tm_impl}), {steps} decode steps:")
@@ -2934,6 +2966,462 @@ def wkv_checks(best, counts) -> list[dict]:
                          library="none (no single PyTorch call computes a "
                                  "recurrence)", launches=launches))
     print_rows(rows)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU family: recurrentgemma-9b, decode attention at D 256 with its
+# window, the scan kernel
+# ---------------------------------------------------------------------------
+
+RG_ARCH = "recurrentgemma-9b"
+RG_PAGE = 16
+#: the full-width RG-LRU workload: one batch of 8 equal 512-token prompts
+#: (JAX's prefill carries the state at the padded width, exact only for
+#: equal lengths), 32 greedy new tokens
+RGLRU = dict(batch=8, prompt=512, new=32, seed=6)
+#: the window run: one 2,560-token prompt, then 16 decode steps at
+#: 2,561-2,576 cached tokens, past the 2,048-token window
+RGLRU_WINDOW = dict(prompt=2560, steps=16, seed=7)
+#: the logits check: 2 x 512 tokens and 8 teacher-forced decode steps; the
+#: f32 witness at full widths cut to two superblocks (6 layers)
+RGLRU_LOGITS = dict(batch=2, prompt=512, steps=8, seed=9, f32_layers=6)
+#: kernel path vs plain path: the worst decode row error relative to the
+#: row's largest logit.  bf16: the decode attention's P rounds to bf16 on
+#: the tensor cores and its f32 sums run in another order, about one bf16
+#: step of each output (2^-8), carried through 12 attention layers; the
+#: MoE and VLM paths measured 1.8-4.8 % (PERF.md).  The control readings
+#: of :func:`rglru_faults` show what the bound separates: half of D lost
+#: reads past it, one key dropped of ~540 reads inside it (PERF.md), which
+#: only the direct row check of the recorded call catches.  f32 (CUDA
+#: cores on both sides, exact f32 sums in another order): 1e-4.  The prefill calls
+#: no kernel that rounds differently (the copy and the scan are exact, the
+#: attention plain on both paths), so its logits must be equal.
+RGLRU_LOGIT_BOUND = {"bf16": 0.1, "f32": 1e-4}
+
+
+def rglru_state(model, b: int, n_tok: int, page: int = RG_PAGE, seed=0):
+    """A fresh state whose page table maps each of ``b`` rows' ``n_tok``
+    tokens to distinct shuffled frames (numpy, so the card and the CPU get
+    the same table); the pool's last frame is left free for the decode's
+    scratch row."""
+    import numpy as np
+    import torch
+    per = -(-n_tok // page)
+    perm = np.random.default_rng(seed).permutation(b * per).astype(np.int32)
+    st = model.init_state(b, b * per + 1, page, per)
+    return st._replace(page_table=torch.from_numpy(perm.reshape(b, per)).to(
+        model.device))
+
+
+def rglru_serve(model, params, tokens, steps: int, page: int = RG_PAGE):
+    """Prefill ``tokens [B, S]`` (all S long) on a fresh state, then
+    ``steps`` greedy decode steps.  Returns (tokens [B, steps + 1], every
+    call's logits, state, prefill seconds, decode seconds); the clocks stop
+    after a synchronize."""
+    import torch
+    b, s = tokens.shape
+    lens = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    st = rglru_state(model, b, s + steps, page)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, st = model.prefill(params, tokens, lens, st)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out, all_logits, st = greedy_decode(model, params, logits, st, steps)
+    torch.cuda.synchronize()
+    return out, all_logits, st, t1 - t0, time.perf_counter() - t1
+
+
+#: the kernels of the RG-LRU serve path
+RG_KERNELS = ("rglru_scan", "paged_copy", "paged_decode_attention")
+
+
+def rglru_launches(model, prefills: int, steps: int) -> dict[str, int]:
+    """One ``rglru_scan`` a recurrent layer and call, one copy (K and V
+    in one launch) an attention layer and prefill, one decode attention an
+    attention layer and step."""
+    return {"rglru_scan": model.n_rec * (prefills + steps),
+            "paged_copy": model.n_att * prefills,
+            "paged_decode_attention": model.n_att * steps}
+
+
+def reduced_rglru_check() -> None:
+    """The D 256 decode attention and the scan against their plain
+    versions, then the reduced recurrentgemma-9b (f32, D 16: decode
+    attention on ``"simt"``, window 16) on the card against the CPU: a
+    20-token prefill (its own attention windowed) and 12 greedy steps past
+    the window, identical tokens, logits and state within 1e-4, and the
+    exact launches of :func:`rglru_launches`."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.models import build_model
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ops.reset_launch_counts()
+    for dtype in (torch.bfloat16, torch.float32):
+        for window in (None, 2048, 100):
+            q, kp, vp, table, lens = paged_inputs(
+                gen, dev, b=3, hkv=1, g=16, d=256, page=16, n_frames=483,
+                max_pages=161, lens=[543, 2576, 1], dtype=dtype)
+            got = paged_decode_attention(q, kp, vp, table, lens,
+                                         page_size=16, window=window)
+            want = ref.paged_decode_attention_ref(q, kp, vp, table, lens,
+                                                  page_size=16, window=window)
+            if dtype == torch.float32:
+                err = max_err(got, want)
+                require(err <= 1e-5, f"paged_decode_attention D 256 f32 "
+                                     f"window={window} err {err}")
+            else:
+                bf16_rows_check(f"paged_decode_attention D 256 bf16 "
+                                f"window={window}", got, want)
+    routes = ops.route_counts()["paged_decode_attention"]
+    require(routes == {"mma": 3, "simt": 3},
+            f"D 256 decode attention off its routes: {routes}")
+    for t in (1, 7, 512):
+        a = torch.rand((8, t, 4096), generator=gen, device=dev)
+        bx = torch.randn((8, t, 4096), generator=gen, device=dev)
+        h0 = torch.randn((8, 4096), generator=gen, device=dev)
+        require(torch.equal(rglru_scan(a, bx, h0),
+                            ref.rglru_scan_ref(a, bx, h0)),
+                f"rglru_scan T={t} differs from its plain version")
+    log("check reduced: paged_decode_attention at D 256, G 16 (lengths 543, "
+        "2,576 and 1, window 2,048, 100 and none) bf16 on 'mma' within four "
+        "bf16 steps of each row's peak, f32 on 'simt' within 1e-5; "
+        "rglru_scan at [8, T, 4096], T 1/7/512, bit-identical")
+
+    cfg = get_config(RG_ARCH, reduced=True)
+    cpu_params = build_model(cfg, device="cpu").init(0)
+    gpu_params = to_device(cpu_params, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (3, 20), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(6))
+    steps = 12
+    runs = {}
+    for tag, dev_, params in (("card", "cuda", gpu_params),
+                              ("cpu", "cpu", cpu_params)):
+        model = build_model(cfg, device=dev_)
+        ops.reset_launch_counts()
+        out, all_logits, st, _, _ = rglru_serve(model, params, toks.to(dev_),
+                                                steps, page=4)
+        runs[tag] = (out.cpu(), [x.cpu() for x in all_logits],
+                     [x.cpu() for x in st], ops.launch_counts(),
+                     ops.route_counts())
+    (t_g, l_g, s_g, n_g, r_g), (t_c, l_c, s_c, _, _) = (runs["card"],
+                                                        runs["cpu"])
+    require(torch.equal(t_g, t_c), "reduced recurrentgemma: tokens differ "
+                                   "card vs cpu")
+    err = max(close_err(a, b, 1e-4) for a, b in zip(l_g + s_g[:4],
+                                                    l_c + s_c[:4]))
+    require(err <= 1e-4 and all(torch.equal(a, b) for a, b in
+                                zip(s_g[4:], s_c[4:])),
+            f"reduced recurrentgemma: logits or state off by {err}")
+    require(int(s_g[5].min()) == 20 + steps > cfg.local_window,
+            "reduced recurrentgemma: decode did not pass the window")
+    want = rglru_launches(model, 1, steps)
+    got = {k: n_g[k] for k in want}
+    require(got == want, f"reduced recurrentgemma: launches {got}, "
+                         f"expected {want}")
+    require(r_g["paged_decode_attention"]["simt"] == want[
+        "paged_decode_attention"] and r_g["rglru_scan"]["simt"] == want[
+        "rglru_scan"], f"reduced recurrentgemma: routes {r_g}")
+    log(f"check reduced recurrentgemma-9b (f32, D 16, window "
+        f"{cfg.local_window}): card == cpu greedy tokens (20-token prefill "
+        f"+ {steps} steps to {20 + steps} cached tokens), logits and state "
+        f"within 1e-4; launches {json.dumps(got)}, decode attention on "
+        "'simt'")
+    ops.reset_launch_counts()
+
+
+def rglru_recorders() -> dict:
+    """A :class:`Recorder` for each ``ops`` call of the RG-LRU path: the
+    decode attention, the copy, and the scan's largest prefill (T > 1,
+    ``"rglru_scan"``) and decode (T = 1, ``"rglru_scan_decode"``) calls;
+    the prefill recorder wraps the decode one."""
+    from repro_torch.kernels import ops
+
+    def scan_work(decode: bool):
+        return lambda a, bx, h0, **kw: (a.numel() if (a.shape[1] == 1)
+                                        == decode else -1)
+    dec = Recorder(ops.rglru_scan, scan_work(True))
+    return {
+        "paged_decode_attention": Recorder(
+            ops.paged_decode_attention,
+            lambda q, kp, vp, pt, sl, **kw: int(sl[:q.shape[0]].sum())),
+        "paged_copy_kv": Recorder(
+            ops.paged_copy_kv,
+            lambda k, v, kp, vp, pt, lens, **kw: int(lens.sum())),
+        "rglru_scan": Recorder(dec, scan_work(False)),
+        "rglru_scan_decode": dec,
+    }
+
+
+def rglru_full_model():
+    """recurrentgemma-9b at full width (38 layers, bf16, depth not cut)
+    with random weights from a seeded generator on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(RG_ARCH)
+    model = build_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    log(f"rglru: {RG_ARCH} full width ({cfg.num_layers} layers: "
+        f"{model.n_rec} RG-LRU, {model.n_att} local attention; d_model "
+        f"{cfg.d_model}, {cfg.num_heads} query heads and "
+        f"{cfg.num_kv_heads} KV head of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, window {cfg.local_window}, bf16) "
+        f"initialised on the card in {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB [{CARD}]")
+    return cfg, model, params
+
+
+def rglru_run(tag, cfg, model, params, tokens, steps):
+    """An untimed warm-up of the run with :func:`rglru_recorders` on (the
+    inputs of its largest calls), then the timed run with the launch
+    counts zeroed just before and read just after: exact launches, every
+    decode attention on ``"mma"``, every copy on ``"burst"``; then the
+    recorded copy bit-identical to its plain version (:func:`copy_check`).
+    Returns (launches, last state, the recorders)."""
+    import torch
+    from repro_torch.kernels import ops
+    rec = rglru_recorders()
+    saved = {n: getattr(ops, n) for n in ("paged_decode_attention",
+                                          "paged_copy_kv", "rglru_scan")}
+    for n in saved:
+        setattr(ops, n, rec[n])
+    try:
+        rglru_serve(model, params, tokens, steps)
+    finally:
+        for n, f in saved.items():
+            setattr(ops, n, f)
+    ops.reset_launch_counts()
+    out, logits, st, pre_s, dec_s = rglru_serve(model, params, tokens, steps)
+    launches, routes = ops.launch_counts(), ops.route_counts()
+    want = rglru_launches(model, 1, steps)
+    got = {k: launches[k] for k in want}
+    require(got == want, f"{tag}: launches {got}, expected {want}")
+    require(routes["paged_decode_attention"]["mma"] == want[
+        "paged_decode_attention"] and routes["paged_copy"]["burst"] == want[
+        "paged_copy"], f"{tag}: off the tensor-core / burst routes: {routes}")
+    b, s = tokens.shape
+    require(out.shape == (b, steps + 1)
+            and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+            f"{tag}: tokens of the wrong shape or outside the vocabulary")
+    require(all(bool(torch.isfinite(x).all()) for x in logits),
+            f"{tag}: non-finite logits")
+    require(bool((st.seq_lens == s + steps).all()), f"{tag}: seq_lens wrong")
+    copy_check(rec["paged_copy_kv"].best, f"{tag} ")
+    n_tok = out.numel()
+    log(f"{tag}: {b} x {s}-token prompts, {n_tok} tokens in "
+        f"{pre_s + dec_s:.3f}s = {n_tok / (pre_s + dec_s):.1f} tok/s; prefill "
+        f"(TTFT of the batch) {pre_s * 1e3:.1f} ms = {b * s / pre_s:.0f} "
+        f"prompt tok/s, decode {dec_s / steps * 1e3:.2f} ms/step (TPOT) over "
+        f"{steps} steps to {s + steps} cached tokens; launches "
+        f"{json.dumps(got)} [{CARD}]")
+    k = rec["paged_copy_kv"].best[0][0]
+    log(f"check {tag}: paged_copy (pair and single) bit-identical to its "
+        f"plain version on the burst route at src {list(k.shape)} {k.dtype}")
+    return launches, st, rec
+
+
+def rglru_faults() -> dict:
+    """Decode attentions with a planted fault, for the control readings of
+    :func:`rglru_logits_phase`: ``"half D"`` zeroes each output's dims
+    128-255 (a D 256 kernel that accumulated only a D 128 tile),
+    ``"newest key dropped"`` attends to ``seq_lens - 1`` keys (an
+    off-by-one at the tail)."""
+    from repro_torch.kernels import ops
+    real = ops.paged_decode_attention
+
+    def half_d(q, kp, vp, pt, sl, **kw):
+        o = real(q, kp, vp, pt, sl, **kw)
+        o[..., 128:] = 0
+        return o
+
+    def stale(q, kp, vp, pt, sl, **kw):
+        return real(q, kp, vp, pt, sl - 1, **kw)
+    return {"half D": half_d, "newest key dropped": stale}
+
+
+def rglru_logits_phase(cfg, model, params) -> None:
+    """The kernel path against the plain path (``use_kernels=False``: the
+    plain scan, copy and decode attention), teacher forced on the same
+    tokens (:func:`teacher_forced`), in bf16 at full width and in f32 at
+    full widths cut to ``RGLRU_LOGITS["f32_layers"]`` layers (the bf16
+    weights upcast): the prefill logits equal, each decode call's worst
+    row error relative to the row's largest logit within
+    :data:`RGLRU_LOGIT_BOUND`.  In bf16 the plain path is also run with
+    each fault of :func:`rglru_faults` planted in its decode attention,
+    the control readings: the ``"half D"`` fault must exceed the bound,
+    the other is printed."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    c = RGLRU_LOGITS
+    rng = np.random.default_rng(c["seed"])
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (c["batch"], c["prompt"])).astype(np.int32)).cuda()
+    b, s = tokens.shape
+    lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+
+    def forced(model_, params_, fed):
+        return teacher_forced(model_, params_, tokens, lens, c["steps"], fed,
+                              state=rglru_state(model_, b, s + c["steps"]))
+
+    def rel_gap(a, ref_):
+        return [float(r) for r in ((a - ref_).abs().amax(-1)
+                                   / ref_.abs().amax(-1)).amax(-1)]
+
+    def compare(tag, bound_, model_, params_, fed=None):
+        kern, fed, _ = forced(model_, params_, fed)
+        ops.reset_launch_counts()
+        plain, _, _ = forced(plain_of(model_), params_, fed)
+        require(sum(ops.launch_counts().values()) == 0,
+                f"rglru logits ({tag}): the plain path launched a kernel")
+        require(all(bool(torch.isfinite(x).all()) for x in (kern, plain)),
+                f"rglru logits ({tag}): non-finite logits")
+        rel = rel_gap(kern, plain)
+        require(torch.equal(kern[0], plain[0]),
+                f"rglru logits ({tag}): the prefill logits differ "
+                f"({rel[0]:.3g} of a row's peak)")
+        require(max(rel[1:]) <= bound_,
+                f"rglru logits ({tag}): a decode row is {max(rel[1:]):.4g} "
+                f"of its peak off the plain path's, bound {bound_}")
+        log(f"rglru logits ({tag}, kernel vs plain path, {b} x {s} tokens, "
+            "teacher forced): prefill equal; worst row error / row peak of "
+            "the decode steps " + ", ".join(f"{r:.4g}" for r in rel[1:])
+            + f" (bound {bound_}); {torch.cuda.memory_allocated() / 1e9:.1f}"
+            f" GB allocated [{CARD}]")
+        return fed, plain
+
+    bound_ = RGLRU_LOGIT_BOUND["bf16"]
+    fed, plain = compare(f"bf16, {cfg.num_layers} layers", bound_, model,
+                         params)
+    real = ops.paged_decode_attention
+    for name, fault in rglru_faults().items():
+        ops.paged_decode_attention = fault
+        try:
+            ctl, _, _ = forced(plain_of(model), params, fed)
+        finally:
+            ops.paged_decode_attention = real
+        rel = rel_gap(ctl, plain)
+        require(name != "half D" or max(rel[1:]) > bound_,
+                f"rglru logits control ({name}): {max(rel[1:]):.4g} of a "
+                f"row's peak, inside the bound {bound_}")
+        log(f"rglru logits control (bf16, plain path with the fault "
+            f"'{name}' in its decode attention vs plain path): worst row "
+            "error / row peak of the decode steps "
+            + ", ".join(f"{r:.4g}" for r in rel[1:]) + f" (bound {bound_}"
+            + ("; must exceed it)" if name == "half D" else "; printed)"))
+    n = c["f32_layers"]
+    model32 = build_model(dataclasses.replace(cfg, num_layers=n,
+                                              param_dtype="float32"),
+                          device="cuda")
+    params32 = to_device(dict(params, layers=params["layers"][:n]),
+                         torch.float32)
+    compare(f"f32, full widths, {n} layers", RGLRU_LOGIT_BOUND["f32"],
+            model32, params32, fed)
+
+
+def rglru_profile(model, params, tokens, steps: int = 8) -> None:
+    """An untimed, traced repeat (torch.profiler) of the batch's prefill
+    and ``steps`` decode steps: the device's busy share and device time by
+    kernel for each half, and the share of the two kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import print_profile
+    b, s = tokens.shape
+    lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    st = rglru_state(model, b, s + steps)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for half in ("prefill", f"{steps} decode steps"):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            if half == "prefill":
+                logits, st = model.prefill(params, tokens, lens, st)
+            else:
+                greedy_decode(model, params, logits, st, steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        log(f"rglru profile, {half}:")
+        print_profile(prof, wall, top=10)
+        for name in ("rglru_scan_kernel", "paged_decode_mma_kernel"):
+            ms, count, share = kernel_share(prof, name)
+            log(f"rglru profile, {half}: {name} {ms:.3f} ms over {count} "
+                f"launches, {share:.2f}% of device time")
+
+
+def scan_row(name, args, launches) -> dict:
+    """``rglru_scan`` on recorded inputs: bit-identical to its plain
+    version, then the device times of both beside the bound (a and bx read
+    once, h0 read and h written once, all f32; two f32 operations an
+    element at the CUDA-core peak).  The plain version is a Python loop of
+    two launches a step and is timed with fewer repeats."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    a, bx, h0 = args
+    got, want = rglru_scan(a, bx, h0), ref.rglru_scan_ref(a, bx, h0)
+    require(got.equal(want),
+            f"{name}: the kernel differs from its plain version")
+    b, t, r = a.shape
+    ms = time_ms(lambda: rglru_scan(a, bx, h0))
+    plain = time_ms(lambda: ref.rglru_scan_ref(a, bx, h0),
+                    **(dict(n=3, reps=3) if t > 1 else {}))
+    b_ms, b_by = bound_f32(4.0 * (3 * a.numel() + h0.numel()),
+                           2.0 * a.numel())
+    return dict(name=name, shape=f"a, bx [{b}, {t}, {r}] f32, h0 given",
+                max_abs_err=max_err(got, want),
+                max_abs_want=float(want.abs().max()), ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None,
+                library="none (no single PyTorch call computes a linear "
+                        "recurrence)", launches=launches)
+
+
+def rglru_phases() -> list[dict]:
+    """recurrentgemma-9b at full width: the batch run (8 x 512 tokens, 32
+    greedy tokens) and the window run (a 2,560-token prompt, 16 steps past
+    the window), the kernel-vs-plain logits, a traced repeat, and the D
+    256 decode attention and scan rows; the weights are freed on return."""
+    import numpy as np
+    import torch
+    cfg, model, params = rglru_full_model()
+    rng = np.random.default_rng(RGLRU["seed"])
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (RGLRU["batch"], RGLRU["prompt"])).astype(
+        np.int32)).cuda()
+    rng = np.random.default_rng(RGLRU_WINDOW["seed"])
+    tokens_w = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, RGLRU_WINDOW["prompt"])).astype(
+        np.int32)).cuda()
+    steps = RGLRU["new"] - 1
+    batch, _, rec = rglru_run("rglru batch", cfg, model, params, tokens,
+                              steps)
+    window, st, rec_w = rglru_run("rglru window", cfg, model, params,
+                                  tokens_w, RGLRU_WINDOW["steps"])
+    require(int(st.seq_lens[0]) - RGLRU_WINDOW["steps"] >= cfg.local_window,
+            "rglru window: the decode steps did not pass the window")
+    rglru_logits_phase(cfg, model, params)
+    rglru_profile(model, params, tokens)
+    rows = [decode_row("paged_decode_attention_d256",
+                       rec["paged_decode_attention"].best,
+                       batch["paged_decode_attention"]),
+            decode_row("paged_decode_attention_d256_window",
+                       rec_w["paged_decode_attention"].best,
+                       window["paged_decode_attention"]),
+            scan_row("rglru_scan", rec["rglru_scan"].best[0], model.n_rec),
+            scan_row("rglru_scan_decode", rec["rglru_scan_decode"].best[0],
+                     model.n_rec * steps)]
+    print_rows(rows)
+    log(f"rglru: kernel launches on the serve runs [{CARD}]: batch "
+        + json.dumps({k: batch[k] for k in RG_KERNELS}) + ", window "
+        + json.dumps({k: window[k] for k in RG_KERNELS}))
     return rows
 
 
@@ -3698,15 +4186,18 @@ def fresh_state(model, b: int, s: int, steps: int):
                                 device=model.device).view(b, per))
 
 
-def teacher_forced(model, params, tokens, lens, steps, forced=None):
-    """One prefill of ``tokens [B, S]`` and ``steps`` decode steps on a
-    fresh state, each decode step fed ``forced[t]`` (or its own argmax);
-    returns the logits of each call ``[steps + 1, B, V]`` (f32), the tokens
-    fed, and the expert ids of every ``router_topk`` call in order (none
-    for a model without MoE layers)."""
+def teacher_forced(model, params, tokens, lens, steps, forced=None,
+                   state=None):
+    """One prefill of ``tokens [B, S]`` and ``steps`` decode steps on
+    ``state`` (a fresh KV state by default), each decode step fed
+    ``forced[t]`` (or its own argmax); returns the logits of each call
+    ``[steps + 1, B, V]`` (f32), the tokens fed, and the expert ids of
+    every ``router_topk`` call in order (none for a model without MoE
+    layers)."""
     import torch
     from repro_torch.models import moe
-    st = fresh_state(model, *tokens.shape, steps)
+    st = state if state is not None else fresh_state(model, *tokens.shape,
+                                                     steps)
     ids, real = [], moe.router_topk
 
     def tap(p, x, k):
@@ -4475,6 +4966,7 @@ def main() -> int:
         reduced_family_check()
         reduced_router_check()
         reduced_rwkv_check()
+        reduced_rglru_check()
         reduced_vm_checks()
         if quick:
             log("quick: stopping after the reduced checks")
@@ -4486,6 +4978,9 @@ def main() -> int:
             "allocated")
         rows += rwkv_phases()
         gc.collect()                   # free the rwkv6-7b weights first
+        torch.cuda.empty_cache()
+        rows += rglru_phases()
+        gc.collect()                   # free the recurrentgemma-9b weights
         torch.cuda.empty_cache()
         rows += moe_phases()
         gc.collect()                   # free the granite-moe weights first
@@ -4504,7 +4999,9 @@ def main() -> int:
         f"[{CARD}]")
     kernels = []
     for r in rows:
-        source, replaces = KERNELS[r["name"].removesuffix("_g1")
+        source, replaces = KERNELS[r["name"].removesuffix("_window")
+                                   .removesuffix("_d256")
+                                   .removesuffix("_g1")
                                    .removesuffix("_prefill")
                                    .removesuffix("_int8")
                                    .removesuffix("_decode")

@@ -24,7 +24,7 @@
 // Two kernels; the caller picks one before the launch
 // (kernels/paged_attention.py `decode_route`):
 //
-// * mma (bf16 q; bf16 or int8 pools; D % 16 == 0 up to 128; page % 8 ==
+// * mma (bf16 q; bf16 or int8 pools; D % 16 == 0 up to 256; page % 8 ==
 //   0; G <= 16): one launch.  A split takes its own sequence's reached
 //   pages, cut evenly over n_split (<= 8), so no split of a short sequence
 //   sits idle while another walks several pages.  Its 4 warps take the
@@ -37,7 +37,12 @@
 //   the splits of a (sequence, KV head), one thread block cluster, merge
 //   through distributed shared memory: at these sizes the call is a chain
 //   of device-memory round trips, and a merge through scratch in device
-//   memory (the last split to arrive, by a counter) added one per split;
+//   memory (the last split to arrive, by a counter) added one per split.
+//   A template on the largest D (128 or 256): at 256 a warp's output
+//   accumulator alone is 128 registers a thread, so Q's A fragments are
+//   staged once in shared memory and read per k-step instead of held in
+//   64 more registers, and the 3-stage ring of 528-byte rows takes 198 KB
+//   (one block a SM); the D <= 128 code is unchanged;
 //
 // * simt (f32, other D, pages or views): each split walks
 //   `pages_per_split` pages of the table's width, staging up to 64 tokens
@@ -264,7 +269,8 @@ constexpr int NT = 128;        // 4 warps, each an independent stream of slices
 constexpr int NW = NT / 32;
 constexpr int SLICE = 16;      // keys a warp takes at once
 constexpr int STAGES = 3;      // slices in flight per warp
-constexpr int DMAX = 128;
+constexpr int DMAX = 256;      // the largest D; Q in registers up to QREG_D
+constexpr int QREG_D = 128;
 constexpr int GMAX = 16;       // query heads: the A rows, padded to 16
 constexpr int NSMAX = 8;       // splits: a portable cluster's largest size
 
@@ -330,16 +336,22 @@ __device__ __forceinline__ uint32_t deq2(int8_t lo, int8_t hi, float scale)
 
 // Shared memory: each warp's ring of STAGES x (K slice, V slice), rows of
 // D elements padded by 16 bytes (so 8 rows read at one column fall in 8
-// different bank groups); reused after the loop for the warps' merge, and
-// in the last split for the splits' weights.
+// different bank groups), then, for D > QREG_D, Q as 16 bf16 rows of D + 8
+// (zero past G); the ring is reused after the loop for the warps' merge.
 __host__ __device__ __forceinline__ int row_bytes(int D, bool quant)
 {
     return D * (quant ? 1 : 2) + 16;
 }
 
+__host__ __device__ __forceinline__ int ring_bytes(int D, bool quant)
+{
+    return NW * STAGES * 2 * SLICE * row_bytes(D, quant);
+}
+
 __host__ __device__ __forceinline__ int smem_bytes(int D, bool quant)
 {
-    const int ring = NW * STAGES * 2 * SLICE * row_bytes(D, quant);
+    const int q = D > QREG_D ? GMAX * (D + 8) * 2 : 0;
+    const int ring = ring_bytes(D, quant) + q;
     const int merge = (NW + 1) * GMAX * (2 + D + 8) * 4;
     return ring > merge ? ring : merge;
 }
@@ -353,7 +365,7 @@ __host__ __device__ __forceinline__ int smem_bytes(int D, bool quant)
 // ranks merge the partials through distributed shared memory, each rank
 // writing 1 / n_split of the output.  Nothing goes through device memory
 // but q, the pages read and the output.
-template <bool QUANT>
+template <int DM, bool QUANT>
 __global__ void __launch_bounds__(NT) paged_decode_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_pool,
     const void* __restrict__ v_pool, const int* __restrict__ table,
@@ -371,17 +383,35 @@ __global__ void __launch_bounds__(NT) paged_decode_mma_kernel(
     uint8_t* ring = smem + warp * STAGES * 2 * SB;
 
     // Q as A fragments: rows are the G heads, zero past G (loaded before
-    // the length, which the rest depends on)
+    // the length, which the rest depends on).  Up to QREG_D held in
+    // registers; past it staged in shared memory behind the ring and read
+    // per k-step (rows of D + 8: 8 rows at one column in 8 bank groups)
+    constexpr bool QSMEM = DM > QREG_D;
     const int nk = D / 16;
-    uint32_t qa[DMAX / 16][4];
     const __nv_bfloat16* qh = q + ((long long)b * Hkv + h) * G * D;
+    uint32_t qa[QSMEM ? 1 : DM / 16][4];
+    const int QLD = D + 8;
+    __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(
+        smem + ring_bytes(D, QUANT));
+    if constexpr (QSMEM) {
+        for (int i = tid; i < GMAX * (D / 8); i += NT) {
+            const int row = i / (D / 8), c = i % (D / 8);
+            *reinterpret_cast<uint4*>(qs + row * QLD + c * 8) = row < G
+                ? *reinterpret_cast<const uint4*>(qh + row * D + c * 8)
+                : make_uint4(0u, 0u, 0u, 0u);
+        }
+        __syncthreads();
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < DMAX / 16; ++kk) {
+        for (int kk = 0; kk < DM / 16; ++kk) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int row = g4 + 8 * (j & 1), col = kk * 16 + 2 * t4 + 8 * (j >> 1);
-            qa[kk][j] = (kk < nk && row < G)
-                ? *reinterpret_cast<const uint32_t*>(qh + row * D + col) : 0u;
+            for (int j = 0; j < 4; ++j) {
+                const int row = g4 + 8 * (j & 1);
+                const int col = kk * 16 + 2 * t4 + 8 * (j >> 1);
+                qa[kk][j] = (kk < nk && row < G)
+                    ? *reinterpret_cast<const uint32_t*>(qh + row * D + col)
+                    : 0u;
+            }
         }
     }
 
@@ -446,9 +476,9 @@ __global__ void __launch_bounds__(NT) paged_decode_mma_kernel(
         cp_async_commit();
     };
 
-    float oacc[DMAX / 8][4];
+    float oacc[DM / 8][4];
 #pragma unroll
-    for (int n = 0; n < DMAX / 8; ++n)
+    for (int n = 0; n < DM / 8; ++n)
         oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
@@ -466,8 +496,20 @@ __global__ void __launch_bounds__(NT) paged_decode_mma_kernel(
         // one key row
         float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-        for (int kk = 0; kk < DMAX / 16; ++kk) {
+        for (int kk = 0; kk < DM / 16; ++kk) {
             if (kk >= nk) break;
+            uint32_t af[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                if constexpr (QSMEM) {
+                    const int row = g4 + 8 * (j & 1);
+                    const int col = kk * 16 + 2 * t4 + 8 * (j >> 1);
+                    af[j] = *reinterpret_cast<const uint32_t*>(
+                        qs + row * QLD + col);
+                } else {
+                    af[j] = qa[kk][j];
+                }
+            }
 #pragma unroll
             for (int n = 0; n < 2; ++n) {
                 const uint8_t* kr = kt + (n * 8 + g4) * RS;
@@ -481,7 +523,7 @@ __global__ void __launch_bounds__(NT) paged_decode_mma_kernel(
                     b0 = *reinterpret_cast<const uint32_t*>(kr + 2 * d);
                     b1 = *reinterpret_cast<const uint32_t*>(kr + 2 * d + 16);
                 }
-                mma_bf16(sc[n], qa[kk], b0, b1);
+                mma_bf16(sc[n], af, b0, b1);
             }
         }
 
@@ -529,7 +571,7 @@ __global__ void __launch_bounds__(NT) paged_decode_mma_kernel(
 
         // O += P V over n-tiles of 8 columns of D
 #pragma unroll
-        for (int n = 0; n < DMAX / 8; ++n) {
+        for (int n = 0; n < DM / 8; ++n) {
             oacc[n][0] *= alpha[0];
             oacc[n][1] *= alpha[0];
             oacc[n][2] *= alpha[1];
@@ -538,7 +580,7 @@ __global__ void __launch_bounds__(NT) paged_decode_mma_kernel(
         if (QUANT) {
             const int8_t* e = reinterpret_cast<const int8_t*>(vt);
 #pragma unroll
-            for (int n = 0; n < DMAX / 8; ++n) {
+            for (int n = 0; n < DM / 8; ++n) {
                 if (n >= 2 * nk) break;
                 const int d = n * 8 + g4;
                 const uint32_t b0 = deq2(e[(2 * t4) * RS + d],
@@ -553,7 +595,7 @@ __global__ void __launch_bounds__(NT) paged_decode_mma_kernel(
             const uint8_t* vrow =
                 vt + ((lane & 7) + 8 * ((lane >> 3) & 1)) * RS + 16 * (lane >> 4);
 #pragma unroll
-            for (int dd = 0; dd < DMAX / 16; ++dd) {
+            for (int dd = 0; dd < DM / 16; ++dd) {
                 if (dd >= nk) break;
                 uint32_t bv[4];
                 ldmatrix_x4_trans(bv, vrow + dd * 32);
@@ -587,7 +629,7 @@ __global__ void __launch_bounds__(NT) paged_decode_mma_kernel(
         }
     }
 #pragma unroll
-    for (int n = 0; n < DMAX / 8; ++n) {
+    for (int n = 0; n < DM / 8; ++n) {
         if (n >= 2 * nk) break;
 #pragma unroll
         for (int e = 0; e < 4; ++e)
@@ -662,7 +704,7 @@ __global__ void __launch_bounds__(NT) paged_decode_mma_kernel(
     cluster.sync();
 }
 
-template <bool QUANT>
+template <int DM, bool QUANT>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* table, const void* lens, void* o, int B, int Hkv,
            int G, int D, int page, int max_pages, long long table_sb,
@@ -671,7 +713,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 {
     const int smem = smem_bytes(D, QUANT);
     cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_mma_kernel<QUANT>,
+        paged_decode_mma_kernel<DM, QUANT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     // one cluster of n_split blocks per (sequence, KV head)
@@ -688,7 +730,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(
-        &cfg, paged_decode_mma_kernel<QUANT>,
+        &cfg, paged_decode_mma_kernel<DM, QUANT>,
         static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
         static_cast<const int*>(table), static_cast<const int*>(lens),
         static_cast<__nv_bfloat16*>(o), Hkv, G, D, page, max_pages, table_sb,
@@ -706,9 +748,10 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 // means no window.  simt: part_acc / part_ml are f32 scratch of
 // B * Hkv * n_split * G * D and B * Hkv * n_split * G * 2 elements, and
 // each split covers pages_per_split pages, staged tile_pages at a time.
-// use_mma selects the tensor-core kernel (bf16, D % 16 == 0, page % 8 ==
-// 0, G <= 16, 16-byte-aligned bases, n_split <= 8: a cluster), whose
-// splits cut each sequence's own pages and which needs no scratch.
+// use_mma selects the tensor-core kernel (bf16, D % 16 == 0 up to 256,
+// page % 8 == 0, G <= 16, 16-byte-aligned bases, n_split <= 8: a
+// cluster), whose splits cut each sequence's own pages and which needs no
+// scratch; D <= 128 and D <= 256 are two instantiations.
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pool, const void* v_pool, const void* table,
     const void* lens, void* o, void* part_acc, void* part_ml, int B, int Hkv,
@@ -725,8 +768,11 @@ extern "C" int paged_decode_attention_launch(
             return (int)cudaErrorInvalidValue;
 #define ARGS q, k_pool, v_pool, table, lens, o, B, Hkv, G, D, page, \
     max_pages, table_sb, window, scale, kv_scale, n_split, st
-        if (quantized) return mma::launch<true>(ARGS);
-        return mma::launch<false>(ARGS);
+        if (D > mma::QREG_D)
+            return quantized ? mma::launch<mma::DMAX, true>(ARGS)
+                             : mma::launch<mma::DMAX, false>(ARGS);
+        return quantized ? mma::launch<mma::QREG_D, true>(ARGS)
+                         : mma::launch<mma::QREG_D, false>(ARGS);
 #undef ARGS
     }
 #define ARGS q, k_pool, v_pool, table, lens, o, acc, ml, B, Hkv, G, D, page, \

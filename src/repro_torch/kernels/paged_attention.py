@@ -12,15 +12,19 @@ after its load.  :func:`decode_route` picks one of two kernels before the
 launch:
 
 * ``"mma"``: bf16 q with bf16 or int8 pools, D a multiple of 16 up to
-  128, pages of a multiple of 8, G <= 16, 16-byte-aligned bases — the
+  256, pages of a multiple of 8, G <= 16, 16-byte-aligned bases — the
   serve path's operands — on the tensor cores (``mma.sync`` with the G
   heads as rows, 16-key slices through per-warp ``cp.async`` rings, each
   split sized by its own sequence's pages, one launch: the splits of a
   (sequence, KV head) are one thread block cluster of at most
   :data:`MMA_SPLITS_MAX` blocks and merge through distributed shared
-  memory, with no scratch);
+  memory, with no scratch); past D 128 (recurrentgemma-9b's 256) Q's
+  fragments are staged in shared memory instead of registers;
 * ``"simt"``: f32, other shapes and misaligned views, on the CUDA cores
   (splits of the table's width, f32 staging, a second merge launch).
+
+Both routes take D up to :data:`D_MAX` = 256, G up to 16 and pages up to
+64 tokens.
 
 Replaces the TPU kernel ``paged_decode_attention`` of
 ``src/repro/kernels/paged_attention.py``.
@@ -38,7 +42,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-D_MAX = 128
+D_MAX = 256
 G_MAX = 16
 PAGE_MAX = 64
 ROUTES = ("mma", "simt")
@@ -47,7 +51,8 @@ ROUTES = ("mma", "simt")
 MMA_SPLITS_MAX = 8
 
 
-#: tokens a block stages in shared memory at once (whole pages)
+#: tokens a ``simt`` block stages in shared memory at once (whole pages)
+#: at D <= 128; fewer past it (:func:`split_plan`)
 TILE_TOKENS = 64
 
 
@@ -57,18 +62,22 @@ def _sm_count(index: int) -> int:
 
 
 def split_plan(b: int, hkv: int, max_pages: int, page_size: int,
-               sms: int) -> tuple[int, int, int]:
+               sms: int, head_dim: int) -> tuple[int, int, int]:
     """``(pages_per_split, n_split, tile_pages)``: enough splits that the
     ``b * hkv * n_split`` blocks cover every SM about twice, no split
-    shorter than one page, and tiles of whole pages up to 64 tokens.  The
-    ``simt`` route cuts the table's width into ``n_split`` ranges of
-    ``pages_per_split``; the ``mma`` route takes ``min(n_split,
-    MMA_SPLITS_MAX)`` and cuts each sequence's own reached pages evenly.
-    A pure host function, so a captured launch keeps its grid."""
+    shorter than one page, and tiles of whole pages up to 64 tokens at
+    ``head_dim`` <= 128, ``64 * 128 / head_dim`` past it (the ``simt``
+    block's f32 staging at D 256 and G 16: ~100 KB for 32 tokens, 168 KB
+    for 64), and never less than one page.  The ``simt`` route cuts the
+    table's width into ``n_split`` ranges of ``pages_per_split``; the
+    ``mma`` route takes ``min(n_split, MMA_SPLITS_MAX)`` and cuts each
+    sequence's own reached pages evenly.  A pure host function, so a
+    captured launch keeps its grid."""
     n_split = max(1, min(max_pages, -(-2 * sms // max(b * hkv, 1))))
     pps = -(-max_pages // n_split)
     n_split = -(-max_pages // pps)
-    tile_pages = max(1, min(pps, TILE_TOKENS // page_size))
+    tile_tokens = TILE_TOKENS * 128 // max(head_dim, 128)
+    tile_pages = max(1, min(pps, tile_tokens // page_size))
     return pps, n_split, tile_pages
 
 
@@ -76,7 +85,7 @@ def decode_route(q, k_pool, v_pool, page_size: int) -> str:
     """Which kernel a call launches:
 
       * ``"mma"``: bf16 q with bf16 or int8 pools, D a multiple of 16 up
-        to 128, ``page_size`` a multiple of 8, G <= 16, and 16-byte-aligned
+        to 256, ``page_size`` a multiple of 8, G <= 16, and 16-byte-aligned
         bases of q and both pools;
       * ``"simt"``: every other call (f32, D = 14, page 4, a misaligned
         view).
@@ -148,7 +157,7 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens, *,
     route = decode_route(q, k_pool, v_pool, page_size)
     max_pages = page_table.shape[1]
     pps, n_split, tile_pages = split_plan(
-        b, hkv, max_pages, page_size, _sm_count(q.device.index or 0))
+        b, hkv, max_pages, page_size, _sm_count(q.device.index or 0), d)
     if route == "mma":                  # a cluster per (b, h), no scratch
         n_split = min(n_split, MMA_SPLITS_MAX)
         part_acc = part_ml = out

@@ -62,6 +62,76 @@ def flash_attention_ref(
     return o.reshape(b, hq, sq, d).to(q.dtype)
 
 
+def chunked_attention_ref(
+    q: torch.Tensor,      # [B, Hq, Sq, D]
+    k: torch.Tensor,      # [B, Hkv, Sk, D]
+    v: torch.Tensor,      # [B, Hkv, Sk, D]
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    bk: int = 512,
+) -> torch.Tensor:
+    """Online-softmax attention over KV blocks of ``bk`` keys (the JAX
+    package's ``chunked_attention_ref``, ``src/repro/kernels/ref.py:51``):
+    a running max, normaliser and accumulator in f32 carried block to
+    block, masked scores at -1e30.  Queries sit at the end of the keys
+    (``q_pos = arange(Sq) + Sk - Sq``); ``window`` keeps keys in
+    ``(q_pos - window, q_pos]``.  Plain in both packages (RG-LRU's
+    windowed prefill attention); one ``[B, Hq, Sq, bk]`` score block is
+    live at a time."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hkv, g, sq, d).float()
+    q_pos = torch.arange(sq, device=q.device) + (sk - sq)
+    m = torch.full((b, hkv, g, sq), _NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, d), dtype=torch.float32,
+                      device=q.device)
+    for k0 in range(0, sk, bk):
+        kblk = k[:, :, k0:k0 + bk].float()
+        vblk = v[:, :, k0:k0 + bk].float()
+        pad = bk - kblk.shape[2]                 # the last block's zero keys
+        if pad:
+            kblk = torch.nn.functional.pad(kblk, (0, 0, 0, pad))
+            vblk = torch.nn.functional.pad(vblk, (0, 0, 0, pad))
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kblk) * scale
+        k_pos = k0 + torch.arange(bk, device=q.device)
+        valid = (k_pos < sk)[None, :].expand(sq, bk)
+        if causal:
+            valid = valid & (q_pos[:, None] >= k_pos[None, :])
+        if window is not None:
+            valid = valid & (q_pos[:, None] - k_pos[None, :] < window)
+        s = torch.where(valid, s, _NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p,
+                                                    vblk)
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    return (acc / l[..., None]).reshape(b, hq, sq, d).to(q.dtype)
+
+
+def rglru_scan_ref(a: torch.Tensor, bx: torch.Tensor,
+                   h0: torch.Tensor) -> torch.Tensor:
+    """The RG-LRU recurrence one step at a time: ``h_t = a_t * h_{t-1} +
+    bx_t`` from ``h_{-1} = h0``, one rounded product and one rounded sum a
+    step (the kernel's arithmetic).  a, bx ``[B, T, R]``, h0 ``[B, R]``,
+    all f32; returns ``h [B, T, R]``.  JAX folds ``h0`` into ``bx[:, 0]``
+    and runs an associative scan, which sums in another order."""
+    h = torch.empty_like(a)
+    hv = h0
+    for t in range(a.shape[1]):
+        hv = a[:, t] * hv + bx[:, t]
+        h[:, t] = hv
+    return h
+
+
 def paged_decode_attention_ref(
     q: torch.Tensor,            # [B, Hkv, G, D]
     k_pool: torch.Tensor,       # [P, page, Hkv, D]

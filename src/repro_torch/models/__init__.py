@@ -1,30 +1,24 @@
 """Model zoo of the port: the GQA transformer (dense, MoE, VLM and audio
-families) and the RWKV-6 family (a later slice adds the RG-LRU
-family)."""
+families), the RWKV-6 family and the RG-LRU hybrid (RecurrentGemma)."""
 
 from typing import Any
 
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import rglru, rwkv6, transformer
 from repro_torch.models.config import SHAPES, ModelConfig, ShapeConfig
+from repro_torch.models.rglru import HybridState, RecurrentGemmaLM
 from repro_torch.models.rwkv6 import RecurrentState, RWKV6LM
 from repro_torch.models.transformer import PagedKVState, TransformerLM
 
-#: the slice of the port that brings each family not ported yet
-_LATER = {
-    "hybrid_rglru": "the RG-LRU slice",
-}
 
-
-def build_model(cfg: ModelConfig, **kwargs: Any) -> TransformerLM | RWKV6LM:
+def build_model(cfg: ModelConfig, **kwargs: Any
+                ) -> TransformerLM | RWKV6LM | RecurrentGemmaLM:
     """Factory: the family's LM (``device=None`` means the card)."""
     if cfg.family in transformer.FAMILIES:
         return TransformerLM(cfg, **kwargs)
     if cfg.family == "rwkv6":
         return RWKV6LM(cfg, **kwargs)
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; it comes "
-            f"with {_LATER[cfg.family]} of the PyTorch port (ROADMAP.md)")
+    if cfg.family == "hybrid_rglru":
+        return RecurrentGemmaLM(cfg, **kwargs)
     raise ValueError(f"unknown family {cfg.family}")
 
 
@@ -33,14 +27,18 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device) -> dict:
     numpy arrays) to the port's parameters on ``device``."""
     if cfg.family == "rwkv6":
         return rwkv6.params_from_jax(np_params, cfg, device)
+    if cfg.family == "hybrid_rglru":
+        return rglru.params_from_jax(np_params, cfg, device)
     return transformer.params_from_jax(np_params, cfg, device)
 
 
 __all__ = [
     "SHAPES",
+    "HybridState",
     "ModelConfig",
     "PagedKVState",
     "RWKV6LM",
+    "RecurrentGemmaLM",
     "RecurrentState",
     "ShapeConfig",
     "TransformerLM",

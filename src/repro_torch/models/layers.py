@@ -1,5 +1,5 @@
 """Dense-transformer layers in PyTorch: norms, RoPE and M-RoPE, GQA
-projections, MLP.
+projections, MLP, the tanh GELU.
 
 Conventions (those of ``src/repro/models/layers.py``):
   * params are plain dicts of tensors; weights keep the JAX ``[in, out]``
@@ -156,6 +156,12 @@ def qkv_project(params: Params, x: torch.Tensor, cfg):
     k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     return q, k, v
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` with its default ``approximate=True``: the tanh
+    form, ``0.5 x (1 + tanh(sqrt(2 / pi) (x + 0.044715 x^3)))``."""
+    return F.gelu(x, approximate="tanh")
 
 
 def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:

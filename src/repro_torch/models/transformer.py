@@ -87,8 +87,8 @@ class TransformerLM:
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not served by TransformerLM: "
-                "RG-LRU comes in a later slice of the PyTorch port "
-                "(ROADMAP.md); RWKV-6 is RWKV6LM (build_model picks it)")
+                "RG-LRU is RecurrentGemmaLM, RWKV-6 is RWKV6LM "
+                "(build_model picks them)")
         if kv_dtype not in ("native", "int8"):
             raise ValueError(f"kv_dtype must be 'native' or 'int8', got "
                              f"{kv_dtype!r}")

@@ -1137,7 +1137,7 @@ def test_paged_decode_attention_mma_cluster_sizes(gen, b, hkv):
     g, d, page, maxp = 7, 128, 16, 36
     frames = b * maxp
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    n_split = min(split_plan(b, hkv, maxp, page, sms)[1], MMA_SPLITS_MAX)
+    n_split = min(split_plan(b, hkv, maxp, page, sms, d)[1], MMA_SPLITS_MAX)
     q = torch.randn((b, hkv, g, d), generator=gen, device="cuda").bfloat16()
     kp, vp = pools(gen, frames, page, hkv, d, False)
     lens = [(97 * i + 5) % (page * maxp) for i in range(b)]
@@ -1941,3 +1941,195 @@ def test_family_engine_graphs_equal_eager_and_cpu(arch, case):
     for n in ("paged_prefill_attention",) if case == "radix" else (
             "paged_copy", "flash_attention", "paged_decode_attention"):
         assert graph[3][n] > 0
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU family: decode attention at D 256 with its window, the scan
+# ---------------------------------------------------------------------------
+
+
+def d256_case(gen, b, dtype, quant, page=16):
+    """recurrentgemma-9b's decode operands (one KV head, G 16, D 256):
+    ``b`` rows of the lengths 2,576, 543, 16 and 1 in turn, distinct
+    shuffled frames, and one entry of the longest row unmapped (-1) inside
+    the window (it reads frame 0, as the plain version does)."""
+    lens = [(2576, 543, 16, 1)[i % 4] for i in range(b)]
+    maxp = -(-max(lens) // page)
+    frames = b * maxp
+    q = torch.randn((b, 1, 16, 256), generator=gen, device="cuda").to(dtype)
+    if quant:
+        kp, vp = pools(gen, frames, page, 1, 256, True)
+    else:
+        kp, vp = (torch.randn((frames, page, 1, 256), generator=gen,
+                              device="cuda").to(dtype) for _ in range(2))
+    table = mapped_table(gen, b, maxp, frames, [-(-n // page) for n in lens])
+    long_row = lens.index(max(lens))
+    table[long_row, maxp - 20] = -1
+    sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, kp, vp, table, sl
+
+
+@pytest.mark.parametrize("window", [None, 2048, 100])
+@pytest.mark.parametrize("b", [1, 4, 8])
+@pytest.mark.parametrize("route,dtype,quant", [
+    ("mma", torch.bfloat16, False), ("mma", torch.bfloat16, True),
+    ("simt", torch.float32, False)])
+def test_paged_decode_attention_d256(gen, route, dtype, quant, b, window):
+    """D 256 at G 16 on both routes, bf16 (and int8) pools on ``"mma"``,
+    f32 on ``"simt"``, with recurrentgemma-9b's window of 2,048, a window
+    of 100 and none; f32 within 1e-5, bf16 each row within four bf16 steps
+    of its largest value."""
+    q, kp, vp, table, sl = d256_case(gen, b, dtype, quant)
+    kvs = 1 / 24 if quant else None
+    ops.reset_launch_counts()
+    got = ops.paged_decode_attention(q, kp, vp, table, sl, page_size=16,
+                                     window=window, kv_scale=kvs)
+    assert ops.route_counts()["paged_decode_attention"] == {
+        "mma": int(route == "mma"), "simt": int(route == "simt")}
+    want = ref.paged_decode_attention_ref(q, kp, vp, table, sl, page_size=16,
+                                          window=window, kv_scale=kvs)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        rows_within(got, want)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_decode_attention_d256_exact_layout_probe(gen, quant):
+    """As the D 128 probe, at D 256 (Q's fragments read from shared
+    memory): every query head picks one visible key by one-hot pairs of
+    width 256, so the output is that key's value row exactly; rows long
+    enough that keys on pages past 64 (table entries read per slice) are
+    picked, and a window."""
+    b, page, maxp, g = 3, 16, 80, 16
+    frames = b * maxp
+    lens = torch.tensor([1270, 300, 17], dtype=torch.int32, device="cuda")
+    perm = torch.randperm(frames, generator=gen, device="cuda").int()
+    table = perm.view(b, maxp).contiguous()
+    pos = torch.arange(maxp * page, device="cuda")
+
+    def one_hot(p, big):
+        x = torch.zeros((p.numel(), 256), device="cuda")
+        idx = torch.arange(p.numel(), device="cuda")
+        x[idx, p % 128] = big
+        x[idx, 128 + p // 128] = big
+        return x
+
+    kp = torch.zeros((frames, page, 1, 256), device="cuda")
+    for i in range(b):
+        kp[table[i].long()[pos // page], pos % page, 0] = one_hot(pos, 1.0)
+    vp = torch.randint(-100, 101, (frames, page, 1, 256), generator=gen,
+                       device="cuda").float()
+    kvs = 1 / 24 if quant else None
+    kp, vp = ((kp * 24).to(torch.int8), vp.to(torch.int8)) if quant else (
+        kp.bfloat16(), vp.bfloat16())
+    for window in (None, 600):
+        lo = (lens.long() - window).clamp(min=0) if window else 0 * lens.long()
+        span = lens.long() - lo
+        j = torch.randint(0, 1 << 30, (b, 1, g), generator=gen,
+                          device="cuda") % span[:, None, None]
+        j = j + lo[:, None, None]
+        j[0, 0, 0] = lens[0] - 1                   # page 79: read per slice
+        q = one_hot(j.flatten(), 128.0).view(b, 1, g, 256).bfloat16()
+        ops.reset_launch_counts()
+        got = ops.paged_decode_attention(q, kp, vp, table, lens,
+                                         page_size=page, scale=1.0,
+                                         window=window, kv_scale=kvs)
+        assert ops.route_counts()["paged_decode_attention"]["mma"] == 1
+        fr = table.long()[torch.arange(b, device="cuda")[:, None, None],
+                          j // page]
+        v = vp[fr, j % page, 0]
+        v = (v.float() * kvs).bfloat16() if quant else v
+        assert torch.equal(got, v)
+
+
+def test_graph_replay_paged_attention_d256_bit_identical(gen):
+    """The D 256 launch with the window, replayed from a graph: bit-identical
+    to its eager launch."""
+    q, kp, vp, table, sl = d256_case(gen, 8, torch.bfloat16, False)
+
+    def call():
+        return ops.paged_decode_attention(q, kp, vp, table, sl,
+                                          page_size=16, window=2048)
+    want = call()
+    graph, got = captured(call)
+    got.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,t,r", [(8, 1, 4096), (8, 512, 4096), (1, 7, 100),
+                                   (3, 513, 300), (2, 9, 128)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_kernel_bit_identical(gen, b, t, r, with_h0):
+    """The scan kernel against its plain version, decays in (0, 1) as the
+    model makes them: bit-identical (one rounded product and one rounded
+    sum a step on both sides), at the decode and 512-token prefill shapes
+    of recurrentgemma-9b, a width that is no multiple of the block, and T
+    past a multiple of the kernel's 8-step prefetch."""
+    a = torch.rand((b, t, r), generator=gen, device="cuda") * 0.99 + 0.005
+    bx = torch.randn((b, t, r), generator=gen, device="cuda")
+    h0 = (torch.randn((b, r), generator=gen, device="cuda") if with_h0
+          else torch.zeros((b, r), device="cuda"))
+    ops.reset_launch_counts()
+    got = ops.rglru_scan(a, bx, h0)
+    assert ops.route_counts()["rglru_scan"] == {"simt": 1}
+    assert ops.launch_counts()["rglru_scan"] == 1
+    want = ref.rglru_scan_ref(a, bx, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("t", [1, 512])
+def test_graph_replay_rglru_scan_bit_identical(gen, t):
+    a = torch.rand((8, t, 4096), generator=gen, device="cuda")
+    bx = torch.randn((8, t, 4096), generator=gen, device="cuda")
+    h0 = torch.randn((8, 4096), generator=gen, device="cuda")
+    want = ops.rglru_scan(a, bx, h0)
+    graph, got = captured(lambda: ops.rglru_scan(a, bx, h0))
+    got.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_reduced_rglru_card_equals_cpu(gen):
+    """The reduced recurrentgemma-9b (f32: the scan kernel, the burst
+    copy, decode attention on ``"simt"`` at D 16 with the window of 16) on
+    the card against the CPU: a 20-token prefill and 12 greedy steps past
+    the window, identical tokens, logits within 1e-4, exact launches."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("recurrentgemma-9b", reduced=True)
+    cpu = build_model(cfg, device="cpu")
+    cpu_params = cpu.init(0)
+    card = build_model(cfg, device="cuda")
+    params = on(cpu_params, "cuda")
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 20)).astype(
+        np.int32))
+    lens = torch.full((3,), 20, dtype=torch.int32)
+    table = torch.arange(3 * 10, dtype=torch.int32).view(3, 10)
+    runs = []
+    for model, p, dev in ((card, params, "cuda"), (cpu, cpu_params, "cpu")):
+        st = model.init_state(3, 31, 4, 10)._replace(page_table=table.to(dev))
+        ops.reset_launch_counts()
+        logits, st = model.prefill(p, toks.to(dev), lens.to(dev), st)
+        out, all_logits = [], [logits.cpu()]
+        for _ in range(12):
+            tok = logits.argmax(-1).to(torch.int32)
+            out.append(tok.cpu())
+            logits, st = model.decode_step(p, tok, st)
+            all_logits.append(logits.cpu())
+        runs.append((torch.stack(out), all_logits, ops.launch_counts(),
+                     ops.route_counts()))
+    (tg, lg, n, routes), (tc, lc, _, _) = runs
+    assert torch.equal(tg, tc)
+    for a, b_ in zip(lg, lc):
+        torch.testing.assert_close(a, b_, atol=1e-4, rtol=1e-4)
+    assert n["rglru_scan"] == 4 * 13
+    assert n["paged_copy"] == 1 and n["paged_decode_attention"] == 12
+    assert routes["paged_decode_attention"] == {"mma": 0, "simt": 12}

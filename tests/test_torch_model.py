@@ -25,7 +25,7 @@ from repro.models import layers as JL
 from repro_torch.configs import get_config
 from repro_torch.models import build_model, params_from_jax
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import PagedKVState
+from repro_torch.models.transformer import PagedKVState, TransformerLM
 
 pytestmark = pytest.mark.torch_port
 
@@ -298,11 +298,15 @@ class TestServePaths:
 
 
 def test_non_dense_family_names_its_slice():
-    """RG-LRU is the one family still to come and names its slice; the VLM
-    and audio families build as ``TransformerLM``s."""
+    """Every family builds: RG-LRU as a ``RecurrentGemmaLM`` (which
+    ``TransformerLM`` refuses, naming it), the VLM and audio families as
+    ``TransformerLM``s."""
     cfg = get_config("recurrentgemma-9b", reduced=True)
-    with pytest.raises(NotImplementedError, match="RG-LRU slice"):
-        build_model(cfg, device="cpu")
+    model = build_model(cfg, device="cpu")
+    assert type(model).__name__ == "RecurrentGemmaLM"
+    assert model.cfg.family == "hybrid_rglru"
+    with pytest.raises(NotImplementedError, match="RecurrentGemmaLM"):
+        TransformerLM(cfg, device="cpu")
     for arch, family in (("qwen2-vl-7b", "vlm"), ("musicgen-large", "audio")):
         model = build_model(get_config(arch, reduced=True), device="cpu")
         assert type(model).__name__ == "TransformerLM"

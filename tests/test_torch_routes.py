@@ -292,7 +292,8 @@ def test_route_counts_reset_with_launch_counts():
         "paged_prefill_attention": {"wgmma": 0, "simt": 0},
         "paged_gather": {"bulk": 0, "lanes": 0},
         "matmul": {"wgmma": 0, "simt": 0},
-        "ragged_dot": {"mma": 0, "wgmma": 0, "simt": 0}}
+        "ragged_dot": {"mma": 0, "wgmma": 0, "simt": 0},
+        "rglru_scan": {"simt": 0}}
 
 
 # ---------------------------------------------------------------------------
@@ -322,11 +323,12 @@ def prefill_q(b=3, s=240, hkv=4, g=7, d=128, dtype=BF16, width=None):
 @pytest.mark.parametrize("pool_dtype", [BF16, torch.int8])
 @pytest.mark.parametrize("b,hkv,g,d,page", [
     (4, 4, 7, 128, 16), (1, 4, 7, 128, 16), (2, 2, 1, 64, 8),
-    (2, 2, 16, 64, 64), (2, 2, 8, 128, 32), (2, 2, 4, 80, 16)])
+    (2, 2, 16, 64, 64), (2, 2, 8, 128, 32), (2, 2, 4, 80, 16),
+    (8, 1, 16, 256, 16), (1, 1, 16, 256, 16), (2, 2, 4, 144, 8)])
 def test_decode_serve_operands_take_mma(pool_dtype, b, hkv, g, d, page):
     """bf16 queries over bf16 or int8 pools at the serve shapes and every
-    G up to 16, pages of 8-64, D = 64, 80 (supported: a multiple of 16)
-    and 128."""
+    G up to 16, pages of 8-64, D = 64, 80, 144 (supported: a multiple of
+    16), 128 and 256 (recurrentgemma-9b's one KV head of 256, G 16)."""
     q, kp, vp = decode_operands(b, hkv, g, d, page, pool_dtype=pool_dtype)
     assert decode_route(q, kp, vp, page) == "mma"
 
@@ -338,6 +340,8 @@ def test_decode_serve_operands_take_mma(pool_dtype, b, hkv, g, d, page):
     (dict(page=4), "page 4"),
     (dict(page=12), "page not a multiple of 8"),
     (dict(g=28, hkv=1), "G > 16"),
+    (dict(d=256, dtype=torch.float32), "f32 at D 256"),
+    (dict(d=248), "D 248 not a multiple of 16"),
 ])
 def test_decode_other_operands_take_simt(kw, why):
     args = dict(b=2, hkv=2, g=7, d=128, page=16)
@@ -439,6 +443,9 @@ def test_paged_attention_checks_unchanged():
                                    table, lens, page_size=16)
     with pytest.raises(ValueError):                      # G > 16
         ops.paged_decode_attention(*decode_operands(2, 1, 28, 128, 16),
+                                   table, lens, page_size=16)
+    with pytest.raises(ValueError):                      # D > 256
+        ops.paged_decode_attention(*decode_operands(2, 1, 16, 272, 16),
                                    table, lens, page_size=16)
     with pytest.raises(ValueError):                      # pool page
         ops.paged_decode_attention(q, kp, vp, table, lens, page_size=8)
