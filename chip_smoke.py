@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port serves on the card.
 
-    python3 chip_smoke.py            # one CUDA card, ~9-10 minutes
+    python3 chip_smoke.py            # one CUDA card, ~10-13 minutes
     python3 chip_smoke.py --quick    # build and the reduced checks only
 
 Imports nothing of JAX and nothing of the JAX package (``src/repro``); it
@@ -46,12 +46,15 @@ printing its lines; any failure exits non-zero before the last line:
    1e-4; ``paged_decode_attention`` at recurrentgemma-9b's D 256, G 16
    (lengths 543, 2,576 and 1; window 2,048, 100 and none) bf16 on
    ``"mma"`` and f32 on ``"simt"`` against its plain version,
-   ``rglru_scan`` at [8, T, 4096] (T 1, 7, 512) bit-identical to its
-   plain version, and the reduced recurrentgemma-9b (f32, D 16, window
-   16: a 20-token prefill and 12 greedy steps to 32 cached tokens) on the
-   card against the CPU: identical tokens, logits and state within 1e-4,
-   one ``rglru_scan`` a recurrent layer and call, one copy an attention
-   layer and prefill, one decode attention an attention layer and step;
+   ``rglru`` on its ``"step"`` route at [B, 1, R] bf16 ((B, R) (8, 4096),
+   (1, 4096), (16, 4096), (3, 300); each row within 1e-5 of its peak, two
+   launches bit-identical) and on ``"scan"`` (T 7 and 512 in bf16, T 1 and
+   513 in f32, 17 bf16 rows at T 1) bit-identical to its plain version,
+   and the reduced recurrentgemma-9b (f32, D 16, window 16: a 20-token
+   prefill and 12 greedy steps to 32 cached tokens) on the card against
+   the CPU: identical tokens, logits and state within 1e-4, one ``rglru``
+   (on ``"scan"``) a recurrent layer and call, one copy an attention layer
+   and prefill, one decode attention an attention layer and step;
 4. serve: qwen2-7b at full width (bf16, random weights from a seeded
    generator) serves 8 requests (64-512-token prompts, 32 new tokens,
    page 16, horizon 8) cold, in a pool tight enough to preempt; launch
@@ -139,17 +142,28 @@ printing its lines; any failure exits non-zero before the last line:
    256,000, bf16, random weights, depth not cut) prefills 8 prompts of 512
    tokens and decodes 32 greedy tokens, then one 2,560-token prompt
    decodes 16 steps past the window, each after an untimed warm-up with
-   the launch counts zeroed just before and read just after: 26
-   ``rglru_scan`` launches a call, one copy (on ``"burst"``) an attention
-   layer and prefill, one decode attention (on ``"mma"``) an attention
-   layer and step; prefill and decode times and tok/s; the kernel path
+   the launch counts zeroed just before and read just after: 26 ``rglru``
+   launches a call (a prefill's on ``"scan"``, a decode step's on
+   ``"step"``), one copy (on ``"burst"``) an attention layer and prefill,
+   one decode attention (on ``"mma"``) an attention layer and step;
+   prefill and decode times and tok/s, and the decode step's ms over 4
+   more runs each of the kernel path and of the decode's RG-LRU on the
+   chain it replaced, taken in turns; the kernel path
    against the plain path, teacher forced (2 x 512 tokens, 8 steps), in
    bf16 at full width and in f32 at full widths cut to 6 layers: prefill
    logits equal and each decode row within 0.1 (bf16) or 1e-4 (f32) of
-   its peak; a traced repeat (busy share, time by kernel); then the D 256
-   decode attention rows (the batch's largest call, ~543 cached tokens,
-   and the window run's) and the scan rows (prefill [8, 512, 4096] and
-   decode [8, 1, 4096], bit-identical) timed as in 11;
+   its peak; a traced repeat (busy share, time by kernel, device
+   operations a decode step, and again with the RG-LRU on the chain it
+   replaced); then the D 256 decode attention rows (the batch's largest
+   call, ~543 cached tokens, and the window run's) and the ``rglru`` rows
+   timed as in 11: the scan kernel on the batch prefill's [8, 512, 4096]
+   and the window prefill's [1, 2560, 4096] pre-activations
+   (bit-identical) beside the whole route, and the step
+   at the batch's [8, 1, 4096] and the window run's [1, 1, 4096] (each
+   row within 1e-5 of its peak; the control reading, the last 16 input
+   columns dropped, past that bound) with a written and a read-filled
+   L2, beside the chain it replaces (the parent's 18 launches) and its
+   parts (upcasts, f32 GEMVs, gate math and the step);
 12. MoE: the recurrentgemma-9b weights are freed, granite-moe-1b-a400m at full
    width (24 layers, d_model 1024, 32 experts top-8, bf16, random
    weights, depth not cut) serves a cold run (8 prompts of 256-640
@@ -278,9 +292,10 @@ KERNELS = {
     # not a TPU kernel: jax.lax.ragged_dot, which XLA lowers itself
     "ragged_dot": ("src/repro_torch/kernels/csrc/ragged_dot.cu",
                    "src/repro/models/moe.py:132"),
-    "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
-                   "src/repro/models/rglru.py:66 (jax.lax.associative_scan, "
-                   "not a TPU kernel)"),
+    # not a TPU kernel: XLA's gate math and jax.lax.associative_scan
+    "rglru": ("src/repro_torch/kernels/csrc/rglru.cu",
+              "src/repro/models/rglru.py:183-189 (the gate math and "
+              "_rglru_scan's jax.lax.associative_scan at :66)"),
 }
 
 
@@ -2995,9 +3010,12 @@ RGLRU_LOGITS = dict(batch=2, prompt=512, steps=8, seed=9, f32_layers=6)
 #: reads past it, one key dropped of ~540 reads inside it (PERF.md), which
 #: only the direct row check of the recorded call catches.  f32 (CUDA
 #: cores on both sides, exact f32 sums in another order): 1e-4.  The prefill calls
-#: no kernel that rounds differently (the copy and the scan are exact, the
-#: attention plain on both paths), so its logits must be equal.
+#: no kernel that rounds differently (the copy and ``rglru``'s scan route
+#: are bit-identical, the attention plain on both paths), so its logits
+#: must be equal.
 RGLRU_LOGIT_BOUND = {"bf16": 0.1, "f32": 1e-4}
+#: more runs of each RG-LRU serve run for the decode step's spread
+RGLRU_SPREAD_RUNS = 4
 
 
 def rglru_state(model, b: int, n_tok: int, page: int = RG_PAGE, seed=0):
@@ -3034,22 +3052,65 @@ def rglru_serve(model, params, tokens, steps: int, page: int = RG_PAGE):
 
 
 #: the kernels of the RG-LRU serve path
-RG_KERNELS = ("rglru_scan", "paged_copy", "paged_decode_attention")
+RG_KERNELS = ("rglru", "paged_copy", "paged_decode_attention")
 
 
 def rglru_launches(model, prefills: int, steps: int) -> dict[str, int]:
-    """One ``rglru_scan`` a recurrent layer and call, one copy (K and V
-    in one launch) an attention layer and prefill, one decode attention an
+    """One ``rglru`` a recurrent layer and call, one copy (K and V in one
+    launch) an attention layer and prefill, one decode attention an
     attention layer and step."""
-    return {"rglru_scan": model.n_rec * (prefills + steps),
+    return {"rglru": model.n_rec * (prefills + steps),
             "paged_copy": model.n_att * prefills,
             "paged_decode_attention": model.n_att * steps}
 
 
+def rglru_route_launches(model, prefills: int, steps: int,
+                         step_route: bool) -> dict[str, int]:
+    """``rglru``'s launches by route: the prefills (T > 1) on ``"scan"``,
+    the decode steps on ``"step"`` (bf16) or ``"scan"`` (f32)."""
+    n = model.n_rec
+    return {"step": n * steps if step_route else 0,
+            "scan": n * (prefills + (0 if step_route else steps))}
+
+
+def ulps(got, want) -> int:
+    """The largest distance in f32 units in the last place between two f32
+    tensors of one shape (0: bit-identical)."""
+    import torch
+
+    def ordered(x):
+        i = x.float().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(got) - ordered(want)).abs().max()) if got.numel() \
+        else 0
+
+
+def row_gap(got, want) -> float:
+    """The worst row's (dim 0) largest error over that row's largest
+    |want|."""
+    err = (got.float() - want.float()).abs().flatten(1).amax(1)
+    return float((err / want.float().abs().flatten(1).amax(1)).max())
+
+
+def rglru_case(gen, b: int, t: int, r: int, dtype):
+    """One recurrent layer's RG-LRU operands as the model makes them:
+    conv and the gate weights in ``dtype`` (weights normal / sqrt(R)),
+    ``lam`` uniform in [0.4, 0.8), ``h0`` normal."""
+    import torch
+    conv = torch.randn((b, t, r), generator=gen, device="cuda").to(dtype)
+    w_r, w_i = ((torch.randn((r, r), generator=gen, device="cuda")
+                 / r ** 0.5).to(dtype) for _ in range(2))
+    lam = 0.4 + 0.4 * torch.rand((r,), generator=gen, device="cuda")
+    h0 = torch.randn((b, r), generator=gen, device="cuda")
+    return conv, w_r, w_i, lam, h0
+
+
 def reduced_rglru_check() -> None:
-    """The D 256 decode attention and the scan against their plain
-    versions, then the reduced recurrentgemma-9b (f32, D 16: decode
-    attention on ``"simt"``, window 16) on the card against the CPU: a
+    """The D 256 decode attention and both ``rglru`` routes against their
+    plain versions (``"step"`` within ``rglru.STEP_TOL`` of each row's
+    peak and two launches bit-identical, ``"scan"`` bit-identical), then
+    the reduced recurrentgemma-9b (f32, D 16: the RG-LRU on ``"scan"``,
+    decode attention on ``"simt"``, window 16) on the card against the CPU: a
     20-token prefill (its own attention windowed) and 12 greedy steps past
     the window, identical tokens, logits and state within 1e-4, and the
     exact launches of :func:`rglru_launches`."""
@@ -3057,7 +3118,7 @@ def reduced_rglru_check() -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.paged_attention import paged_decode_attention
-    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rglru import STEP_TOL, rglru
     from repro_torch.models import build_model
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -3081,17 +3142,39 @@ def reduced_rglru_check() -> None:
     routes = ops.route_counts()["paged_decode_attention"]
     require(routes == {"mma": 3, "simt": 3},
             f"D 256 decode attention off its routes: {routes}")
-    for t in (1, 7, 512):
-        a = torch.rand((8, t, 4096), generator=gen, device=dev)
-        bx = torch.randn((8, t, 4096), generator=gen, device=dev)
-        h0 = torch.randn((8, 4096), generator=gen, device=dev)
-        require(torch.equal(rglru_scan(a, bx, h0),
-                            ref.rglru_scan_ref(a, bx, h0)),
-                f"rglru_scan T={t} differs from its plain version")
+    ops.reset_launch_counts()
+    gaps = []
+    for b, r in ((8, 4096), (1, 4096), (16, 4096), (3, 300)):
+        args = rglru_case(gen, b, 1, r, torch.bfloat16)
+        got, again = rglru(*args), rglru(*args)
+        gap = row_gap(got, ref.rglru_ref(*args))
+        require(torch.equal(got, again),
+                f"rglru step [{b}, 1, {r}]: two launches differ")
+        require(gap <= STEP_TOL,
+                f"rglru step [{b}, 1, {r}]: a row is {gap:.3g} of its peak "
+                f"off its plain version (bound {STEP_TOL})")
+        gaps.append(f"{gap:.3g}")
+    for b, t, r, dtype in ((8, 7, 4096, torch.bfloat16),
+                           (8, 512, 4096, torch.bfloat16),
+                           (8, 1, 4096, torch.float32),
+                           (3, 513, 300, torch.float32),
+                           (17, 1, 512, torch.bfloat16)):
+        args = rglru_case(gen, b, t, r, dtype)
+        got, want = rglru(*args), ref.rglru_ref(*args)
+        require(torch.equal(got, want),
+                f"rglru scan [{b}, {t}, {r}] {dtype} differs from its plain "
+                f"version by {ulps(got, want)} ulps")
+    routes = ops.route_counts()["rglru"]
+    require(routes == {"step": 8, "scan": 5},
+            f"rglru off its routes: {routes}")
     log("check reduced: paged_decode_attention at D 256, G 16 (lengths 543, "
         "2,576 and 1, window 2,048, 100 and none) bf16 on 'mma' within four "
-        "bf16 steps of each row's peak, f32 on 'simt' within 1e-5; "
-        "rglru_scan at [8, T, 4096], T 1/7/512, bit-identical")
+        "bf16 steps of each row's peak, f32 on 'simt' within 1e-5; rglru "
+        "'step' at [B, 1, R] bf16, (B, R) (8, 4096), (1, 4096), (16, 4096), "
+        f"(3, 300), worst row / row peak {', '.join(gaps)} (bound "
+        f"{STEP_TOL}), two launches bit-identical; 'scan' at [8, 7 "
+        "and 512, 4096] bf16, [8, 1, 4096] and [3, 513, 300] f32, [17, 1, "
+        "512] bf16 bit-identical")
 
     cfg = get_config(RG_ARCH, reduced=True)
     cpu_params = build_model(cfg, device="cpu").init(0)
@@ -3125,27 +3208,28 @@ def reduced_rglru_check() -> None:
     require(got == want, f"reduced recurrentgemma: launches {got}, "
                          f"expected {want}")
     require(r_g["paged_decode_attention"]["simt"] == want[
-        "paged_decode_attention"] and r_g["rglru_scan"]["simt"] == want[
-        "rglru_scan"], f"reduced recurrentgemma: routes {r_g}")
+        "paged_decode_attention"] and r_g["rglru"] == rglru_route_launches(
+        model, 1, steps, step_route=False),
+        f"reduced recurrentgemma: routes {r_g}")
     log(f"check reduced recurrentgemma-9b (f32, D 16, window "
         f"{cfg.local_window}): card == cpu greedy tokens (20-token prefill "
         f"+ {steps} steps to {20 + steps} cached tokens), logits and state "
-        f"within 1e-4; launches {json.dumps(got)}, decode attention on "
-        "'simt'")
+        f"within 1e-4; launches {json.dumps(got)}, rglru on 'scan' (f32), "
+        "decode attention on 'simt'")
     ops.reset_launch_counts()
 
 
 def rglru_recorders() -> dict:
     """A :class:`Recorder` for each ``ops`` call of the RG-LRU path: the
-    decode attention, the copy, and the scan's largest prefill (T > 1,
-    ``"rglru_scan"``) and decode (T = 1, ``"rglru_scan_decode"``) calls;
-    the prefill recorder wraps the decode one."""
+    decode attention, the copy, and ``rglru``'s largest prefill (T > 1,
+    ``"rglru"``) and decode (T = 1, ``"rglru_decode"``) calls; the prefill
+    recorder wraps the decode one."""
     from repro_torch.kernels import ops
 
-    def scan_work(decode: bool):
-        return lambda a, bx, h0, **kw: (a.numel() if (a.shape[1] == 1)
-                                        == decode else -1)
-    dec = Recorder(ops.rglru_scan, scan_work(True))
+    def rglru_work(decode: bool):
+        return lambda conv, *a, **kw: (conv.numel() if (conv.shape[1] == 1)
+                                       == decode else -1)
+    dec = Recorder(ops.rglru, rglru_work(True))
     return {
         "paged_decode_attention": Recorder(
             ops.paged_decode_attention,
@@ -3153,8 +3237,8 @@ def rglru_recorders() -> dict:
         "paged_copy_kv": Recorder(
             ops.paged_copy_kv,
             lambda k, v, kp, vp, pt, lens, **kw: int(lens.sum())),
-        "rglru_scan": Recorder(dec, scan_work(False)),
-        "rglru_scan_decode": dec,
+        "rglru": Recorder(dec, rglru_work(False)),
+        "rglru_decode": dec,
     }
 
 
@@ -3185,12 +3269,15 @@ def rglru_run(tag, cfg, model, params, tokens, steps):
     counts zeroed just before and read just after: exact launches, every
     decode attention on ``"mma"``, every copy on ``"burst"``; then the
     recorded copy bit-identical to its plain version (:func:`copy_check`).
-    Returns (launches, last state, the recorders)."""
+    Then :data:`RGLRU_SPREAD_RUNS` more runs of each path, taken in turns,
+    for the decode step's ms and its spread: the kernel path and the
+    decode's RG-LRU on :func:`replaced_chain`.  Returns (launches, last
+    state, the recorders)."""
     import torch
     from repro_torch.kernels import ops
     rec = rglru_recorders()
     saved = {n: getattr(ops, n) for n in ("paged_decode_attention",
-                                          "paged_copy_kv", "rglru_scan")}
+                                          "paged_copy_kv", "rglru")}
     for n in saved:
         setattr(ops, n, rec[n])
     try:
@@ -3204,9 +3291,11 @@ def rglru_run(tag, cfg, model, params, tokens, steps):
     want = rglru_launches(model, 1, steps)
     got = {k: launches[k] for k in want}
     require(got == want, f"{tag}: launches {got}, expected {want}")
+    want_rg = rglru_route_launches(model, 1, steps, step_route=True)
     require(routes["paged_decode_attention"]["mma"] == want[
         "paged_decode_attention"] and routes["paged_copy"]["burst"] == want[
-        "paged_copy"], f"{tag}: off the tensor-core / burst routes: {routes}")
+        "paged_copy"] and routes["rglru"] == want_rg,
+        f"{tag}: off the step / tensor-core / burst routes: {routes}")
     b, s = tokens.shape
     require(out.shape == (b, steps + 1)
             and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
@@ -3216,16 +3305,66 @@ def rglru_run(tag, cfg, model, params, tokens, steps):
     require(bool((st.seq_lens == s + steps).all()), f"{tag}: seq_lens wrong")
     copy_check(rec["paged_copy_kv"].best, f"{tag} ")
     n_tok = out.numel()
+    step_ms = {"kernel": [], "chain": []}
+    real = ops.rglru
+    for i in range(2 * RGLRU_SPREAD_RUNS):      # kernel, chain, chain, ...
+        path = ("kernel", "chain")[(i + i // 2) % 2]
+        ops.rglru = real if path == "kernel" else replaced_chain(real)
+        try:
+            _, _, _, _, d_s = rglru_serve(model, params, tokens, steps)
+        finally:
+            ops.rglru = real
+        step_ms[path].append(d_s / steps * 1e3)
     log(f"{tag}: {b} x {s}-token prompts, {n_tok} tokens in "
         f"{pre_s + dec_s:.3f}s = {n_tok / (pre_s + dec_s):.1f} tok/s; prefill "
         f"(TTFT of the batch) {pre_s * 1e3:.1f} ms = {b * s / pre_s:.0f} "
         f"prompt tok/s, decode {dec_s / steps * 1e3:.2f} ms/step (TPOT) over "
         f"{steps} steps to {s + steps} cached tokens; launches "
-        f"{json.dumps(got)} [{CARD}]")
+        f"{json.dumps(got)}, rglru by route {json.dumps(routes['rglru'])} "
+        f"[{CARD}]")
+    for path, what in (("kernel", "the kernel path"),
+                       ("chain", "the decode's RG-LRU on the chain it "
+                                 "replaced")):
+        ms = step_ms[path]
+        log(f"{tag}: decode ms a step, {what}, over {len(ms)} runs taken in "
+            "turns " + ", ".join(f"{x:.2f}" for x in ms) + f" (median "
+            f"{statistics.median(ms):.2f}, spread {min(ms):.2f}-"
+            f"{max(ms):.2f}) [{CARD}]")
     k = rec["paged_copy_kv"].best[0][0]
     log(f"check {tag}: paged_copy (pair and single) bit-identical to its "
         f"plain version on the burst route at src {list(k.shape)} {k.dtype}")
     return launches, st, rec
+
+
+def chain_step(pre_r, pre_i, conv, lam, h0):
+    """The decode step after the gate products as the chain the step route
+    replaced ran it: the twelve elementwise launches of the gate math
+    (``ref.rglru_gates``), then ``a h0 + bx`` in one launch, as its
+    one-step scan kernel was (``torch.addcmul`` here: that kernel is gone,
+    and the plain version's step is three launches)."""
+    import torch
+    from repro_torch.kernels import ref
+    a, bx = ref.rglru_gates(pre_r, pre_i, conv, lam)
+    return torch.addcmul(bx, a, h0[:, None])
+
+
+def parent_chain(conv, w_r, w_i, lam, h0):
+    """A decode call's RG-LRU on the chain the step route replaced, launch
+    for launch: the conv's upcast, the two weights' upcasts, two f32
+    GEMVs and :func:`chain_step` (18 launches)."""
+    from repro_torch.kernels import ref
+    return chain_step(*ref.rglru_gate_products(conv, w_r, w_i), conv, lam,
+                      h0)
+
+
+def replaced_chain(real):
+    """``ops.rglru`` with its decode calls (T = 1) on
+    :func:`parent_chain`; prefills keep the kernel path."""
+    def rglru(conv, w_r, w_i, lam, h0, **kw):
+        if conv.shape[1] == 1:
+            return parent_chain(conv, w_r, w_i, lam, h0)
+        return real(conv, w_r, w_i, lam, h0, **kw)
+    return rglru
 
 
 def rglru_faults() -> dict:
@@ -3331,55 +3470,153 @@ def rglru_logits_phase(cfg, model, params) -> None:
 def rglru_profile(model, params, tokens, steps: int = 8) -> None:
     """An untimed, traced repeat (torch.profiler) of the batch's prefill
     and ``steps`` decode steps: the device's busy share and device time by
-    kernel for each half, and the share of the two kernels."""
+    kernel for each half, the share of the path's kernels, and the device
+    operations (kernels and copies) a decode step; then the decode steps
+    again on :func:`replaced_chain`."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
     from repro_torch.launch.serve import print_profile
     b, s = tokens.shape
     lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
-    st = rglru_state(model, b, s + steps)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for half in ("prefill", f"{steps} decode steps"):
+    real = ops.rglru
+    per_step = {}
+    for half in ("prefill", f"{steps} decode steps",
+                 f"{steps} decode steps, the replaced chain"):
+        if half == "prefill":
+            st = rglru_state(model, b, s + steps)
         torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            if half == "prefill":
-                logits, st = model.prefill(params, tokens, lens, st)
-            else:
-                greedy_decode(model, params, logits, st, steps)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        ops.rglru = replaced_chain(real) if "chain" in half else real
+        try:
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                if half == "prefill":
+                    logits, st = model.prefill(params, tokens, lens, st)
+                else:
+                    greedy_decode(model, params, logits, st, steps)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            ops.rglru = real
         log(f"rglru profile, {half}:")
         print_profile(prof, wall, top=10)
-        for name in ("rglru_scan_kernel", "paged_decode_mma_kernel"):
+        for name in ("rglru_step_kernel", "rglru_scan_kernel",
+                     "paged_decode_mma_kernel"):
             ms, count, share = kernel_share(prof, name)
             log(f"rglru profile, {half}: {name} {ms:.3f} ms over {count} "
                 f"launches, {share:.2f}% of device time")
+        if half != "prefill":
+            n = sum(e.count for e in prof.key_averages()
+                    if e.device_type != DeviceType.CPU)
+            per_step[half] = n / steps
+    (after, n_after), (before, n_before) = per_step.items()
+    log(f"rglru profile: eager device operations a decode step {n_after:.1f} "
+        f"({after}) against {n_before:.1f} with the replaced chain, "
+        f"{(n_before - n_after) / model.n_rec:.2f} fewer a recurrent layer "
+        f"[{CARD}]")
 
 
-def scan_row(name, args, launches) -> dict:
-    """``rglru_scan`` on recorded inputs: bit-identical to its plain
-    version, then the device times of both beside the bound (a and bx read
-    once, h0 read and h written once, all f32; two f32 operations an
-    element at the CUDA-core peak).  The plain version is a Python loop of
-    two launches a step and is timed with fewer repeats."""
+def rglru_bytes(args, step: bool) -> float:
+    """Bytes ``rglru`` must move on these operands, each input read once
+    and h written once: the step reads conv, both weights, lam and h0;
+    the scan kernel reads the two f32 pre-activations, conv, lam and h0."""
+    conv, w_r, w_i, lam, h0 = args
+    n = conv.numel()
+    ins = (2 * w_r.numel() * w_r.element_size() if step else 8.0 * n)
+    return ins + n * conv.element_size() + 4.0 * (lam.numel() + h0.numel()
+                                                  + n)
+
+
+def rglru_step_row(name, args, launches) -> dict:
+    """``rglru``'s step route on a recorded decode call: every row of h
+    within ``rglru.STEP_TOL`` of its peak off the plain version, two
+    launches bit-identical, and the control reading (the plain version
+    with the last 16 input columns of both weights dropped) past the
+    bound; then the device times of the kernel (written and read-filled
+    L2), of the chain it replaces (:func:`parent_chain`) and its parts,
+    and of the plain version (that chain with its step as three
+    launches), beside the bound (bytes; 4 B R^2 bf16 operations)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rglru_scan import rglru_scan
-    a, bx, h0 = args
-    got, want = rglru_scan(a, bx, h0), ref.rglru_scan_ref(a, bx, h0)
-    require(got.equal(want),
-            f"{name}: the kernel differs from its plain version")
-    b, t, r = a.shape
-    ms = time_ms(lambda: rglru_scan(a, bx, h0))
-    plain = time_ms(lambda: ref.rglru_scan_ref(a, bx, h0),
-                    **(dict(n=3, reps=3) if t > 1 else {}))
-    b_ms, b_by = bound_f32(4.0 * (3 * a.numel() + h0.numel()),
-                           2.0 * a.numel())
-    return dict(name=name, shape=f"a, bx [{b}, {t}, {r}] f32, h0 given",
-                max_abs_err=max_err(got, want),
-                max_abs_want=float(want.abs().max()), ms=ms,
-                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None,
+    from repro_torch.kernels.rglru import STEP_TOL, rglru
+    conv, w_r, w_i, lam, h0 = args
+    got, again = rglru(*args), rglru(*args)
+    want = ref.rglru_ref(*args)
+    require(got.equal(again), f"{name}: two launches differ")
+    gap = row_gap(got, want)
+    require(gap <= STEP_TOL, f"{name}: a row is {gap:.3g} of its peak "
+            f"off the plain version (bound {STEP_TOL})")
+    cut = [w.clone() for w in (w_r, w_i)]
+    for w in cut:
+        w[-16:] = 0
+    ctl = row_gap(ref.rglru_ref(conv, *cut, lam, h0), want)
+    require(ctl > STEP_TOL, f"{name}: the control reading is "
+            f"{ctl:.3g}, inside the bound {STEP_TOL}")
+    b, _, r = conv.shape
+    ms = time_ms(lambda: rglru(*args))
+    ms_read = statistics.median(paired_batches(
+        (lambda: rglru(*args),), fill="read")[0])
+    plain = time_ms(lambda: ref.rglru_ref(*args))
+    chain = time_ms(lambda: parent_chain(*args))
+    w32 = [w.float() for w in (w_r, w_i)]
+    c32 = conv.float()
+    pre = ref.rglru_gate_products(conv, w_r, w_i)
+    upcast = time_ms(lambda: [w.float() for w in (w_r, w_i)])
+    gemv = time_ms(lambda: [c32 @ w for w in w32])
+    rest = time_ms(lambda: chain_step(*pre, conv, lam, h0))
+    b_ms, b_by = bound(rglru_bytes(args, True), 4.0 * b * r * r)
+    log(f"{name}: the step at [{b}, 1, {r}] bf16 {ms:.4f} ms (read-filled L2 "
+        f"{ms_read:.4f}), {100 * b_ms / ms:.1f}% of its {b_ms:.4f} ms bound; "
+        f"the chain it replaces (18 launches) {chain:.4f} ms: upcasts "
+        f"{upcast:.4f}, two f32 GEMVs {gemv:.4f}, gate math and the step "
+        f"{rest:.4f}; the plain version (20 launches) {plain:.4f} ms; worst "
+        f"row / row peak {gap:.3g} (bound {STEP_TOL}), the control "
+        f"reading (last 16 of {r} input columns dropped) {ctl:.3g} [{CARD}]")
+    return dict(name=name, shape=f"conv [{b}, 1, {r}] bf16, w_r / w_i "
+                f"[{r}, {r}] bf16, h0 given", max_abs_err=max_err(got, want),
+                max_abs_want=float(want.abs().max()), ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                library="none (no single PyTorch call computes the RG-LRU)",
+                launches=launches)
+
+
+def rglru_scan_row(name, args, launches) -> dict:
+    """``rglru``'s scan route on a recorded prefill call: bit-identical to
+    its plain version; then the device times of the scan kernel on the
+    recorded call's pre-activations beside the plain version's gate math
+    and step loop on the same (a Python loop of three launches a step,
+    timed with fewer repeats) and the bound (bytes; ~16 f32 operations an
+    element at the CUDA-core peak), and the whole route (two f32 products
+    and the kernel) beside the plain version."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rglru import launch_scan, rglru
+    conv, w_r, w_i, lam, h0 = args
+    got, want = rglru(*args), ref.rglru_ref(*args)
+    require(got.equal(want), f"{name}: the kernel differs from its plain "
+            f"version by {ulps(got, want)} ulps")
+    b, t, r = conv.shape
+    pre_r, pre_i = ref.rglru_gate_products(conv, w_r, w_i)
+    h = torch.empty_like(pre_r)
+
+    def kernel():
+        launch_scan(pre_r, pre_i, conv, lam, h0, h)
+    ms = time_ms(kernel)
+    require(h.equal(want), f"{name}: the timed kernel's h differs")
+    plain = time_ms(lambda: ref.rglru_from_products(pre_r, pre_i, conv, lam,
+                                                    h0), n=3, reps=3)
+    route = time_ms(lambda: rglru(*args), n=5, reps=3)
+    whole = time_ms(lambda: ref.rglru_ref(*args), n=3, reps=3)
+    b_ms, b_by = bound_f32(rglru_bytes(args, False), 16.0 * conv.numel())
+    log(f"{name}: the scan kernel at [{b}, {t}, {r}] {ms:.4f} ms, "
+        f"{100 * b_ms / ms:.1f}% of its {b_ms:.4f} ms bound; the route (two "
+        f"f32 products and the kernel) {route:.3f} ms, the plain version "
+        f"{whole:.3f} ms [{CARD}]")
+    return dict(name=name, shape=f"pre_r, pre_i [{b}, {t}, {r}] f32, conv "
+                f"{conv.dtype}, h0 given", max_abs_err=max_err(got, want),
+                max_abs_want=float(want.abs().max()), ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 library="none (no single PyTorch call computes a linear "
                         "recurrence)", launches=launches)
 
@@ -3388,7 +3625,8 @@ def rglru_phases() -> list[dict]:
     """recurrentgemma-9b at full width: the batch run (8 x 512 tokens, 32
     greedy tokens) and the window run (a 2,560-token prompt, 16 steps past
     the window), the kernel-vs-plain logits, a traced repeat, and the D
-    256 decode attention and scan rows; the weights are freed on return."""
+    256 decode attention and ``rglru`` rows; the weights are freed on
+    return."""
     import numpy as np
     import torch
     cfg, model, params = rglru_full_model()
@@ -3415,9 +3653,15 @@ def rglru_phases() -> list[dict]:
             decode_row("paged_decode_attention_d256_window",
                        rec_w["paged_decode_attention"].best,
                        window["paged_decode_attention"]),
-            scan_row("rglru_scan", rec["rglru_scan"].best[0], model.n_rec),
-            scan_row("rglru_scan_decode", rec["rglru_scan_decode"].best[0],
-                     model.n_rec * steps)]
+            rglru_scan_row("rglru_prefill", rec["rglru"].best[0],
+                           model.n_rec),
+            rglru_scan_row("rglru_prefill_window", rec_w["rglru"].best[0],
+                           model.n_rec),
+            rglru_step_row("rglru_decode", rec["rglru_decode"].best[0],
+                           model.n_rec * steps),
+            rglru_step_row("rglru_decode_window",
+                           rec_w["rglru_decode"].best[0],
+                           model.n_rec * RGLRU_WINDOW["steps"])]
     print_rows(rows)
     log(f"rglru: kernel launches on the serve runs [{CARD}]: batch "
         + json.dumps({k: batch[k] for k in RG_KERNELS}) + ", window "

@@ -27,7 +27,7 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_copy", "flash_attention", "paged_attention",
            "paged_prefill_attention", "wkv6", "wkv6_chunked", "paged_gather",
-           "matmul", "ragged_dot", "rglru_scan")
+           "matmul", "ragged_dot", "rglru")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -65,8 +65,10 @@ SIGNATURES = {
                 _P]),
     "ragged_dot": ("ragged_dot", "ragged_dot_launch",
                    [_P] * 4 + [_I] * 4 + [_LL] * 4 + [_I, _P]),
-    "rglru_scan": ("rglru_scan", "rglru_scan_launch",
-                   [_P] * 4 + [_I] * 3 + [_P]),
+    "rglru_step": ("rglru", "rglru_step_launch",
+                   [_P] * 6 + [_I] * 3 + [_P]),
+    "rglru_scan": ("rglru", "rglru_scan_launch",
+                   [_P] * 3 + [_I] + [_P] * 3 + [_I] * 3 + [_P]),
 }
 
 _lock = threading.Lock()

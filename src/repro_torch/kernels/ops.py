@@ -45,10 +45,7 @@ from repro_torch.kernels.ragged_dot import (
     check_ragged_dot,
     ragged_dot as _ragged_dot_kernel,
 )
-from repro_torch.kernels.rglru_scan import (
-    check_rglru_scan,
-    rglru_scan as _rglru_scan_kernel,
-)
+from repro_torch.kernels.rglru import check_rglru, rglru as _rglru_kernel
 from repro_torch.kernels.wkv6 import check_wkv6, wkv6 as _wkv6_kernel
 from repro_torch.kernels.wkv6_chunked import (
     CHUNK as WKV6_CHUNK,
@@ -68,7 +65,7 @@ KERNELS = {
     "paged_gather": _paged_gather_kernel,
     "matmul": _matmul_kernel,
     "ragged_dot": _ragged_dot_kernel,
-    "rglru_scan": _rglru_scan_kernel,
+    "rglru": _rglru_kernel,
 }
 
 
@@ -92,8 +89,9 @@ def route_counts() -> dict[str, dict[str, int]]:
     ``paged_prefill_attention``: ``prefill_route``; ``paged_copy`` and
     ``paged_copy_at``: ``copy_route``; ``ragged_dot``: ``ragged_route``,
     ``"mma"`` for bf16 decode shapes, ``"wgmma"`` for bf16 prefills,
-    ``"simt"`` for f32; ``paged_gather``: ``gather_route``; ``rglru_scan``:
-    its one route, ``"simt"``)."""
+    ``"simt"`` for f32; ``paged_gather``: ``gather_route``; ``rglru``:
+    ``rglru_route``, ``"step"`` for bf16 decode rows that fit its shared
+    memory, ``"scan"`` otherwise)."""
     return {name: dict(fn.routes) for name, fn in KERNELS.items()
             if hasattr(fn, "routes")}
 
@@ -269,13 +267,14 @@ def paged_prefill_attention(q, k_pool, v_pool, page_table, starts, *,
         scale=scale, kv_scale=kv_scale)
 
 
-def rglru_scan(a, bx, h0, *, use_kernel: bool = True):
-    """The RG-LRU recurrence ``h_t = a_t * h_{t-1} + bx_t`` over ``[B, T,
-    R]`` f32 from ``h0 [B, R]``; returns ``h [B, T, R]``."""
-    if _plain(a, use_kernel):
-        check_rglru_scan(a, bx, h0)
-        return ref.rglru_scan_ref(a, bx, h0)
-    return _rglru_scan_kernel(a, bx, h0)
+def rglru(conv, w_r, w_i, lam, h0, *, use_kernel: bool = True):
+    """The RG-LRU of one recurrent layer: gates from ``conv [B, T, R]`` and
+    ``w_r``, ``w_i [R, R]``, decay from ``lam [R]``, the recurrence from
+    ``h0 [B, R]``; returns ``h [B, T, R]`` f32."""
+    if _plain(conv, use_kernel):
+        check_rglru(conv, w_r, w_i, lam, h0)
+        return ref.rglru_ref(conv, w_r, w_i, lam, h0)
+    return _rglru_kernel(conv, w_r, w_i, lam, h0)
 
 
 def wkv6_route(t: int, *, use_kernel: bool = True,

@@ -117,6 +117,51 @@ def chunked_attention_ref(
     return (acc / l[..., None]).reshape(b, hq, sq, d).to(q.dtype)
 
 
+#: RG-LRU's decay constant: ``a = exp(-RGLRU_C softplus(lam) r)``
+RGLRU_C = 8.0
+
+
+def rglru_gate_products(conv: torch.Tensor, w_r: torch.Tensor,
+                        w_i: torch.Tensor):
+    """The RG-LRU's gate pre-activations ``(x @ w_r, x @ w_i)`` in f32,
+    ``x = conv`` as f32, the weights upcast per call (JAX's order)."""
+    conv32 = conv.float()
+    return conv32 @ w_r.float(), conv32 @ w_i.float()
+
+
+def rglru_ref(conv: torch.Tensor, w_r: torch.Tensor, w_i: torch.Tensor,
+              lam: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """The RG-LRU of one recurrent layer (JAX
+    ``src/repro/models/rglru.py:183-189``): ``r = sigmoid(x @ w_r)``, ``i =
+    sigmoid(x @ w_i)``, ``a = exp(-8 softplus(lam) r)``, ``bx = sqrt(max(1 -
+    a^2, 1e-12)) (i x)`` and the recurrence of :func:`rglru_scan_ref`, all
+    in f32 (``x = conv`` as f32).  conv ``[B, T, R]`` in the weights' dtype,
+    w_r, w_i ``[R, R]``, lam ``[R]`` f32, h0 ``[B, R]`` f32; returns ``h
+    [B, T, R]``."""
+    return rglru_from_products(*rglru_gate_products(conv, w_r, w_i), conv,
+                               lam, h0)
+
+
+def rglru_from_products(pre_r: torch.Tensor, pre_i: torch.Tensor,
+                        conv: torch.Tensor, lam: torch.Tensor,
+                        h0: torch.Tensor) -> torch.Tensor:
+    """:func:`rglru_ref` after the gate products: the gate math and the
+    recurrence from the pre-activations ``pre_r``, ``pre_i [B, T, R]``
+    (what the scan kernel computes)."""
+    return rglru_scan_ref(*rglru_gates(pre_r, pre_i, conv, lam), h0)
+
+
+def rglru_gates(pre_r: torch.Tensor, pre_i: torch.Tensor,
+                conv: torch.Tensor, lam: torch.Tensor):
+    """The gate math from the pre-activations: the decay ``a`` and the
+    input ``bx [B, T, R]`` of the recurrence, f32."""
+    r = torch.sigmoid(pre_r)
+    i = torch.sigmoid(pre_i)
+    a = torch.exp(-RGLRU_C * torch.nn.functional.softplus(lam) * r)
+    bx = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * conv.float())
+    return a, bx
+
+
 def rglru_scan_ref(a: torch.Tensor, bx: torch.Tensor,
                    h0: torch.Tensor) -> torch.Tensor:
     """The RG-LRU recurrence one step at a time: ``h_t = a_t * h_{t-1} +

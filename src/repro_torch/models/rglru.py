@@ -9,9 +9,9 @@ Port of ``src/repro/models/rglru.py`` (``init``, ``init_state``,
   * recurrent block: ``x -> [gelu(W_gate x)] * [RG-LRU(conv1d_4(W_x x))]
     -> W_out`` and a SwiGLU MLP; the RG-LRU's gates and decay are f32
     (``r = sig(W_r x)``, ``i = sig(W_i x)``, ``a = exp(-8 softplus(lam)
-    r)``, ``bx = sqrt(1 - a^2) (i x)``) and the recurrence ``h_t = a_t
-    h_{t-1} + bx_t`` is one :func:`repro_torch.kernels.ops.rglru_scan`
-    a layer and call (JAX: ``jax.lax.associative_scan``);
+    r)``, ``bx = sqrt(1 - a^2) (i x)``) and, with the recurrence ``h_t =
+    a_t h_{t-1} + bx_t``, one :func:`repro_torch.kernels.ops.rglru` a layer
+    and call (JAX: XLA and ``jax.lax.associative_scan``);
   * local attention: MQA (one KV head) with a sliding window
     (``cfg.local_window``) over the paged KV cache: prefill writes K and V
     through the page table in one launch (``paged_copy_kv``) and attends
@@ -42,7 +42,6 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.vmem import INVALID_PAGE
 from repro_torch.device import resolve_device
@@ -52,7 +51,6 @@ from repro_torch.models.config import ModelConfig
 
 Params = dict[str, Any]
 CONV_WIDTH = 4
-RGLRU_C = 8.0
 
 
 class HybridState(NamedTuple):
@@ -80,7 +78,7 @@ class RecurrentGemmaLM:
                              f"family, got {cfg.family!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
-        #: False routes the scan, the copies and the decode attention to
+        #: False routes the RG-LRU, the copies and the decode attention to
         #: their plain versions even on the card (JAX's ``use_kernels``)
         self.use_kernels = use_kernels
         self.dtype = L.DTYPES[cfg.param_dtype]
@@ -163,14 +161,9 @@ class RecurrentGemmaLM:
         conv = sum(u_ext[:, i:i + t] * p["conv_w"][i]
                    for i in range(CONV_WIDTH))
         new_conv_buf = u_ext[:, -(CONV_WIDTH - 1):]
-        # RG-LRU in f32: the gate weights are upcast per call
-        conv32 = conv.float()
-        r = torch.sigmoid(conv32 @ p["w_r"].float())
-        i = torch.sigmoid(conv32 @ p["w_i"].float())
-        a = torch.exp(-RGLRU_C * F.softplus(p["lam"]) * r)     # [B, T, R]
-        bx = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * conv32)
-        h = ops.rglru_scan(a, bx, h0.float().contiguous(),
-                           use_kernel=self.use_kernels)
+        # RG-LRU in f32: gates, decay and recurrence in one call
+        h = ops.rglru(conv, p["w_r"], p["w_i"], p["lam"],
+                      h0.float().contiguous(), use_kernel=self.use_kernels)
         x = x + (gate * h.to(gate.dtype)) @ p["w_out"]
         x = x + L.swiglu(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
         return x, h[:, -1], new_conv_buf

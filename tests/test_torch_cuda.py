@@ -15,7 +15,10 @@ probes of the tensor-core routes are exact; the copies are bit-identical on the 
 the WKV recurrences (f32) 1e-4 sequential and 3e-4 chunked, 1e-3 at a
 decay of 1e-6, as their CPU tests against the Pallas kernels;
 ``ragged_dot`` f32 1e-5 of each row's largest output (an f32 dot over up
-to 1,024 terms), bf16 four bf16 steps of each row's largest output.
+to 1,024 terms), bf16 four bf16 steps of each row's largest output; the
+RG-LRU's step route 1e-5 of each row's largest |h| (exact bf16 products
+summed in f32 in another order than the plain version's), its scan route
+bit-identical.
 """
 
 import pytest
@@ -24,6 +27,7 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.paged_copy import ROUTES as COPY_ROUTES
 from repro_torch.kernels.paged_gather import ROUTES as GATHER_ROUTES
+from repro_torch.kernels.rglru import STEP_TOL
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
 
@@ -825,13 +829,17 @@ def test_flash_attention_misaligned_view_takes_simt(gen):
 # ---------------------------------------------------------------------------
 
 
-def rows_within(got, want, steps=4):
-    """Every output row ``[..., D]`` within ``steps`` bf16 steps of that
+def rows_within(got, want, tol=4 * 2**-8, lead=False):
+    """Every output row within ``tol`` (four bf16 steps by default) of that
     row's largest value (a row that averages many keys is far smaller than
-    one that sees a few)."""
-    diff = (got.float() - want.float()).abs().amax(-1)
-    peak = want.float().abs().amax(-1)
-    bad = diff > steps * 2**-8 * peak
+    one that sees a few).  A row is the last dim ``[..., D]``, or with
+    ``lead`` dim 0 with every other dim flattened."""
+    got, want = got.float(), want.float()
+    if lead:
+        got, want = got.flatten(1), want.flatten(1)
+    diff = (got - want).abs().amax(-1)
+    peak = want.abs().amax(-1)
+    bad = diff > tol * peak
     assert not bool(bad.any()), (float(diff.max()), int(bad.sum()))
 
 
@@ -2060,35 +2068,79 @@ def test_graph_replay_paged_attention_d256_bit_identical(gen):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("b,t,r", [(8, 1, 4096), (8, 512, 4096), (1, 7, 100),
-                                   (3, 513, 300), (2, 9, 128)])
-@pytest.mark.parametrize("with_h0", [False, True])
-def test_rglru_scan_kernel_bit_identical(gen, b, t, r, with_h0):
-    """The scan kernel against its plain version, decays in (0, 1) as the
-    model makes them: bit-identical (one rounded product and one rounded
-    sum a step on both sides), at the decode and 512-token prefill shapes
-    of recurrentgemma-9b, a width that is no multiple of the block, and T
-    past a multiple of the kernel's 8-step prefetch."""
-    a = torch.rand((b, t, r), generator=gen, device="cuda") * 0.99 + 0.005
-    bx = torch.randn((b, t, r), generator=gen, device="cuda")
+def rglru_case(gen, b, t, r, dtype, with_h0=True):
+    """One recurrent layer's RG-LRU operands as the model makes them: conv
+    and the gate weights in ``dtype`` (weights normal / sqrt(R), as
+    ``dense_init``), ``lam`` uniform in [0.4, 0.8), ``h0`` normal or
+    zero."""
+    conv = torch.randn((b, t, r), generator=gen, device="cuda").to(dtype)
+    w_r, w_i = ((torch.randn((r, r), generator=gen, device="cuda")
+                 / r ** 0.5).to(dtype) for _ in range(2))
+    lam = 0.4 + 0.4 * torch.rand((r,), generator=gen, device="cuda")
     h0 = (torch.randn((b, r), generator=gen, device="cuda") if with_h0
           else torch.zeros((b, r), device="cuda"))
+    return conv, w_r, w_i, lam, h0
+
+
+@pytest.mark.parametrize("b,r", [(8, 4096), (1, 4096), (16, 4096),
+                                 (3, 300)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_step_against_plain_version(gen, b, r, with_h0):
+    """The step route (one launch: both gate GEMVs from the bf16 weights,
+    the gate math and the step) at recurrentgemma-9b's decode rows (8),
+    the window run's (1), the most it stages (16) and a width that is no
+    multiple of the 16-byte loads or the block's 32 channels (300, rows 3
+    padded to 4): each row of h within ``rglru.STEP_TOL`` of its peak, and
+    two launches bit-identical (split K reduced in a fixed order)."""
+    args = rglru_case(gen, b, 1, r, torch.bfloat16, with_h0)
     ops.reset_launch_counts()
-    got = ops.rglru_scan(a, bx, h0)
-    assert ops.route_counts()["rglru_scan"] == {"simt": 1}
-    assert ops.launch_counts()["rglru_scan"] == 1
-    want = ref.rglru_scan_ref(a, bx, h0)
+    got = ops.rglru(*args)
+    again = ops.rglru(*args)
+    assert ops.route_counts()["rglru"] == {"step": 2, "scan": 0}
+    assert ops.launch_counts()["rglru"] == 2
+    want = ref.rglru_ref(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (b, 1, r) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    rows_within(got, want, STEP_TOL, lead=True)
+
+
+@pytest.mark.parametrize("b,t,r,dtype", [
+    (8, 512, 4096, torch.bfloat16), (8, 512, 4096, torch.float32),
+    (8, 1, 4096, torch.float32), (17, 1, 512, torch.bfloat16),
+    (1, 7, 100, torch.bfloat16), (1, 7, 100, torch.float32),
+    (3, 513, 300, torch.bfloat16), (3, 513, 300, torch.float32),
+    (2, 9, 128, torch.bfloat16), (2, 9, 128, torch.float32),
+    (2, 64, 128, torch.bfloat16), (1, 2560, 4096, torch.bfloat16)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_kernel_bit_identical(gen, b, t, r, dtype, with_h0):
+    """The scan route against its plain version, bit-identical: the same
+    torch.matmul products, then the gate math in PyTorch's CUDA order
+    (sigmoid, softplus, exp, sqrt, each product and sum rounded alone)
+    and one rounded product and sum a step.  At recurrentgemma-9b's
+    512-token prefill and the window run's 2,560-token one, f32 weights
+    at T = 1 (the reduced configs), 17 bf16 rows at T = 1 (one past the
+    step route), widths that are no multiple of the block's 32 channels,
+    T inside, at and one past the kernel's 32-step chunks."""
+    args = rglru_case(gen, b, t, r, dtype, with_h0)
+    ops.reset_launch_counts()
+    got = ops.rglru(*args)
+    assert ops.route_counts()["rglru"] == {"step": 0, "scan": 1}
+    assert ops.launch_counts()["rglru"] == 1
+    want = ref.rglru_ref(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("t", [1, 512])
-def test_graph_replay_rglru_scan_bit_identical(gen, t):
-    a = torch.rand((8, t, 4096), generator=gen, device="cuda")
-    bx = torch.randn((8, t, 4096), generator=gen, device="cuda")
-    h0 = torch.randn((8, 4096), generator=gen, device="cuda")
-    want = ops.rglru_scan(a, bx, h0)
-    graph, got = captured(lambda: ops.rglru_scan(a, bx, h0))
+@pytest.mark.parametrize("t,route", [(1, "step"), (512, "scan")])
+def test_graph_replay_rglru_scan_bit_identical(gen, t, route):
+    """Each route replayed from a CUDA graph: bit-identical to its eager
+    launch."""
+    args = rglru_case(gen, 8, t, 4096, torch.bfloat16)
+    ops.reset_launch_counts()
+    want = ops.rglru(*args)
+    assert ops.route_counts()["rglru"][route] == 1
+    graph, got = captured(lambda: ops.rglru(*args))
     got.zero_()
     graph.replay()
     torch.cuda.synchronize()
@@ -2096,8 +2148,9 @@ def test_graph_replay_rglru_scan_bit_identical(gen, t):
 
 
 def test_reduced_rglru_card_equals_cpu(gen):
-    """The reduced recurrentgemma-9b (f32: the scan kernel, the burst
-    copy, decode attention on ``"simt"`` at D 16 with the window of 16) on
+    """The reduced recurrentgemma-9b (f32: the RG-LRU on its scan route,
+    the burst copy, decode attention on ``"simt"`` at D 16 with the window
+    of 16) on
     the card against the CPU: a 20-token prefill and 12 greedy steps past
     the window, identical tokens, logits within 1e-4, exact launches."""
     import numpy as np
@@ -2130,6 +2183,6 @@ def test_reduced_rglru_card_equals_cpu(gen):
     assert torch.equal(tg, tc)
     for a, b_ in zip(lg, lc):
         torch.testing.assert_close(a, b_, atol=1e-4, rtol=1e-4)
-    assert n["rglru_scan"] == 4 * 13
+    assert n["rglru"] == 52 and routes["rglru"] == {"step": 0, "scan": 52}
     assert n["paged_copy"] == 1 and n["paged_decode_attention"] == 12
     assert routes["paged_decode_attention"] == {"mma": 0, "simt": 12}

@@ -448,15 +448,17 @@ def test_cpu_dispatch_launches_no_kernel():
         ops.wkv6(y, y, y, y, u, matmul_chunks=chunks)
     ops.ragged_dot(torch.ones(4, 8), torch.ones(2, 8, 8),
                    torch.tensor([3, 1], dtype=torch.int32))
-    ops.rglru_scan(torch.full((2, 3, 8), 0.5), torch.ones(2, 3, 8),
-                   torch.zeros(2, 8))
+    for dtype, steps in ((torch.bfloat16, 1), (torch.float32, 3)):
+        ops.rglru(torch.full((2, steps, 8), 0.5, dtype=dtype),
+                  torch.ones(8, 8, dtype=dtype), torch.ones(8, 8, dtype=dtype),
+                  torch.full((8,), 0.5), torch.zeros(2, 8))
     assert ops.launch_counts() == {"paged_copy": 0, "flash_attention": 0,
                                    "paged_decode_attention": 0,
                                    "paged_copy_at": 0,
                                    "paged_prefill_attention": 0,
                                    "wkv6": 0, "wkv6_chunked": 0,
                                    "paged_gather": 0, "matmul": 0,
-                                   "ragged_dot": 0, "rglru_scan": 0}
+                                   "ragged_dot": 0, "rglru": 0}
 
 
 def test_jax_side_runs_on_cpu():

@@ -1,9 +1,13 @@
 """The port's RG-LRU hybrid (recurrentgemma-9b) against the JAX package, on
 the CPU.
 
-Plain versions: ``rglru_scan_ref`` (the step loop the CUDA kernel
-computes) against JAX's ``_rglru_scan`` (an associative scan, another
-order of sums) at 1e-6; the windowed ``chunked_attention_ref`` against
+Plain versions: ``rglru_scan_ref`` (the step loop of the plain RG-LRU)
+against JAX's ``_rglru_scan`` (an associative scan, another order of sums)
+at 1e-6; ``rglru_ref`` (the gate math, decay and recurrence of one layer)
+against JAX's lines ``src/repro/models/rglru.py:183-189`` run on the same
+numpy inputs, with bf16 and f32 weights, at 1e-6 (the bf16 products are
+exact in f32 on both sides; only the order of the f32 sums differs); the
+windowed ``chunked_attention_ref`` against
 JAX's at 1e-5; ``paged_decode_attention_ref`` at recurrentgemma-9b's
 decode shape (G 16, D 256) against JAX's oracle, with and without the
 window, at 1e-5.
@@ -32,7 +36,7 @@ from repro.models import build_model as jax_build_model
 from repro.models.rglru import _rglru_scan as jax_rglru_scan
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.rglru_scan import rglru_scan as scan_kernel
+from repro_torch.kernels.rglru import rglru as rglru_kernel
 from repro_torch.models import (
     HybridState,
     RecurrentGemmaLM,
@@ -75,27 +79,94 @@ def test_rglru_scan_ref_matches_jax(steps, with_h0):
     want = jax_rglru_scan(jnp.asarray(a), jnp.asarray(bx), jnp.asarray(h0))
     got = ref.rglru_scan_ref(t(a), t(bx), t(h0))
     close(got.numpy(), want, 1e-6)
-    before = (scan_kernel.launches, dict(scan_kernel.routes))
-    assert torch.equal(ops.rglru_scan(t(a), t(bx), t(h0)), got)
-    assert (scan_kernel.launches, dict(scan_kernel.routes)) == before
+
+
+def rglru_inputs(seed, b, steps, r, dtype, with_h0):
+    """f32 numpy inputs of one recurrent layer's RG-LRU: conv and the gate
+    weights rounded to ``dtype`` (bf16 values, as the bf16 model's conv
+    and weights are), ``lam`` uniform in [0.4, 0.8) and ``h0``."""
+    rng = np.random.default_rng(seed)
+    conv = rng.standard_normal((b, steps, r)).astype(np.float32)
+    w_r = (rng.standard_normal((r, r)) / np.sqrt(r)).astype(np.float32)
+    w_i = (rng.standard_normal((r, r)) / np.sqrt(r)).astype(np.float32)
+    if dtype == "bfloat16":
+        conv, w_r, w_i = (np.asarray(jnp.asarray(x, jnp.bfloat16),
+                                     np.float32) for x in (conv, w_r, w_i))
+    lam = rng.uniform(0.4, 0.8, r).astype(np.float32)
+    h0 = (rng.standard_normal((b, r)) if with_h0
+          else np.zeros((b, r))).astype(np.float32)
+    return conv, w_r, w_i, lam, h0
+
+
+def jax_rglru(conv, w_r, w_i, lam, h0):
+    """JAX's RG-LRU, ``src/repro/models/rglru.py:183-189`` line for line
+    (the recurrent block computes it inline)."""
+    conv32 = conv.astype(jnp.float32)
+    r = jax.nn.sigmoid(conv32 @ w_r.astype(jnp.float32))
+    i = jax.nn.sigmoid(conv32 @ w_i.astype(jnp.float32))
+    a = jnp.exp(-8.0 * jax.nn.softplus(lam) * r)
+    bx = jnp.sqrt(jnp.maximum(1.0 - a * a, 1e-12)) * (i * conv32)
+    return jax_rglru_scan(a, bx, h0.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("steps", [1, 7, 64])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_ref_matches_jax(dtype, steps, with_h0):
+    """``ref.rglru_ref`` against JAX's gate math and ``_rglru_scan`` on the
+    same numpy inputs, within 1e-6 in f32 and in bf16 (bf16 products are
+    exact in f32 on both sides; XLA and torch sum the 40 of them in other
+    orders); ``ops.rglru`` on CPU tensors is the plain version and moves
+    no counter."""
+    conv, w_r, w_i, lam, h0 = rglru_inputs(steps + 10 * with_h0, 3, steps,
+                                           40, dtype, with_h0)
+    jdt = getattr(jnp, dtype)
+    want = jax_rglru(jnp.asarray(conv, jdt), jnp.asarray(w_r, jdt),
+                     jnp.asarray(w_i, jdt), jnp.asarray(lam),
+                     jnp.asarray(h0))
+    tdt = getattr(torch, dtype)
+    args = (t(conv).to(tdt), t(w_r).to(tdt), t(w_i).to(tdt), t(lam), t(h0))
+    got = ref.rglru_ref(*args)
+    assert got.dtype == torch.float32 and got.shape == (3, steps, 40)
+    close(got.numpy(), want, 1e-6)
+    before = (rglru_kernel.launches, dict(rglru_kernel.routes))
+    assert torch.equal(ops.rglru(*args), got)
+    assert (rglru_kernel.launches, dict(rglru_kernel.routes)) == before
 
 
 def test_rglru_scan_refusals():
-    """The checks refuse on the plain route as the kernel wrapper does,
-    and the wrapper takes CUDA tensors only; a refused call moves no
+    """``ops.rglru`` refuses on the plain route as the kernel wrapper
+    does, and the wrapper takes CUDA tensors only; a refused call moves no
     counter."""
-    a = torch.rand(2, 5, 8)
-    h0 = torch.zeros(2, 8)
-    before = (scan_kernel.launches, dict(scan_kernel.routes))
+    bf = torch.bfloat16
+    conv = torch.rand(2, 5, 8, dtype=bf)
+    w = torch.rand(8, 8, dtype=bf)
+    lam, h0 = torch.rand(8), torch.zeros(2, 8)
+    before = (rglru_kernel.launches, dict(rglru_kernel.routes))
+    with pytest.raises(TypeError, match="dtype"):
+        ops.rglru(conv.double(), w.double(), w.double(), lam, h0)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.rglru(conv, w.float(), w, lam, h0)
     with pytest.raises(TypeError, match="float32"):
-        ops.rglru_scan(a.double(), a.double(), h0.double())
+        ops.rglru(conv, w, w, lam.double(), h0)
+    with pytest.raises(TypeError, match="float32"):
+        ops.rglru(conv, w, w, lam, h0.to(bf))
     with pytest.raises(ValueError, match="h0"):
-        ops.rglru_scan(a, a, torch.zeros(2, 7))
+        ops.rglru(conv, w, w, lam, torch.zeros(2, 7))
+    with pytest.raises(ValueError, match="w_r"):
+        ops.rglru(conv, w[:, :7], w, lam, h0)
+    with pytest.raises(ValueError, match=r"conv \[B, T, R\]"):
+        ops.rglru(conv[0], w, w, lam, h0)
     with pytest.raises(ValueError, match="contiguous"):
-        ops.rglru_scan(a.transpose(0, 1).contiguous().transpose(0, 1), a, h0)
+        ops.rglru(conv.transpose(0, 1).contiguous().transpose(0, 1), w, w,
+                  lam, h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rglru(conv, w.t(), w, lam, h0)
+    with pytest.raises(ValueError, match="lam"):
+        ops.rglru(conv, w, w, torch.rand(7), h0)
     with pytest.raises(ValueError, match="CUDA"):
-        scan_kernel(a, a, h0)
-    assert (scan_kernel.launches, dict(scan_kernel.routes)) == before
+        rglru_kernel(conv, w, w, lam, h0)
+    assert (rglru_kernel.launches, dict(rglru_kernel.routes)) == before
 
 
 @pytest.mark.parametrize("window", [None, 16, 5])
@@ -388,13 +459,13 @@ def test_serve_calls_update_pools_in_place_and_keep_the_slabs(pair):
 
 
 def test_serve_path_launches_per_layer(pair, monkeypatch):
-    """A spy on the ``ops`` calls: one ``rglru_scan`` a recurrent layer
+    """A spy on the ``ops`` calls: one ``rglru`` a recurrent layer
     and call (4 here, 26 at full width), one ``paged_copy_kv`` an
     attention layer and prefill, one windowed ``paged_decode_attention``
     an attention layer and decode step."""
     _, _, tm, tp = pair
     calls = []
-    for name in ("rglru_scan", "paged_copy_kv", "paged_decode_attention"):
+    for name in ("rglru", "paged_copy_kv", "paged_decode_attention"):
         real = getattr(ops, name)
 
         def spy(*a, _name=name, _real=real, **kw):
@@ -405,13 +476,13 @@ def test_serve_path_launches_per_layer(pair, monkeypatch):
         np.arange(2 * MAX_PAGES, dtype=np.int32).reshape(2, MAX_PAGES)))
     _, st = tm.prefill(tp, torch.ones((2, 6), dtype=torch.int32),
                        torch.full((2,), 6, dtype=torch.int32), st)
-    assert [c[0] for c in calls] == ["rglru_scan"] * 2 + ["paged_copy_kv"] \
-        + ["rglru_scan"] * 2
+    assert [c[0] for c in calls] == ["rglru"] * 2 + ["paged_copy_kv"] \
+        + ["rglru"] * 2
     calls.clear()
     tm.decode_step(tp, torch.zeros(2, dtype=torch.int32), st)
-    assert calls == [("rglru_scan", None)] * 2 + [
+    assert calls == [("rglru", None)] * 2 + [
         ("paged_decode_attention", tm.cfg.local_window)] \
-        + [("rglru_scan", None)] * 2
+        + [("rglru", None)] * 2
 
 
 def test_init_distributions_dtypes_and_default_device(monkeypatch):

@@ -1,9 +1,10 @@
 """The route rules of the four kernels that have a tensor-core and a
-CUDA-core kernel, and of the paged copy's and the paged gather's two
-routes, on the CPU.
+CUDA-core kernel, of the paged copy's and the paged gather's two routes,
+and of the RG-LRU's two kernels, on the CPU.
 
 ``matmul_route``, ``flash_route``, ``decode_route``, ``prefill_route``,
-``copy_route`` and ``gather_route`` are pure functions of dtype, shape, strides and alignment,
+``copy_route``, ``gather_route`` and ``rglru_route`` are pure functions
+of dtype, shape, strides and alignment,
 decided before the launch; here they are held to their rules on CPU
 tensors of the same layouts the card sees (the kernels themselves run in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
@@ -39,6 +40,11 @@ from repro_torch.kernels.paged_gather import (
     alignment,
     gather_route,
     paged_gather as gather_kernel,
+)
+from repro_torch.kernels.rglru import (
+    rglru as rglru_kernel,
+    rglru_route,
+    step_smem,
 )
 from repro_torch.kernels.paged_prefill_attention import (
     paged_prefill_attention as prefill_kernel,
@@ -293,7 +299,7 @@ def test_route_counts_reset_with_launch_counts():
         "paged_gather": {"bulk": 0, "lanes": 0},
         "matmul": {"wgmma": 0, "simt": 0},
         "ragged_dot": {"mma": 0, "wgmma": 0, "simt": 0},
-        "rglru_scan": {"simt": 0}}
+        "rglru": {"step": 0, "scan": 0}}
 
 
 # ---------------------------------------------------------------------------
@@ -598,3 +604,64 @@ def test_gather_refusals_move_no_counter():
     with pytest.raises(TypeError):                       # int64 positions
         gather_kernel(pool, row, pos.long(), page_size=8)
     assert (gather_kernel.launches, dict(gather_kernel.routes)) == before
+
+
+# ---------------------------------------------------------------------------
+# rglru_route (the RG-LRU's step and scan kernels)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,t,r,dtype,route", [
+    (8, 1, 4096, BF16, "step"),           # recurrentgemma-9b's decode batch
+    (1, 1, 4096, BF16, "step"),           # the window run's decode
+    (16, 1, 4096, BF16, "step"),          # the most rows the step stages
+    (17, 1, 4096, BF16, "scan"),          # one row past them
+    (3, 1, 300, BF16, "step"),            # a one-token prefill of 3 rows
+    (8, 2, 4096, BF16, "scan"),           # two steps: a prefill
+    (8, 512, 4096, BF16, "scan"),         # the batch prefill
+    (1, 2560, 4096, BF16, "scan"),        # the window run's prefill
+    (8, 1, 4096, torch.float32, "scan"),  # the reduced f32 configs' decode
+    (1, 1, 100, torch.float32, "scan"),
+    (16, 1, 4096, torch.float16, "scan"),
+    (16, 1, 6240, BF16, "step"),          # the widest rows 16 rows fit
+    (16, 1, 6241, BF16, "scan"),          # one past: the step's smem
+    (8, 1, 8192, BF16, "step"),
+    (16, 1, 8192, BF16, "scan")])
+def test_rglru_route(b, t, r, dtype, route):
+    """``"step"`` for one step of bf16 rows, at most 16 of them and no
+    wider than the step's shared memory holds; ``"scan"`` for anything
+    else, f32 at T = 1 too."""
+    assert rglru_route(b, t, r, dtype) == route
+
+
+@pytest.mark.parametrize("b,r,nbytes", [
+    (8, 4096, 8 * 4096 * 2 + 8 * 8 * 64 * 4),     # 80 KB
+    (16, 4096, 16 * 4096 * 2 + 8 * 16 * 64 * 4),  # 160 KB
+    (1, 4096, 4096 * 2 + 8 * 64 * 4),
+    (3, 300, 4 * 320 * 2 + 8 * 4 * 64 * 4),      # rows padded to 4 and 320
+    (1, 100, 128 * 2 + 8 * 64 * 4)])
+def test_rglru_step_smem(b, r, nbytes):
+    """The step route's shared memory: the conv rows padded to a power of
+    two and to the 32 k lanes, then the 8 warps' partial sums of both
+    gates' 32 channels."""
+    assert step_smem(b, r) == nbytes
+
+
+def test_rglru_refusals_move_no_counter():
+    """The kernel wrapper refuses CPU tensors and bad operands before it
+    counts anything, on both routes' shapes."""
+    conv = torch.zeros((8, 1, 64), dtype=BF16)
+    w = torch.zeros((64, 64), dtype=BF16)
+    lam, h0 = torch.zeros(64), torch.zeros(8, 64)
+    before = (rglru_kernel.launches, dict(rglru_kernel.routes))
+    with pytest.raises(ValueError):                      # CUDA only (step)
+        rglru_kernel(conv, w, w, lam, h0)
+    with pytest.raises(ValueError):                      # CUDA only (scan)
+        rglru_kernel(conv.float().expand(8, 3, 64).contiguous(), w.float(),
+                     w.float(), lam, h0)
+    with pytest.raises(TypeError):                       # f16
+        rglru_kernel(conv.half(), w.half(), w.half(), lam, h0)
+    with pytest.raises(ValueError):                      # h0 of 7 rows
+        rglru_kernel(conv, w, w, lam, torch.zeros(7, 64))
+    assert (rglru_kernel.launches, dict(rglru_kernel.routes)) == before
+    assert ops.route_counts()["rglru"] == dict(rglru_kernel.routes)
