@@ -54,7 +54,13 @@ printing its lines; any failure exits non-zero before the last line:
    prefill and 12 greedy steps to 32 cached tokens) on the card against
    the CPU: identical tokens, logits and state within 1e-4, one ``rglru``
    (on ``"scan"``) a recurrent layer and call, one copy an attention layer
-   and prefill, one decode attention an attention layer and step;
+   and prefill, one decode attention an attention layer and step; and
+   training on one reduced config of each family (qwen2-7b, granite-moe,
+   llama4, qwen2-vl, musicgen, rwkv6, recurrentgemma; f32,
+   ``use_kernels=False``) on the card against the CPU: the loss within
+   1e-5, every gradient leaf within ``1e-4 * max|g| + 1e-7``, no kernel
+   launched, one AdamW step within 1e-6 of the CPU optimizer's step on
+   the card's gradients (and, printed, the step against the CPU's own);
 4. serve: qwen2-7b at full width (bf16, random weights from a seeded
    generator) serves 8 requests (64-512-token prompts, 32 new tokens,
    page 16, horizon 8) cold, in a pool tight enough to preempt; launch
@@ -194,7 +200,23 @@ printing its lines; any failure exits non-zero before the last line:
    rows past the last group zero, two launches bit-identical) and timed
    beside its plain version, ``torch._grouped_mm`` and its bound, the
    route printed at each shape;
-13. VLM: the granite-moe weights are freed, qwen2-vl-7b at full width
+12b. training: granite-moe-1b-a400m at full width and depth (bf16,
+   f32 AdamW moments, ``use_kernels=False``, the sorted dispatch at
+   capacity factor 1.25) takes 8 AdamW steps (lr 1e-3, warmup 2) on one
+   seeded B 2 x S 2048 batch, every layer's attention through the flash
+   backward: the first loss finite and within 1.5 of ln V, the gradient
+   norms finite, the last loss below 0.9 x the first, no hand-written
+   kernel launched; per-step wall (median of steps 2-8) and peak
+   allocated memory; one more step traced in three parts (forward,
+   backward, AdamW: busy share, device time by kernel, device
+   operations); the no-grad loss of the trained weights with
+   ``use_kernels=True`` (exactly one ``flash_attention`` a layer, on
+   ``"wgmma"``, and nothing else; within 1 % of the plain loss); a
+   grad-enabled ``use_kernels=True`` loss must raise before its first
+   launch; then ``flash_attention`` on the evaluation's recorded call
+   (q [2, 16, 2048, 64] bf16) against its plain version row by row and
+   timed as in 9;
+13. VLM: the trained granite-moe weights are freed, qwen2-vl-7b at full width
    (28 layers, qwen2-7b's shapes, M-RoPE sections (16, 24, 24), bf16,
    random weights, depth not cut) serves the cold workload of 4 and a
    default-policy radix run, each with CUDA graphs and inside
@@ -5135,6 +5157,350 @@ def audio_phases() -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# training: the losses, their gradients and AdamW
+# ---------------------------------------------------------------------------
+
+
+#: one reduced config of each family for the card-against-CPU training check
+TRAIN_ARCHS = ("qwen2-7b", "granite-moe-1b-a400m",
+               "llama4-maverick-400b-a17b", "qwen2-vl-7b", "musicgen-large",
+               "rwkv6-7b", "recurrentgemma-9b")
+#: the full-width train step: granite-moe-1b-a400m, one fixed B x S batch
+TRAIN_FULL = dict(arch="granite-moe-1b-a400m", batch=2, seq=2048, steps=8,
+                  seed=11)
+#: AdamW of the train checks (f32 moments)
+TRAIN_OPT = dict(base_lr=1e-3, warmup_steps=2, total_steps=8)
+
+
+def train_batch(cfg, dev, b: int, s: int, seed: int) -> dict:
+    """Seeded random tokens ``[B, S + 1]`` (``[..., K]`` audio) split into
+    tokens and labels, with a mask with zeros; the VLM's M-RoPE positions
+    (three distinct streams) and a 4-position stub vision prefix."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    audio = cfg.family == "audio" and cfg.num_codebooks > 1
+    shape = (b, s + 1, cfg.num_codebooks) if audio else (b, s + 1)
+    tok = torch.randint(0, cfg.vocab_size, shape, generator=gen)
+    out = {"tokens": tok[:, :-1], "labels": tok[:, 1:],
+           "mask": (torch.rand((b, s), generator=gen) > 0.2).float()}
+    if cfg.family == "vlm":
+        pos = torch.arange(s).expand(b, s)
+        out["positions"] = torch.stack([pos, pos // 2, pos % 5])
+        out["vision_embeds"] = torch.randn((b, 4, cfg.d_model),
+                                           generator=gen) * 0.02
+    return {k: v.to(dev) for k, v in out.items()}
+
+
+def loss_grads(model, params, batch):
+    """(loss, metrics, gradients in ``tree_leaves`` order) by
+    ``torch.autograd.grad``; ``params`` require grad only inside."""
+    import torch
+    from repro_torch.optim import tree_leaves
+    leaves = tree_leaves(params)
+    for x in leaves:
+        x.requires_grad_(True)
+    try:
+        loss, met = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for x in leaves:
+            x.requires_grad_(False)
+    return loss.detach(), {k: v.detach() for k, v in met.items()}, grads
+
+
+def leaf_gap(got, want) -> tuple[float, float]:
+    """(max|got - want|, max|want|) of one leaf, on the CPU."""
+    g, w = got.detach().cpu().float(), want.detach().cpu().float()
+    return float((g - w).abs().max()), float(w.abs().max())
+
+
+def reduced_train_check() -> None:
+    """One reduced config of each family (f32, TF32 off), the same weights
+    and batch on the card and on the CPU, ``use_kernels=False``: the loss
+    within 1e-5, every gradient leaf within ``1e-4 * max|g| + 1e-7``, no
+    hand-written kernel launched; then one AdamW step each: the card's
+    parameters within 1e-6 of each leaf's peak of the CPU optimizer's step
+    on the card's gradients (the card's arithmetic), and, printed, of the
+    CPU's step on its own gradients."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   tree_leaves, tree_unflatten)
+    ocfg = AdamWConfig(**TRAIN_OPT)
+    t0 = time.perf_counter()
+    for arch in TRAIN_ARCHS:
+        cfg = get_config(arch, reduced=True)
+        cpu = build_model(cfg, device="cpu", use_kernels=False)
+        card = build_model(cfg, device="cuda", use_kernels=False)
+        params = cpu.init(0)
+        gparams = to_device(params, "cuda")
+        batch = train_batch(cfg, "cpu", 2, 16, seed=1)
+        gbatch = {k: v.cuda() for k, v in batch.items()}
+        ops.reset_launch_counts()
+        loss, _, grads = loss_grads(cpu, params, batch)
+        gloss, _, ggrads = loss_grads(card, gparams, gbatch)
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in ops.launch_counts().items() if n}
+        require(not launched, f"train {arch}: kernels launched under grad: "
+                f"{launched}")
+        rel = abs(float(gloss) - float(loss)) / abs(float(loss))
+        require(rel <= 1e-5, f"train {arch}: card loss {float(gloss)} vs cpu "
+                f"{float(loss)} (rel {rel:.3g} > 1e-5)")
+        worst_g = 0.0
+        for i, (a, b) in enumerate(zip(ggrads, grads)):
+            err, peak = leaf_gap(a, b)
+            require(err <= 1e-4 * peak + 1e-7, f"train {arch}: gradient leaf "
+                    f"{i} {tuple(b.shape)} err {err} > 1e-4 * {peak} + 1e-7")
+            worst_g = max(worst_g, err / peak if peak else err)
+        new_c, _, _ = adamw_update(tree_unflatten(params, grads),
+                                   adamw_init(params), params, ocfg)
+        new_g, _, _ = adamw_update(tree_unflatten(gparams, ggrads),
+                                   adamw_init(gparams), gparams, ocfg)
+        on_card_grads, _, _ = adamw_update(
+            tree_unflatten(params, [g.cpu() for g in ggrads]),
+            adamw_init(params), params, ocfg)
+        worst_p = worst_own = 0.0
+        for a, b, c in zip(tree_leaves(new_g), tree_leaves(on_card_grads),
+                           tree_leaves(new_c)):
+            err, peak = leaf_gap(a, b)
+            require(err <= 1e-6 * peak, f"train {arch}: AdamW step on the "
+                    f"card err {err} > 1e-6 * {peak} of the CPU's step on "
+                    "the same gradients")
+            worst_p = max(worst_p, err / peak)
+            err, peak = leaf_gap(a, c)
+            worst_own = max(worst_own, err / peak)
+        log(f"train {arch} reduced card == cpu: loss {float(gloss):.6f} (rel "
+            f"{rel:.2e}), {len(grads)} gradient leaves worst {worst_g:.2e} of "
+            f"their peak, AdamW step {worst_p:.2e} (against the CPU's own "
+            f"step {worst_own:.2e}), no kernel launched")
+    log(f"train: reduced card == cpu for {len(TRAIN_ARCHS)} configs in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+def train_full_model():
+    """granite-moe-1b-a400m at full width and depth (bf16), built for
+    training (``use_kernels=False``, the sorted dispatch at capacity factor
+    1.25), and its twin with the kernels for the no-grad evaluation."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import tree_leaves
+    cfg = get_config(TRAIN_FULL["arch"])
+    model = build_model(cfg, device="cuda", use_kernels=False,
+                        moe_dispatch="sorted")
+    kmodel = build_model(cfg, device="cuda", use_kernels=True,
+                         moe_dispatch="sorted")
+    params = model.init(0)
+    n = sum(x.numel() for x in tree_leaves(params))
+    log(f"train: {TRAIN_FULL['arch']} full width ({cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_experts} experts top-"
+        f"{cfg.experts_per_token}, vocab {cfg.vocab_size}, bf16, "
+        f"{n / 1e9:.3f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB)")
+    return cfg, model, kmodel, params
+
+
+def train_phase() -> list[dict]:
+    """The full-width train steps, the no-grad evaluation with the kernels,
+    the refusal, and the ``flash_attention`` row at the evaluation's
+    shape."""
+    import math
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   tree_unflatten)
+    cfg, model, kmodel, params = train_full_model()
+    f = TRAIN_FULL
+    batch = train_batch(cfg, "cuda", f["batch"], f["seq"], f["seed"])
+    del batch["mask"]
+    ocfg = AdamWConfig(**TRAIN_OPT)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, norms, walls = [], [], []
+    for _ in range(f["steps"]):
+        t0 = time.perf_counter()
+        loss, met, grads = loss_grads(model, params, batch)
+        params, opt, om = adamw_update(tree_unflatten(params, grads), opt,
+                                       params, ocfg)
+        del grads
+        losses.append(float(loss))
+        norms.append(float(om["grad_norm"]))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        log(f"train step {len(losses)}: loss {losses[-1]:.4f} (xent "
+            f"{float(met['xent']):.4f}, aux {float(met['aux']):.4f}), grad "
+            f"norm {norms[-1]:.4f}, lr {float(om['lr']):.3g}, "
+            f"{walls[-1]:.1f} ms")
+    launched = {k: n for k, n in ops.launch_counts().items() if n}
+    require(not launched, f"train: kernels launched in the grad steps: "
+            f"{launched}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ln_v = math.log(cfg.vocab_size)
+    require(math.isfinite(losses[0]) and abs(losses[0] - ln_v) <= 1.5,
+            f"train: first loss {losses[0]} not within 1.5 of ln V {ln_v:.2f}")
+    require(all(math.isfinite(x) for x in norms + losses),
+            f"train: a loss or gradient norm is not finite: {losses} {norms}")
+    require(losses[-1] < 0.9 * losses[0],
+            f"train: last loss {losses[-1]} not below 0.9 x first "
+            f"{losses[0]}")
+    step_ms = statistics.median(walls[1:])
+    log(f"train {f['arch']} full width: B {f['batch']} x S {f['seq']}, "
+        f"{f['steps']} AdamW steps (lr {ocfg.base_lr}, warmup "
+        f"{ocfg.warmup_steps}, f32 moments): loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} ({losses[-1] / losses[0]:.3f} x; ln V "
+        f"{ln_v:.2f}), step wall median of steps 2-{f['steps']} "
+        f"{step_ms:.1f} ms ({min(walls[1:]):.1f}-{max(walls[1:]):.1f}), "
+        f"{f['batch'] * f['seq'] / step_ms * 1e3:.0f} tokens/s, peak "
+        f"allocated {peak_gb:.2f} GB, 0 hand-written kernel launches "
+        f"[{CARD}]")
+    train_profile(model, params, opt, batch, ocfg)
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return train_eval(cfg, model, kmodel, params, batch)
+
+
+def train_profile(model, params, opt, batch, ocfg) -> None:
+    """An untimed step traced in three parts (torch.profiler): the forward
+    (the loss), the backward (``torch.autograd.grad``) and the AdamW
+    update, each with the device's busy share of its wall clock, device
+    time by kernel and device operations."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import print_profile
+    from repro_torch.optim import adamw_update, tree_leaves, tree_unflatten
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    leaves = tree_leaves(params)
+    state = {}
+
+    def forward():
+        for x in leaves:
+            x.requires_grad_(True)
+        state["loss"] = model.loss(params, batch)[0]
+
+    def backward():
+        state["grads"] = torch.autograd.grad(state.pop("loss"), leaves)
+        for x in leaves:
+            x.requires_grad_(False)
+
+    def update():
+        adamw_update(tree_unflatten(params, state.pop("grads")), opt, params,
+                     ocfg)
+
+    for part, fn in (("forward", forward), ("backward", backward),
+                     ("AdamW update", update)):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ops_n = sum(e.count for e in prof.key_averages()
+                    if e.device_type != DeviceType.CPU)
+        log(f"train profile, {part}: {ops_n} device operations [{CARD}]")
+        print_profile(prof, wall, top=8)
+
+
+def train_eval(cfg, model, kmodel, params, batch) -> list[dict]:
+    """The no-grad loss of the trained weights with ``use_kernels=True``:
+    exactly one ``flash_attention`` launch a layer, on ``"wgmma"``, and
+    nothing else, the loss within 1 % of the plain path's; a grad-enabled
+    one must raise before any launch; then the recorded call's row."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.optim import tree_leaves
+    with torch.no_grad():
+        plain = float(model.loss(params, batch)[0])
+    real = ops.flash_attention
+    rec = Recorder(real, lambda q, *a, **kw: q.numel())
+    ops.flash_attention = rec
+    try:
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            got = float(kmodel.loss(params, batch)[0])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        routes = ops.route_counts()["flash_attention"]
+    finally:
+        ops.flash_attention = real
+    others = {k: n for k, n in counts.items()
+              if n and k != "flash_attention"}
+    require(counts["flash_attention"] == cfg.num_layers and not others,
+            f"train eval: launches {counts}, want {cfg.num_layers} "
+            "flash_attention only")
+    require(routes.get("wgmma", 0) == cfg.num_layers,
+            f"train eval: flash routes {routes}, want all on wgmma")
+    rel = abs(got - plain) / abs(plain)
+    require(rel <= 0.01, f"train eval: kernel-path loss {got} vs plain "
+            f"{plain} (rel {rel:.3g} > 1 %)")
+    log(f"train eval (no grad, use_kernels=True): loss {got:.5f} vs plain "
+        f"{plain:.5f} (rel {rel:.2e}), flash_attention "
+        f"{counts['flash_attention']} launches {routes} [{CARD}]")
+    leaves = tree_leaves(params)
+    for x in leaves:
+        x.requires_grad_(True)
+    ops.reset_launch_counts()
+    try:
+        kmodel.loss(params, batch)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        refused = ""
+    finally:
+        for x in leaves:
+            x.requires_grad_(False)
+    require(refused.startswith("flash_attention: ")
+            and not any(ops.launch_counts().values()),
+            f"train: a grad-enabled use_kernels=True loss did not refuse "
+            f"before its first launch ({refused!r})")
+    log(f"train refusal: grad-enabled use_kernels=True loss raised "
+        f"RuntimeError({refused!r}), no launch")
+    return [flash_train_row(rec.best, counts["flash_attention"])]
+
+
+def flash_train_row(best, n_launch) -> dict:
+    """``flash_attention`` on the evaluation's recorded call (q [2, 16,
+    2048, 64] bf16), row by row against its plain version, timed beside
+    the plain version and SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    (q, k, v), _ = best
+    err, peak = flash_check(best, "flash_attention train")
+    b, hq, s, d = q.shape
+    flops = 4.0 * b * hq * d * s * (s + 1) / 2
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True),
+                    n=5, reps=3)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(name="flash_attention_train", shape=f"q {list(q.shape)} "
+                f"k {list(k.shape)} {q.dtype} (granite-moe's no-grad "
+                "training loss)", max_abs_err=err, max_abs_want=peak,
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib,
+                library="F.scaled_dot_product_attention(is_causal, "
+                "enable_gqa)", launches=n_launch)
+
+
+def train_phases() -> list[dict]:
+    """The training phase and its kernel row; the weights are freed on
+    return."""
+    t0 = time.perf_counter()
+    rows = train_phase()
+    print_rows(rows)
+    log(f"train: phase in {time.perf_counter() - t0:.1f}s [{CARD}]")
+    return rows
+
+
 def print_rows(rows) -> None:
     for r in rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -5211,6 +5577,7 @@ def main() -> int:
         reduced_router_check()
         reduced_rwkv_check()
         reduced_rglru_check()
+        reduced_train_check()
         reduced_vm_checks()
         if quick:
             log("quick: stopping after the reduced checks")
@@ -5229,6 +5596,9 @@ def main() -> int:
         rows += moe_phases()
         gc.collect()                   # free the granite-moe weights first
         torch.cuda.empty_cache()
+        rows += train_phases()
+        gc.collect()                   # free the trained weights first
+        torch.cuda.empty_cache()
         vlm_phases()
         gc.collect()                   # free the qwen2-vl-7b weights first
         torch.cuda.empty_cache()
@@ -5243,7 +5613,8 @@ def main() -> int:
         f"[{CARD}]")
     kernels = []
     for r in rows:
-        source, replaces = KERNELS[r["name"].removesuffix("_window")
+        source, replaces = KERNELS[r["name"].removesuffix("_train")
+                                   .removesuffix("_window")
                                    .removesuffix("_d256")
                                    .removesuffix("_g1")
                                    .removesuffix("_prefill")

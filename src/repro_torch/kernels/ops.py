@@ -7,6 +7,14 @@ failed launch.  ``use_kernel=False`` is the explicit plain-version escape
 hatch (``ServeConfig.use_ref_path``), counted by the executor as
 ``ref_path_dispatches``.  Inputs are checked on both routes, so the CPU
 path refuses what the kernel would refuse.
+
+No kernel here has a backward, as no Pallas kernel of the JAX package has
+one (``jax.grad`` through one fails there).  A kernel call under grad mode
+with an input that requires grad raises a ``RuntimeError`` on both routes,
+instead of handing back an output cut off from the graph: training builds
+its model with ``use_kernels=False`` and runs the plain versions under
+autograd.  The serve entry points run under ``torch.no_grad()``, so they
+never meet this check.
 """
 
 from __future__ import annotations
@@ -109,6 +117,17 @@ def add_launch_counts(launches: dict[str, int],
             KERNELS[name].routes[route] += n
 
 
+def _refuse_grad(name: str, use_kernel: bool, *tensors) -> None:
+    """Raise when a kernel call would cut its output off from autograd:
+    ``use_kernel``, grad mode on and an input that requires grad."""
+    if use_kernel and torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the hand-written kernel has no backward and an input "
+            "requires grad; build the model with use_kernels=False for "
+            "training (or call under torch.no_grad())")
+
+
 def _plain(t, use_kernel: bool) -> bool:
     """True when this call takes the plain version: the tensor is on the
     CPU, or the caller asked for the plain path explicitly."""
@@ -122,6 +141,7 @@ def _plain(t, use_kernel: bool) -> bool:
 def matmul(x, y, *, out_dtype=None, use_kernel: bool = True):
     """``x @ y`` with an f32 accumulator, as ``out_dtype`` (default x's
     dtype), for any ``[M, K] @ [K, N]``."""
+    _refuse_grad("matmul", use_kernel, x, y)
     if _plain(x, use_kernel):
         check_matmul(x, y, out_dtype)
         return ref.matmul_ref(x, y, out_dtype)
@@ -131,6 +151,7 @@ def matmul(x, y, *, out_dtype=None, use_kernel: bool = True):
 def ragged_dot(xs, w, group_sizes, *, use_kernel: bool = True):
     """Grouped product ``xs [M, K] @ w[g(m)]`` over rows sorted by group
     (``group_sizes [E]`` int32 on xs's device), ``[M, N]`` in xs's dtype."""
+    _refuse_grad("ragged_dot", use_kernel, xs, w, group_sizes)
     if _plain(xs, use_kernel):
         check_ragged_dot(xs, w, group_sizes)
         return ref.ragged_dot_ref(xs, w, group_sizes)
@@ -140,6 +161,7 @@ def ragged_dot(xs, w, group_sizes, *, use_kernel: bool = True):
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None, use_kernel: bool = True):
     """Causal GQA attention, ``[B, Hq, S, D]`` in and out."""
+    _refuse_grad("flash_attention", use_kernel, q, k, v)
     if _plain(q, use_kernel):
         check_flash_attention(q, k, v, causal)
         return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
@@ -152,6 +174,7 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens, *,
                            kv_scale: float | None = None,
                            use_kernel: bool = True):
     """One decode step through the page table, ``[B, Hkv, G, D]``."""
+    _refuse_grad("paged_decode_attention", use_kernel, q, k_pool, v_pool)
     if _plain(q, use_kernel):
         check_paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens,
                                      page_size, kv_scale, window)
@@ -166,6 +189,7 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens, *,
 def paged_copy(src, pool, page_table, lens, *, page_size: int,
                use_kernel: bool = True):
     """Write ``src[b, :lens[b]]`` into ``pool`` in place; returns ``pool``."""
+    _refuse_grad("paged_copy", use_kernel, src, pool)
     if _plain(src, use_kernel):
         check_paged_copy(src, pool, page_table, lens, page_size)
         return ref.paged_copy_ref(src, pool, page_table, lens,
@@ -178,6 +202,7 @@ def paged_copy_at(src, pool, page_table, starts, lens, *, page_size: int,
                   use_kernel: bool = True):
     """Write ``src[b, :lens[b]]`` at logical positions ``starts[b]...`` of
     ``pool`` in place; returns ``pool``."""
+    _refuse_grad("paged_copy_at", use_kernel, src, pool)
     if _plain(src, use_kernel):
         check_paged_copy_at(src, pool, page_table, starts, lens, page_size)
         return ref.paged_copy_at_ref(src, pool, page_table, starts, lens,
@@ -190,6 +215,7 @@ def paged_copy_kv(k_src, v_src, k_pool, v_pool, page_table, lens, *,
                   page_size: int, use_kernel: bool = True):
     """:func:`paged_copy` of a layer's K and V, one launch on the card;
     returns ``(k_pool, v_pool)``."""
+    _refuse_grad("paged_copy_kv", use_kernel, k_src, v_src, k_pool, v_pool)
     if _plain(k_src, use_kernel):
         check_paged_copy_kv(k_src, v_src, k_pool, v_pool, page_table, lens,
                             page_size)
@@ -205,6 +231,7 @@ def paged_copy_kv_at(k_src, v_src, k_pool, v_pool, page_table, starts, lens,
                      *, page_size: int, use_kernel: bool = True):
     """:func:`paged_copy_at` of a layer's K and V, one launch on the card;
     returns ``(k_pool, v_pool)``."""
+    _refuse_grad("paged_copy_kv_at", use_kernel, k_src, v_src, k_pool, v_pool)
     if _plain(k_src, use_kernel):
         check_paged_copy_kv_at(k_src, v_src, k_pool, v_pool, page_table,
                                starts, lens, page_size)
@@ -220,6 +247,7 @@ def paged_gather(pool, page_table_row, positions, *, page_size: int,
                  use_kernel: bool = True):
     """Indexed gather, one translation per element (the paper's C2 cost):
     ``pool`` rows at logical ``positions``, ``[N, W]``."""
+    _refuse_grad("paged_gather", use_kernel, pool)
     if _plain(pool, use_kernel):
         check_paged_gather(pool, page_table_row, positions, page_size)
         return ref.paged_gather_ref(pool, page_table_row, positions,
@@ -256,6 +284,7 @@ def paged_prefill_attention(q, k_pool, v_pool, page_table, starts, *,
                             use_kernel: bool = True):
     """Continuation-chunk attention through the page table,
     ``[B, S, Hkv, G, D]``."""
+    _refuse_grad("paged_prefill_attention", use_kernel, q, k_pool, v_pool)
     if _plain(q, use_kernel):
         check_paged_prefill_attention(q, k_pool, v_pool, page_table, starts,
                                       page_size, kv_scale)
@@ -271,6 +300,7 @@ def rglru(conv, w_r, w_i, lam, h0, *, use_kernel: bool = True):
     """The RG-LRU of one recurrent layer: gates from ``conv [B, T, R]`` and
     ``w_r``, ``w_i [R, R]``, decay from ``lam [R]``, the recurrence from
     ``h0 [B, R]``; returns ``h [B, T, R]`` f32."""
+    _refuse_grad("rglru", use_kernel, conv, w_r, w_i, lam, h0)
     if _plain(conv, use_kernel):
         check_rglru(conv, w_r, w_i, lam, h0)
         return ref.rglru_ref(conv, w_r, w_i, lam, h0)
@@ -304,6 +334,7 @@ def wkv6(r, k, v, w, u, initial_state=None, *, use_kernel: bool = True,
     """RWKV-6 recurrence over ``[BH, T, N]``; returns (o, final state
     ``[BH, N, N]`` f32).  ``out_state`` receives the final state in place
     (on every route)."""
+    _refuse_grad("wkv6", use_kernel, r, k, v, w, u, initial_state)
     route = wkv6_route(r.shape[1], use_kernel=use_kernel,
                        matmul_chunks=matmul_chunks)
     if not _plain(r, route in ("wkv6", "wkv6_chunked")):

@@ -80,6 +80,38 @@ def chunked_attention_ref(
     ``(q_pos - window, q_pos]``.  Plain in both packages (RG-LRU's
     windowed prefill attention); one ``[B, Hq, Sq, bk]`` score block is
     live at a time."""
+    return _chunked_forward(q, k, v, causal, window, scale, bk)[0]
+
+
+def _key_blocks(k: torch.Tensor, v: torch.Tensor, bk: int):
+    """``(k0, k block, v block)`` in f32 over the keys, the last block
+    padded with zero keys to ``bk``."""
+    for k0 in range(0, k.shape[2], bk):
+        kblk = k[:, :, k0:k0 + bk].float()
+        vblk = v[:, :, k0:k0 + bk].float()
+        pad = bk - kblk.shape[2]                 # the last block's zero keys
+        if pad:
+            kblk = torch.nn.functional.pad(kblk, (0, 0, 0, pad))
+            vblk = torch.nn.functional.pad(vblk, (0, 0, 0, pad))
+        yield k0, kblk, vblk
+
+
+def _block_valid(k0: int, bk: int, sk: int, q_pos: torch.Tensor,
+                 causal: bool, window: int | None) -> torch.Tensor:
+    """``[Sq, bk]``: which keys of the block at ``k0`` each query sees."""
+    k_pos = k0 + torch.arange(bk, device=q_pos.device)
+    valid = (k_pos < sk)[None, :].expand(q_pos.shape[0], bk)
+    if causal:
+        valid = valid & (q_pos[:, None] >= k_pos[None, :])
+    if window is not None:
+        valid = valid & (q_pos[:, None] - k_pos[None, :] < window)
+    return valid
+
+
+def _chunked_forward(q, k, v, causal, window, scale, bk):
+    """The blocked online softmax of :func:`chunked_attention_ref`;
+    returns (out in q's dtype, the running max ``m`` and the normaliser
+    ``l`` ``[B, Hkv, G, Sq]`` f32, ``l`` 0 replaced by 1)."""
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     g = hq // hkv
@@ -91,21 +123,10 @@ def chunked_attention_ref(
     l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, hkv, g, sq, d), dtype=torch.float32,
                       device=q.device)
-    for k0 in range(0, sk, bk):
-        kblk = k[:, :, k0:k0 + bk].float()
-        vblk = v[:, :, k0:k0 + bk].float()
-        pad = bk - kblk.shape[2]                 # the last block's zero keys
-        if pad:
-            kblk = torch.nn.functional.pad(kblk, (0, 0, 0, pad))
-            vblk = torch.nn.functional.pad(vblk, (0, 0, 0, pad))
+    for k0, kblk, vblk in _key_blocks(k, v, bk):
         s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kblk) * scale
-        k_pos = k0 + torch.arange(bk, device=q.device)
-        valid = (k_pos < sk)[None, :].expand(sq, bk)
-        if causal:
-            valid = valid & (q_pos[:, None] >= k_pos[None, :])
-        if window is not None:
-            valid = valid & (q_pos[:, None] - k_pos[None, :] < window)
-        s = torch.where(valid, s, _NEG_INF)
+        s = torch.where(_block_valid(k0, bk, sk, q_pos, causal, window), s,
+                        _NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
@@ -114,7 +135,78 @@ def chunked_attention_ref(
                                                     vblk)
         m = m_new
     l = torch.where(l == 0.0, 1.0, l)
-    return (acc / l[..., None]).reshape(b, hq, sq, d).to(q.dtype)
+    return (acc / l[..., None]).reshape(b, hq, sq, d).to(q.dtype), m, l
+
+
+class _ChunkedAttentionFlashBwd(torch.autograd.Function):
+    """Chunked attention with the flash backward (JAX
+    ``_chunked_attention_vjp``, ``src/repro/kernels/ref.py:445-569``).
+
+    Autograd through the key-block loop would save every block's scores:
+    O(Sq x Sk) again.  The forward saves only ``(q, k, v, out, m, l)``,
+    O(Sq) beyond the inputs, and the backward recomputes each block's
+    probabilities:
+
+        p   = exp(s - m) / l
+        dv += p^T do
+        ds  = p (do v^T - rowsum(do * out)) scale
+        dq += ds k ;  dk += ds^T q
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, bk):
+        out, m, l = _chunked_forward(q, k, v, causal, window, scale, bk)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.opts = (causal, window, scale, bk)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, m, l = ctx.saved_tensors
+        causal, window, scale, bk = ctx.opts
+        b, hq, sq, d = q.shape
+        _, hkv, sk, _ = k.shape
+        g = hq // hkv
+        sc = scale if scale is not None else d ** -0.5
+        qg = q.reshape(b, hkv, g, sq, d).float()
+        dog = do.reshape(b, hkv, g, sq, d).float()
+        delta = (dog * out.reshape(b, hkv, g, sq, d).float()).sum(-1)
+        q_pos = torch.arange(sq, device=q.device) + (sk - sq)
+        dq = torch.zeros_like(qg)
+        dks, dvs = [], []
+        for k0, kblk, vblk in _key_blocks(k, v, bk):
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kblk) * sc
+            s = torch.where(_block_valid(k0, bk, sk, q_pos, causal, window),
+                            s, _NEG_INF)
+            p = torch.exp(s - m[..., None]) / l[..., None]
+            dvs.append(torch.einsum("bhgqk,bhgqd->bhkd", p, dog))
+            dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, vblk)
+            ds = p * (dp - delta[..., None]) * sc
+            dq = dq + torch.einsum("bhgqk,bhkd->bhgqd", ds, kblk)
+            dks.append(torch.einsum("bhgqk,bhgqd->bhkd", ds, qg))
+        dk = torch.cat(dks, dim=2)[:, :, :sk]
+        dv = torch.cat(dvs, dim=2)[:, :, :sk]
+        return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+                dv.to(v.dtype), None, None, None, None)
+
+
+def chunked_attention_flashbwd_ref(
+    q: torch.Tensor,      # [B, Hq, Sq, D]
+    k: torch.Tensor,      # [B, Hkv, Sk, D]
+    v: torch.Tensor,      # [B, Hkv, Sk, D]
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    bk: int = 512,
+) -> torch.Tensor:
+    """:func:`chunked_attention_ref` with the flash backward (the same
+    forward, O(Sq) residuals for the backward; JAX
+    ``chunked_attention_flashbwd_ref``, ``src/repro/kernels/ref.py:572``).
+    Plain in both packages; training's attention above 1,024 tokens or
+    with a window."""
+    return _ChunkedAttentionFlashBwd.apply(q, k, v, causal, window, scale,
+                                           bk)
 
 
 #: RG-LRU's decay constant: ``a = exp(-RGLRU_C softplus(lam) r)``

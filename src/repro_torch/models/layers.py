@@ -1,5 +1,5 @@
 """Dense-transformer layers in PyTorch: norms, RoPE and M-RoPE, GQA
-projections, MLP, the tanh GELU.
+projections and training attention, MLP, the tanh GELU, the LM loss.
 
 Conventions (those of ``src/repro/models/layers.py``):
   * params are plain dicts of tensors; weights keep the JAX ``[in, out]``
@@ -18,6 +18,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ops, ref
 
 Params = dict[str, Any]
 
@@ -156,6 +158,75 @@ def qkv_project(params: Params, x: torch.Tensor, cfg):
     k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     return q, k, v
+
+
+def attention_train(params: Params, x: torch.Tensor,
+                    positions: torch.Tensor, cfg, *,
+                    use_kernel: bool = False,
+                    window: int | None = None) -> torch.Tensor:
+    """Full (or sliding-window) causal self-attention of ``x [B, S, D]``
+    for training, ``positions [B, S]`` (``[3, B, S]`` under M-RoPE); JAX
+    ``layers.attention_train`` (``src/repro/models/layers.py:147-177``),
+    branch for branch:
+
+      * ``use_kernel`` and no window: ``ops.flash_attention`` (the
+        hand-written kernel on the card, which refuses inputs that require
+        grad under grad mode);
+      * more than 1,024 tokens or a window:
+        ``ref.chunked_attention_flashbwd_ref``, whose backward keeps O(S)
+        residuals;
+      * otherwise ``ref.flash_attention_ref``, under autograd."""
+    q, k, v = qkv_project(params, x, cfg)
+    if cfg.mrope_sections:
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # [B, H, S, hd]
+    b, s = x.shape[:2]
+    if use_kernel and window is None:
+        o = ops.flash_attention(qt, kt, vt, causal=True)
+    elif s > 1024 or window is not None:
+        o = ref.chunked_attention_flashbwd_ref(qt, kt, vt, causal=True,
+                                               window=window)
+    else:
+        o = ref.flash_attention_ref(qt, kt, vt, causal=True)
+    return o.transpose(1, 2).reshape(b, s, -1) @ params["wo"]
+
+
+def _windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: int) -> torch.Tensor:
+    """Causal attention of ``q [B, Hq, S, D]`` over the last ``window``
+    keys, with the whole ``[S, S]`` score matrix (JAX
+    ``layers._windowed_attention``, ``:180-195``; no caller in either
+    package)."""
+    b, hq, s, d = q.shape
+    g = hq // k.shape[1]
+    qg = q.reshape(b, k.shape[1], g, s, d)
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(),
+                          k.float()) * (d ** -0.5)
+    pos = torch.arange(s, device=q.device)
+    diff = pos[:, None] - pos[None, :]
+    scores = torch.where((diff >= 0) & (diff < window), scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(b, hq, s, d).to(q.dtype)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean causal-LM cross entropy of ``logits [B, S, V]`` against
+    ``labels [B, S]``, f32 statistics; a ``mask`` weights the tokens and
+    divides by ``max(mask.sum(), 1)`` (JAX ``layers.softmax_xent``)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """RecurrentGemma / Griffin hybrid — RG-LRU recurrent blocks and local
 attention — the serve path, in PyTorch.
 
-Port of ``src/repro/models/rglru.py`` (``init``, ``init_state``,
-``prefill``, ``decode_step``):
+Port of ``src/repro/models/rglru.py`` (``init``, ``forward``, ``loss``,
+``init_state``, ``prefill``, ``decode_step``):
   * layers follow ``cfg.block_pattern`` cyclically (recurrentgemma-9b:
     (recurrent, recurrent, local attention) x 12 and two recurrent tail
     layers, 38 in all);
@@ -26,7 +26,13 @@ Port of ``src/repro/models/rglru.py`` (``init``, ``init_state``,
     layout applied as ``x @ W``; ``lam`` is f32 in a bf16 model;
   * the serve calls update the KV pools IN PLACE (as ``TransformerLM``
     does; JAX returns new pools) and return new recurrent slabs
-    (``rg_h``, ``conv_buf``): the given state's slabs are not changed.
+    (``rg_h``, ``conv_buf``): the given state's slabs are not changed;
+  * training (``forward``, ``loss``) runs every layer from a zero state
+    under autograd: the RG-LRU through ``ops.rglru`` (its plain version
+    under ``use_kernels=False``; the kernel has no backward and refuses
+    inputs that require grad under grad mode), the local attention
+    through ``layers.attention_train`` with the window, hence always the
+    flash-backward ``chunked_attention_flashbwd_ref``.
 
 JAX's prefill is kept as it is: the recurrence runs over all T columns of
 the padded batch and the carried state is ``h`` and the conv tail at the
@@ -203,6 +209,48 @@ class RecurrentGemmaLM:
             ).reshape(b, 1, hkv * g * hd)
         x = x + o @ p["attn"]["wo"]
         return x + L.swiglu(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+
+    def _attention_block_train(self, p: Params, x: torch.Tensor,
+                               positions: torch.Tensor) -> torch.Tensor:
+        """A local attention layer of the training forward (JAX
+        ``rglru.py:195-201``)."""
+        cfg = self.cfg
+        x = x + L.attention_train(
+            p["attn"], L.rmsnorm(p["ln"], x, cfg.norm_eps), positions, cfg,
+            window=cfg.local_window)
+        return x + L.swiglu(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
+
+    # ------------------------------------------------------------------
+    # training forward
+    # ------------------------------------------------------------------
+
+    def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """The training forward of ``tokens [B, T]`` from a zero state (JAX
+        ``rglru.py:207-250``, tail layers included): the final-norm hidden
+        states ``[B, T, D]``."""
+        cfg = self.cfg
+        b, t = tokens.shape
+        positions = torch.arange(t, device=tokens.device).expand(b, t)
+        x = params["embed"][tokens.long()]
+        h0 = torch.zeros((b, self.rdim), dtype=torch.float32,
+                         device=x.device)
+        conv0 = torch.zeros((b, CONV_WIDTH - 1, self.rdim), dtype=self.dtype,
+                            device=x.device)
+        for kind, p in zip(self.pattern, params["layers"]):
+            if kind == "rglru":
+                x = self._recurrent_block(p, x, h0, conv0)[0]
+            else:
+                x = self._attention_block_train(p, x, positions)
+        return L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+
+    def loss(self, params: Params, batch: dict[str, torch.Tensor]):
+        """Mean cross entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` (``batch["mask"]`` optional); returns (xent,
+        {"xent", "aux": 0})."""
+        h = self.forward(params, batch["tokens"])
+        xent = L.softmax_xent(h @ params["head"], batch["labels"],
+                              batch.get("mask"))
+        return xent, {"xent": xent, "aux": xent.new_zeros(())}
 
     @staticmethod
     def _kv_rows(state: HybridState, pos: torch.Tensor) -> torch.Tensor:

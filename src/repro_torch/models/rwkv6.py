@@ -1,7 +1,7 @@
 """RWKV-6 "Finch" — attention-free LM with data-dependent decay, in PyTorch.
 
-Port of ``src/repro/models/rwkv6.py`` (its serve API: ``init``,
-``forward``, ``init_state``, ``prefill``, ``decode_step``):
+Port of ``src/repro/models/rwkv6.py`` (``init``, ``forward``, ``loss``,
+``init_state``, ``prefill``, ``decode_step``):
   * alternating time-mix and channel-mix blocks; time-mix computes r/k/v/g
     from token-shift interpolations and a data-dependent per-channel decay
     ``w_t = exp(-exp(w0 + LoRA(x_t)))``, then runs the linear-state
@@ -18,7 +18,13 @@ Port of ``src/repro/models/rwkv6.py`` (its serve API: ``init``,
     ``x @ W``; ``w0``, ``w_lora_*`` and ``u`` are f32 in a bf16 model;
   * serving has no KV cache: the per-request state is O(1) in context
     length (:class:`RecurrentState`).  The serve calls return a new state;
-    the state they were given is not changed.
+    the state they were given is not changed;
+  * training (``forward``, ``loss``) runs under autograd through the plain
+    recurrence (``use_kernels=False``: ``wkv6_ref``, every step's state
+    kept for the backward; JAX's ``wkv6_chunked_ref`` checkpoints one a
+    chunk of 128 and recomputes the rest, the same sums).  A hand-written
+    kernel has no backward: with ``use_kernels=True`` a grad-enabled loss
+    raises in ``ops``.
 
 Every tensor lives on ``self.device``: ``cuda`` unless the caller passes
 ``device="cpu"`` (the kernels' plain versions then run).
@@ -204,12 +210,13 @@ class RWKV6LM:
     # forward
     # ------------------------------------------------------------------
 
-    @torch.no_grad()
     def forward(self, params: Params, tokens: torch.Tensor,
                 state: RecurrentState | None = None
                 ) -> tuple[torch.Tensor, RecurrentState]:
         """tokens [B, T] -> (final-norm hidden states [B, T, D], the state
-        after the T tokens, with seq_lens advanced by T)."""
+        after the T tokens, with seq_lens advanced by T).  Runs under
+        autograd when grad mode is on (training); ``prefill`` and
+        ``decode_step`` call it under ``torch.no_grad()``."""
         cfg = self.cfg
         b, t = tokens.shape
         x = params["embed"][tokens.long()]
@@ -226,6 +233,15 @@ class RWKV6LM:
         new_state = RecurrentState(torch.stack(tm_s), torch.stack(cm_s),
                                    wkv_new, state.seq_lens + t)
         return L.rmsnorm(params["ln_f"], x, cfg.norm_eps), new_state
+
+    def loss(self, params: Params, batch: dict[str, torch.Tensor]):
+        """Mean cross entropy of ``batch["tokens"] [B, T]`` against
+        ``batch["labels"]`` (``batch["mask"]`` optional) from a zero state;
+        returns (xent, {"xent", "aux": 0})."""
+        h, _ = self.forward(params, batch["tokens"])
+        xent = L.softmax_xent(h @ params["head"], batch["labels"],
+                              batch.get("mask"))
+        return xent, {"xent": xent, "aux": xent.new_zeros(())}
 
     # ------------------------------------------------------------------
     # serving

@@ -1,5 +1,5 @@
-"""Decoder-only GQA transformer LM (dense, MoE, VLM and audio) — the serve
-paths, in PyTorch.
+"""Decoder-only GQA transformer LM (dense, MoE, VLM and audio) — the
+training forward and loss and the serve paths, in PyTorch.
 
 Port of the dense, MoE, VLM and audio families of
 ``src/repro/models/transformer.py``:
@@ -32,7 +32,16 @@ Port of the dense, MoE, VLM and audio families of
     decode attends through the page table (``paged_decode_attention``);
   * the KV pools are updated IN PLACE (JAX returns new, donated pools);
     every serve entry point returns the state it was given, with new
-    ``seq_lens``.
+    ``seq_lens``;
+  * training (``forward``, ``loss``) runs under autograd: attention by
+    ``layers.attention_train``, MoE layers by the dispatch
+    ``moe_dispatch`` names (``"sorted"``: per row, capacity factor
+    ``capacity_factor``, drops; ``"ragged"``; ``"dense"``), the router's
+    load-balance loss summed over a superblock's layers, averaged over
+    superblocks and added at 0.01.  A hand-written kernel has no backward:
+    a model that trains is built with ``use_kernels=False``, as JAX's
+    trainer builds its own; with ``use_kernels=True`` a grad-enabled loss
+    raises in ``ops`` and a no-grad one runs the kernels.
 
 Every tensor lives on ``self.device``: ``cuda`` unless the caller passes
 ``device="cpu"`` (the kernels' plain versions then run).
@@ -74,6 +83,7 @@ RAGGED_MAX_TOKENS = 2048
 #: capacity factor of the per-row sorted dispatch of longer serve calls
 SERVE_CAPACITY_FACTOR = 2.0
 FAMILIES = ("dense", "moe", "vlm", "audio")
+MOE_DISPATCHES = ("sorted", "ragged", "dense")
 
 
 class TransformerLM:
@@ -83,7 +93,8 @@ class TransformerLM:
     KV_INT8_SCALE = 24.0  # fixed-point scale (values are post-norm, O(1))
 
     def __init__(self, cfg: ModelConfig, *, device=None,
-                 use_kernels: bool = True, kv_dtype: str = "native"):
+                 use_kernels: bool = True, kv_dtype: str = "native",
+                 capacity_factor: float = 1.25, moe_dispatch: str = "sorted"):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not served by TransformerLM: "
@@ -92,12 +103,19 @@ class TransformerLM:
         if kv_dtype not in ("native", "int8"):
             raise ValueError(f"kv_dtype must be 'native' or 'int8', got "
                              f"{kv_dtype!r}")
+        if moe_dispatch not in MOE_DISPATCHES:
+            raise ValueError(f"moe_dispatch must be one of {MOE_DISPATCHES}"
+                             f", got {moe_dispatch!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         #: False routes every kernel call to its plain version even on the
         #: card (the explicit escape hatch, ``ServeConfig.use_ref_path``)
         self.use_kernels = use_kernels
         self.kv_dtype = kv_dtype
+        #: training's MoE dispatch and capacity factor (JAX's defaults);
+        #: the serve paths pick their own (``_ffn_serve``)
+        self.capacity_factor = capacity_factor
+        self.moe_dispatch = moe_dispatch
         self.dtype = L.DTYPES[cfg.param_dtype]
         #: layers a superblock; only its last one routes (JAX ``_is_moe_sub``)
         self.moe_every = cfg.moe_every if cfg.family == "moe" else 1
@@ -169,6 +187,86 @@ class TransformerLM:
         if self.cfg.tie_embeddings:
             return h @ params["embed"].T
         return h @ params["head"]
+
+    # ------------------------------------------------------------------
+    # training forward
+    # ------------------------------------------------------------------
+
+    def _block_apply(self, p: Params, x: torch.Tensor,
+                     positions: torch.Tensor, is_moe: bool):
+        """One layer of the training forward (JAX ``_block_apply``,
+        ``src/repro/models/transformer.py:171-206``).  Returns (x, the
+        layer's router aux loss, 0 for a dense layer)."""
+        cfg = self.cfg
+        x = x + L.attention_train(
+            p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), positions, cfg,
+            use_kernel=self.use_kernels)
+        hn = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        if not is_moe:
+            return (x + L.swiglu(p["mlp"], hn),
+                    x.new_zeros((), dtype=torch.float32))
+        b, s, d = hn.shape
+        moe_kw = dict(num_experts=cfg.num_experts, k=cfg.experts_per_token)
+        if self.moe_dispatch == "sorted":
+            # per-row groups, capacity per row: drops past it
+            ff, aux = M.moe_apply_sorted_rows(
+                p["mlp"], hn, capacity_factor=self.capacity_factor, **moe_kw)
+            return x + ff, aux
+        if self.moe_dispatch == "ragged":
+            ff, aux = M.moe_apply_ragged(p["mlp"], hn.reshape(b * s, d),
+                                         use_kernel=self.use_kernels,
+                                         **moe_kw)
+        else:
+            ff, aux = M.moe_apply_dense(p["mlp"], hn.reshape(b * s, d),
+                                        **moe_kw)
+        return x + ff.reshape(b, s, d), aux
+
+    def forward(self, params: Params, tokens: torch.Tensor,
+                positions: torch.Tensor | None = None,
+                vision_embeds: torch.Tensor | None = None):
+        """The training forward of ``tokens [B, S]`` (``[B, S, K]``
+        audio) at ``positions [B, S]`` (``[3, B, S]`` M-RoPE; default
+        ``arange(S)``); ``vision_embeds [B, Nvis, D]`` replace the first
+        embedded positions.  Returns (final-norm hidden [B, S, D], the
+        router aux loss: over each superblock of ``moe_every`` layers the
+        sum, over superblocks the mean; 0 outside the moe family)."""
+        cfg = self.cfg
+        b, s = tokens.shape[:2]
+        if positions is None:
+            positions = torch.arange(s, device=tokens.device).expand(b, s)
+            if cfg.mrope_sections:
+                positions = positions.expand(3, b, s)
+        x = self.embed(params, tokens)
+        if vision_embeds is not None:
+            nvis = vision_embeds.shape[1]
+            x = torch.cat([vision_embeds.to(x.dtype), x[:, nvis:]], dim=1)
+        auxs = []
+        for li, block_p in enumerate(params["blocks"]):
+            x, a = self._block_apply(block_p, x, positions, self.is_moe(li))
+            if li % self.moe_every == 0:
+                auxs.append(a)
+            else:
+                auxs[-1] = auxs[-1] + a
+        aux = (torch.stack(auxs).mean() if cfg.family == "moe"
+               else x.new_zeros((), dtype=torch.float32))
+        return L.rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
+
+    def loss(self, params: Params, batch: dict[str, torch.Tensor]):
+        """``batch``: tokens, labels, and optionally mask, positions,
+        vision_embeds.  Returns (xent + 0.01 aux, {"xent", "aux"});
+        audio averages the cross entropy over its codebook heads."""
+        h, aux = self.forward(params, batch["tokens"], batch.get("positions"),
+                              batch.get("vision_embeds"))
+        logits = self.logits_fn(params, h)
+        mask = batch.get("mask")
+        if self.token_shape:        # logits [B, S, K, V], labels [B, S, K]
+            xent = torch.stack([
+                L.softmax_xent(logits[..., i, :], batch["labels"][..., i],
+                               mask)
+                for i in range(self.cfg.num_codebooks)]).mean()
+        else:
+            xent = L.softmax_xent(logits, batch["labels"], mask)
+        return xent + 0.01 * aux, {"xent": xent, "aux": aux}
 
     # ------------------------------------------------------------------
     # serving: prefill + paged decode

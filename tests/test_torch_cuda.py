@@ -21,6 +21,8 @@ summed in f32 in another order than the plain version's), its scan route
 bit-identical.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -2186,3 +2188,135 @@ def test_reduced_rglru_card_equals_cpu(gen):
     assert n["rglru"] == 52 and routes["rglru"] == {"step": 0, "scan": 52}
     assert n["paged_copy"] == 1 and n["paged_decode_attention"] == 12
     assert routes["paged_decode_attention"] == {"mma": 0, "simt": 12}
+
+
+# ---------------------------------------------------------------------------
+# training: the losses and gradients on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+TRAIN_ARCHS = ["qwen2-7b", "granite-moe-1b-a400m",
+               "llama4-maverick-400b-a17b", "qwen2-vl-7b", "musicgen-large",
+               "rwkv6-7b", "recurrentgemma-9b"]
+
+
+def _train_batch(cfg, b=2, s=16, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    audio = cfg.family == "audio" and cfg.num_codebooks > 1
+    shape = (b, s + 1, cfg.num_codebooks) if audio else (b, s + 1)
+    tok = torch.randint(0, cfg.vocab_size, shape, generator=g)
+    out = {"tokens": tok[:, :-1], "labels": tok[:, 1:],
+           "mask": (torch.rand((b, s), generator=g) > 0.2).float()}
+    if cfg.family == "vlm":
+        pos = torch.arange(s).expand(b, s)
+        out["positions"] = torch.stack([pos, pos // 2, pos % 5])
+        out["vision_embeds"] = torch.randn((b, 4, cfg.d_model),
+                                           generator=g) * 0.02
+    return out
+
+
+def _loss_grads(model, params, batch):
+    from repro_torch.optim import tree_leaves
+    leaves = [x.requires_grad_(True) for x in tree_leaves(params)]
+    loss, _ = model.loss(params, batch)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_reduced_card_equals_cpu(gen, arch):
+    """One reduced config of each family (f32, TF32 off,
+    ``use_kernels=False``): the loss within 1e-5, every gradient leaf
+    within ``1e-4 * max|g| + 1e-7``, no kernel launched; one AdamW step on
+    the card within 1e-6 of each leaf's peak of the CPU's step on the
+    same gradients."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   tree_leaves, tree_unflatten)
+    cfg = get_config(arch, reduced=True)
+    cpu = build_model(cfg, device="cpu", use_kernels=False)
+    card = build_model(cfg, device="cuda", use_kernels=False)
+    cpu_params = cpu.init(0)
+    params = on(cpu_params, "cuda")
+    batch = _train_batch(cfg)
+    ops.reset_launch_counts()
+    loss, grads = _loss_grads(card, params, on(batch, "cuda"))
+    want_loss, want = _loss_grads(cpu, cpu_params, batch)
+    assert not any(ops.launch_counts().values())
+    assert abs(loss.item() - want_loss.item()) <= 1e-5 * abs(want_loss.item())
+    for a, b in zip(grads, want):
+        err = (a.cpu() - b).abs().max().item()
+        assert err <= 1e-4 * b.abs().max().item() + 1e-7
+    ocfg = AdamWConfig(base_lr=1e-3, warmup_steps=2, total_steps=8)
+    with torch.no_grad():
+        got, _, _ = adamw_update(tree_unflatten(params, grads),
+                                 adamw_init(params), params, ocfg)
+        ref_step, _, _ = adamw_update(
+            tree_unflatten(cpu_params, [g.cpu() for g in grads]),
+            adamw_init(cpu_params), cpu_params, ocfg)
+    for a, b in zip(tree_leaves(got), tree_leaves(ref_step)):
+        assert (a.cpu() - b).abs().max().item() <= 1e-6 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("arch,dtype,route", [
+    ("qwen2-7b", torch.float32, "simt"),            # D 14
+    ("granite-moe-1b-a400m", torch.float32, "simt"),
+    ("granite-moe-1b-a400m", torch.bfloat16, "wgmma"),   # D 16
+])
+def test_train_no_grad_loss_with_kernels(gen, arch, dtype, route):
+    """A ``use_kernels=True`` loss under ``torch.no_grad()`` launches one
+    ``flash_attention`` a layer, on the named route, and nothing else, and
+    equals the plain path's loss (1e-5 in f32, 1e-2 in bf16)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch, reduced=True)
+    if dtype == torch.bfloat16:       # the router stays f32, as in JAX
+        cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+    kmodel = build_model(cfg, device="cuda")
+    plain = build_model(cfg, device="cuda", use_kernels=False)
+    params = kmodel.init(0)
+    batch = on(_train_batch(cfg), "cuda")
+    with torch.no_grad():
+        want = plain.loss(params, batch)[0].item()
+        ops.reset_launch_counts()
+        got = kmodel.loss(params, batch)[0].item()
+    n = ops.launch_counts()
+    assert n["flash_attention"] == cfg.num_layers
+    assert sum(n.values()) == cfg.num_layers
+    assert ops.route_counts()["flash_attention"][route] == cfg.num_layers
+    assert got == pytest.approx(want, rel=1e-5 if dtype == torch.float32
+                                else 1e-2)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "ragged_dot", "rglru",
+                                  "wkv6"])
+def test_kernel_refuses_grad_on_card(gen, name):
+    """A CUDA input that requires grad never reaches a hand-written kernel
+    under grad mode: the wrapper raises before any launch; under
+    ``torch.no_grad()`` the same call launches once."""
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    calls = {
+        "flash_attention": lambda x: ops.flash_attention(
+            x, rnd(1, 2, 6, 16), rnd(1, 2, 6, 16)),
+        "ragged_dot": lambda x: ops.ragged_dot(
+            x, rnd(3, 16, 8), torch.tensor([2, 0, 3], dtype=torch.int32,
+                                           device="cuda")),
+        "rglru": lambda x: ops.rglru(x, rnd(16, 16), rnd(16, 16), rnd(16),
+                                     torch.zeros(2, 16, device="cuda")),
+        "wkv6": lambda x: ops.wkv6(x, rnd(2, 3, 8), rnd(2, 3, 8),
+                                   torch.rand(2, 3, 8, generator=gen,
+                                              device="cuda"), rnd(2, 8)),
+    }
+    first = {"flash_attention": (1, 4, 6, 16), "ragged_dot": (5, 16),
+             "rglru": (2, 3, 16), "wkv6": (2, 3, 8)}[name]
+    x = rnd(*first).requires_grad_(True)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match=f"^{name}: "):
+        calls[name](x)
+    assert not any(ops.launch_counts().values())
+    with torch.no_grad():
+        calls[name](x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == 1
