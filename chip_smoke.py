@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port serves on the card.
 
-    python3 chip_smoke.py            # one CUDA card, ~10-13 minutes
+    python3 chip_smoke.py            # one CUDA card, ~15 minutes
     python3 chip_smoke.py --quick    # build and the reduced checks only
 
 Imports nothing of JAX and nothing of the JAX package (``src/repro``); it
@@ -60,7 +60,10 @@ printing its lines; any failure exits non-zero before the last line:
    ``use_kernels=False``) on the card against the CPU: the loss within
    1e-5, every gradient leaf within ``1e-4 * max|g| + 1e-7``, no kernel
    launched, one AdamW step within 1e-6 of the CPU optimizer's step on
-   the card's gradients (and, printed, the step against the CPU's own);
+   the card's gradients (and, printed, the step against the CPU's own),
+   ``remat=True`` gradients equal ``remat=False``'s bit for bit, and
+   ``make_train_step`` single and at ``accum_steps=2`` (not the VLM) held
+   the same way;
 4. serve: qwen2-7b at full width (bf16, random weights from a seeded
    generator) serves 8 requests (64-512-token prompts, 32 new tokens,
    page 16, horizon 8) cold, in a pool tight enough to preempt; launch
@@ -200,16 +203,30 @@ printing its lines; any failure exits non-zero before the last line:
    rows past the last group zero, two launches bit-identical) and timed
    beside its plain version, ``torch._grouped_mm`` and its bound, the
    route printed at each shape;
-12b. training: granite-moe-1b-a400m at full width and depth (bf16,
-   f32 AdamW moments, ``use_kernels=False``, the sorted dispatch at
-   capacity factor 1.25) takes 8 AdamW steps (lr 1e-3, warmup 2) on one
-   seeded B 2 x S 2048 batch, every layer's attention through the flash
-   backward: the first loss finite and within 1.5 of ln V, the gradient
-   norms finite, the last loss below 0.9 x the first, no hand-written
-   kernel launched; per-step wall (median of steps 2-8) and peak
-   allocated memory; one more step traced in three parts (forward,
-   backward, AdamW: busy share, device time by kernel, device
-   operations); the no-grad loss of the trained weights with
+12b. training: the loop first — ``launch/train_100m.main`` at its
+   defaults (lm-100m, 79.95 M f32 parameters, 300 steps of B 8 x S 256,
+   accumulation 2, remat: the loss drop > 0.5, tokens/s, peak memory, 0
+   kernel launches, three ~0.96 GB checkpoints), lm-100m's resume (20
+   straight steps against 10 + a new ``Trainer`` resuming at 10 + 10, bit
+   for bit, or the nondeterministic ops named and the resume held at two
+   straight runs' spread) and the launcher (reduced granite-8b, 6 steps,
+   then ``--steps 9`` resuming from step 6); then granite-moe-1b-a400m
+   at full width and depth (bf16, f32 AdamW moments,
+   ``use_kernels=False``, the sorted dispatch at capacity factor 1.25)
+   takes 8 AdamW steps (lr 1e-3, warmup 2) through ``make_train_step``
+   (``remat=False``) on one seeded B 2 x S 2048 batch, every layer's
+   attention through the flash backward: the losses equal the
+   written-out loop's bit for bit, the first loss finite and within 1.5
+   of ln V, the gradient norms finite, the last loss below 0.9 x the
+   first, no hand-written kernel launched; per-step wall (median of steps
+   2-8) and peak allocated memory, the forward + backward apart from the
+   update; one more step traced in three parts (forward, backward, AdamW:
+   busy share, device time by kernel, device operations); 2 steps with
+   ``remat=True`` and ``accum_steps=2`` (wall and peak beside the steps
+   without); one ``AsyncCheckpointer`` save of ``{params, opt}`` (13.84
+   GB: the snapshot and the write timed apart, the free space of both
+   candidate directories printed) restored onto the card bit for bit and
+   deleted; the no-grad loss of the trained weights with
    ``use_kernels=True`` (exactly one ``flash_attention`` a layer, on
    ``"wgmma"``, and nothing else; within 1 % of the plain loss); a
    grad-enabled ``use_kernels=True`` loss must raise before its first
@@ -280,6 +297,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -5192,23 +5210,6 @@ def train_batch(cfg, dev, b: int, s: int, seed: int) -> dict:
     return {k: v.to(dev) for k, v in out.items()}
 
 
-def loss_grads(model, params, batch):
-    """(loss, metrics, gradients in ``tree_leaves`` order) by
-    ``torch.autograd.grad``; ``params`` require grad only inside."""
-    import torch
-    from repro_torch.optim import tree_leaves
-    leaves = tree_leaves(params)
-    for x in leaves:
-        x.requires_grad_(True)
-    try:
-        loss, met = model.loss(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
-    finally:
-        for x in leaves:
-            x.requires_grad_(False)
-    return loss.detach(), {k: v.detach() for k, v in met.items()}, grads
-
-
 def leaf_gap(got, want) -> tuple[float, float]:
     """(max|got - want|, max|want|) of one leaf, on the CPU."""
     g, w = got.detach().cpu().float(), want.detach().cpu().float()
@@ -5217,18 +5218,23 @@ def leaf_gap(got, want) -> tuple[float, float]:
 
 def reduced_train_check() -> None:
     """One reduced config of each family (f32, TF32 off), the same weights
-    and batch on the card and on the CPU, ``use_kernels=False``: the loss
-    within 1e-5, every gradient leaf within ``1e-4 * max|g| + 1e-7``, no
-    hand-written kernel launched; then one AdamW step each: the card's
-    parameters within 1e-6 of each leaf's peak of the CPU optimizer's step
-    on the card's gradients (the card's arithmetic), and, printed, of the
-    CPU's step on its own gradients."""
+    and batch on the card and on the CPU, ``use_kernels=False``, through
+    ``repro_torch.train.value_and_grad``: the loss within 1e-5, every
+    gradient leaf within ``1e-4 * max|g| + 1e-7``, no hand-written kernel
+    launched; one AdamW step each: the card's parameters within 1e-6 of
+    each leaf's peak of the CPU optimizer's step on the card's gradients
+    (the card's arithmetic), and, printed, of the CPU's step on its own
+    gradients; the ``remat=True`` gradients (the models' default) equal
+    ``remat=False``'s on the card bit for bit; then ``make_train_step``,
+    single and at ``accum_steps=2`` (not the VLM: its ``[3, B, S]``
+    positions do not split, in JAX either), held as the AdamW step."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
-                                   tree_leaves, tree_unflatten)
+                                   tree_leaves)
+    from repro_torch.train import value_and_grad
     ocfg = AdamWConfig(**TRAIN_OPT)
     t0 = time.perf_counter()
     for arch in TRAIN_ARCHS:
@@ -5240,8 +5246,8 @@ def reduced_train_check() -> None:
         batch = train_batch(cfg, "cpu", 2, 16, seed=1)
         gbatch = {k: v.cuda() for k, v in batch.items()}
         ops.reset_launch_counts()
-        loss, _, grads = loss_grads(cpu, params, batch)
-        gloss, _, ggrads = loss_grads(card, gparams, gbatch)
+        loss, _, grads = value_and_grad(cpu, params, batch)
+        gloss, _, ggrads = value_and_grad(card, gparams, gbatch)
         torch.cuda.synchronize()
         launched = {k: n for k, n in ops.launch_counts().items() if n}
         require(not launched, f"train {arch}: kernels launched under grad: "
@@ -5250,47 +5256,102 @@ def reduced_train_check() -> None:
         require(rel <= 1e-5, f"train {arch}: card loss {float(gloss)} vs cpu "
                 f"{float(loss)} (rel {rel:.3g} > 1e-5)")
         worst_g = 0.0
-        for i, (a, b) in enumerate(zip(ggrads, grads)):
+        for i, (a, b) in enumerate(zip(tree_leaves(ggrads),
+                                       tree_leaves(grads))):
             err, peak = leaf_gap(a, b)
             require(err <= 1e-4 * peak + 1e-7, f"train {arch}: gradient leaf "
                     f"{i} {tuple(b.shape)} err {err} > 1e-4 * {peak} + 1e-7")
             worst_g = max(worst_g, err / peak if peak else err)
-        new_c, _, _ = adamw_update(tree_unflatten(params, grads),
-                                   adamw_init(params), params, ocfg)
-        new_g, _, _ = adamw_update(tree_unflatten(gparams, ggrads),
-                                   adamw_init(gparams), gparams, ocfg)
-        on_card_grads, _, _ = adamw_update(
-            tree_unflatten(params, [g.cpu() for g in ggrads]),
-            adamw_init(params), params, ocfg)
-        worst_p = worst_own = 0.0
-        for a, b, c in zip(tree_leaves(new_g), tree_leaves(on_card_grads),
-                           tree_leaves(new_c)):
-            err, peak = leaf_gap(a, b)
-            require(err <= 1e-6 * peak, f"train {arch}: AdamW step on the "
-                    f"card err {err} > 1e-6 * {peak} of the CPU's step on "
-                    "the same gradients")
-            worst_p = max(worst_p, err / peak)
-            err, peak = leaf_gap(a, c)
-            worst_own = max(worst_own, err / peak)
+        new_c, _, _ = adamw_update(grads, adamw_init(params), params, ocfg)
+        new_g, _, _ = adamw_update(ggrads, adamw_init(gparams), gparams,
+                                   ocfg)
+        worst_p = adamw_gap(f"train {arch}", new_g, ggrads, params, ocfg)
+        worst_own = max(leaf_gap(a, c)[0] / leaf_gap(a, c)[1]
+                        for a, c in zip(tree_leaves(new_g),
+                                        tree_leaves(new_c)))
+        plain = build_model(cfg, device="cuda", use_kernels=False,
+                            remat=False)
+        _, _, pgrads = value_and_grad(plain, gparams, gbatch)
+        require(all(torch.equal(a, b) for a, b in zip(tree_leaves(pgrads),
+                                                      tree_leaves(ggrads))),
+                f"train {arch}: remat=True gradients differ from "
+                "remat=False's on the card")
+        steps = train_step_check(arch, cfg, cpu, card, params, gparams,
+                                 batch, gbatch, ocfg)
         log(f"train {arch} reduced card == cpu: loss {float(gloss):.6f} (rel "
-            f"{rel:.2e}), {len(grads)} gradient leaves worst {worst_g:.2e} of "
-            f"their peak, AdamW step {worst_p:.2e} (against the CPU's own "
-            f"step {worst_own:.2e}), no kernel launched")
+            f"{rel:.2e}), {len(tree_leaves(grads))} gradient leaves worst "
+            f"{worst_g:.2e} of their peak, AdamW step {worst_p:.2e} (against "
+            f"the CPU's own step {worst_own:.2e}), remat == no remat bit "
+            f"for bit, make_train_step {steps}, no kernel launched")
     log(f"train: reduced card == cpu for {len(TRAIN_ARCHS)} configs in "
         f"{time.perf_counter() - t0:.1f}s")
+
+
+def adamw_gap(tag, new_g, ggrads, params, ocfg) -> float:
+    """The card's AdamW step ``new_g`` (from the card's gradients
+    ``ggrads``) against the CPU optimizer's step on those gradients from
+    the CPU ``params``: each leaf within 1e-6 of its peak; returns the
+    worst share."""
+    from repro_torch.optim import (adamw_init, adamw_update, tree_leaves,
+                                   tree_map)
+    want, _, _ = adamw_update(tree_map(lambda g: g.cpu(), ggrads),
+                              adamw_init(params), params, ocfg)
+    worst = 0.0
+    for a, b in zip(tree_leaves(new_g), tree_leaves(want)):
+        err, peak = leaf_gap(a, b)
+        require(err <= 1e-6 * peak, f"{tag}: AdamW step on the card err "
+                f"{err} > 1e-6 * {peak} of the CPU's step on the same "
+                "gradients")
+        worst = max(worst, err / peak)
+    return worst
+
+
+def train_step_check(arch, cfg, cpu, card, params, gparams, batch, gbatch,
+                     ocfg) -> str:
+    """``make_train_step`` on the card and on the CPU, single and at
+    ``accum_steps=2`` (not the VLM): the loss within 1e-5 relative; the
+    card's parameters against the CPU optimizer on the gradients the
+    card's step handed to its update (1e-6)."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import loop, make_train_step
+    out = []
+    for accum in (1,) if cfg.family == "vlm" else (1, 2):
+        seen = []
+        real = loop.adamw_update
+
+        def spy(grads, *a, **kw):
+            seen.append(grads)
+            return real(grads, *a, **kw)
+        loop.adamw_update = spy
+        try:
+            _, _, met = make_train_step(cpu, ocfg, accum_steps=accum)(
+                params, adamw_init(params), batch)
+            new_g, _, gmet = make_train_step(card, ocfg, accum_steps=accum)(
+                gparams, adamw_init(gparams), gbatch)
+        finally:
+            loop.adamw_update = real
+        rel = abs(float(gmet["loss"]) - float(met["loss"])) / abs(
+            float(met["loss"]))
+        require(rel <= 1e-5, f"train step {arch} accum {accum}: card loss "
+                f"{float(gmet['loss'])} vs cpu {float(met['loss'])}")
+        worst = adamw_gap(f"train step {arch} accum {accum}", new_g,
+                          seen[1], params, ocfg)
+        out.append(f"accum {accum}: loss rel {rel:.1e}, step {worst:.1e}")
+    return "; ".join(out)
 
 
 def train_full_model():
     """granite-moe-1b-a400m at full width and depth (bf16), built for
     training (``use_kernels=False``, the sorted dispatch at capacity factor
-    1.25), and its twin with the kernels for the no-grad evaluation."""
+    1.25, ``remat=False``: the written-out loop's step), and its twin with
+    the kernels for the no-grad evaluation."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.optim import tree_leaves
     cfg = get_config(TRAIN_FULL["arch"])
     model = build_model(cfg, device="cuda", use_kernels=False,
-                        moe_dispatch="sorted")
+                        moe_dispatch="sorted", remat=False)
     kmodel = build_model(cfg, device="cuda", use_kernels=True,
                          moe_dispatch="sorted")
     params = model.init(0)
@@ -5303,43 +5364,110 @@ def train_full_model():
     return cfg, model, kmodel, params
 
 
+class StepSplit:
+    """Wraps ``repro_torch.train.loop.adamw_update`` while installed: each
+    step's forward + backward (everything before the update) and its
+    update, each with its wall (after a synchronize) and its peak
+    allocated memory."""
+
+    def __init__(self):
+        self.parts = []          # [(fwd_bwd ms, peak GB, update ms, GB)]
+        self._t0 = None
+
+    def start(self):
+        import torch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self._t0 = time.perf_counter()
+
+    def __enter__(self):
+        from repro_torch.train import loop
+        self.real = loop.adamw_update
+
+        def spy(*a, **kw):
+            import torch
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fb_gb = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            out = self.real(*a, **kw)
+            torch.cuda.synchronize()
+            self.parts.append(((t1 - self._t0) * 1e3, fb_gb,
+                               (time.perf_counter() - t1) * 1e3,
+                               torch.cuda.max_memory_allocated() / 1e9))
+            return out
+        loop.adamw_update = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.train import loop
+        loop.adamw_update = self.real
+
+
+def direct_losses(model, params, batch, ocfg, steps) -> list[float]:
+    """The train loop written out (``value_and_grad``, then
+    ``adamw_update``): the losses of ``steps`` steps from ``params``."""
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.train import value_and_grad
+    opt, losses = adamw_init(params), []
+    for _ in range(steps):
+        loss, _, grads = value_and_grad(model, params, batch)
+        params, opt, _ = adamw_update(grads, opt, params, ocfg)
+        del grads
+        losses.append(float(loss))
+    return losses
+
+
 def train_phase() -> list[dict]:
-    """The full-width train steps, the no-grad evaluation with the kernels,
-    the refusal, and the ``flash_attention`` row at the evaluation's
-    shape."""
+    """The full-width train steps through ``make_train_step`` (equal to
+    the written-out loop's), the steps with remat and accumulation, the
+    checkpoint of the whole state, the no-grad evaluation with the
+    kernels, the refusal, and the ``flash_attention`` row at the
+    evaluation's shape."""
     import math
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
-                                   tree_unflatten)
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
     cfg, model, kmodel, params = train_full_model()
     f = TRAIN_FULL
     batch = train_batch(cfg, "cuda", f["batch"], f["seq"], f["seed"])
     del batch["mask"]
     ocfg = AdamWConfig(**TRAIN_OPT)
+    t0 = time.perf_counter()
+    direct = direct_losses(model, params, batch, ocfg, f["steps"])
+    log(f"train direct loop ({f['steps']} steps, value_and_grad + "
+        f"adamw_update written out): {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
     opt = adamw_init(params)
+    step_fn = make_train_step(model, ocfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     losses, norms, walls = [], [], []
-    for _ in range(f["steps"]):
-        t0 = time.perf_counter()
-        loss, met, grads = loss_grads(model, params, batch)
-        params, opt, om = adamw_update(tree_unflatten(params, grads), opt,
-                                       params, ocfg)
-        del grads
-        losses.append(float(loss))
-        norms.append(float(om["grad_norm"]))
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        log(f"train step {len(losses)}: loss {losses[-1]:.4f} (xent "
-            f"{float(met['xent']):.4f}, aux {float(met['aux']):.4f}), grad "
-            f"norm {norms[-1]:.4f}, lr {float(om['lr']):.3g}, "
-            f"{walls[-1]:.1f} ms")
+    with StepSplit() as split:
+        for _ in range(f["steps"]):
+            t0 = time.perf_counter()
+            split.start()
+            params, opt, met = step_fn(params, opt, batch)
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            fb, fb_gb, up, up_gb = split.parts[-1]
+            log(f"train step {len(losses)}: loss {losses[-1]:.4f} (xent "
+                f"{float(met['xent']):.4f}, aux {float(met['aux']):.4f}), "
+                f"grad norm {norms[-1]:.4f}, lr {float(met['lr']):.3g}, "
+                f"{walls[-1]:.1f} ms (forward + backward {fb:.1f} ms, peak "
+                f"{fb_gb:.2f} GB; update {up:.1f} ms, peak {up_gb:.2f} GB)")
     launched = {k: n for k, n in ops.launch_counts().items() if n}
     require(not launched, f"train: kernels launched in the grad steps: "
             f"{launched}")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(losses == direct, f"train: make_train_step losses {losses} "
+            f"differ from the written-out loop's {direct}")
+    peak_gb = max(max(p[1], p[3]) for p in split.parts)
     ln_v = math.log(cfg.vocab_size)
     require(math.isfinite(losses[0]) and abs(losses[0] - ln_v) <= 1.5,
             f"train: first loss {losses[0]} not within 1.5 of ln V {ln_v:.2f}")
@@ -5349,20 +5477,132 @@ def train_phase() -> list[dict]:
             f"train: last loss {losses[-1]} not below 0.9 x first "
             f"{losses[0]}")
     step_ms = statistics.median(walls[1:])
-    log(f"train {f['arch']} full width: B {f['batch']} x S {f['seq']}, "
-        f"{f['steps']} AdamW steps (lr {ocfg.base_lr}, warmup "
-        f"{ocfg.warmup_steps}, f32 moments): loss {losses[0]:.4f} -> "
+    fb_ms = statistics.median(p[0] for p in split.parts[1:])
+    up_ms = statistics.median(p[2] for p in split.parts[1:])
+    log(f"train {f['arch']} full width through make_train_step (remat "
+        f"off): B {f['batch']} x S {f['seq']}, {f['steps']} AdamW steps (lr "
+        f"{ocfg.base_lr}, warmup {ocfg.warmup_steps}, f32 moments): losses "
+        f"== the written-out loop's bit for bit; loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f} ({losses[-1] / losses[0]:.3f} x; ln V "
         f"{ln_v:.2f}), step wall median of steps 2-{f['steps']} "
-        f"{step_ms:.1f} ms ({min(walls[1:]):.1f}-{max(walls[1:]):.1f}), "
+        f"{step_ms:.1f} ms ({min(walls[1:]):.1f}-{max(walls[1:]):.1f}; "
+        f"forward + backward {fb_ms:.1f} ms, update {up_ms:.1f} ms), "
         f"{f['batch'] * f['seq'] / step_ms * 1e3:.0f} tokens/s, peak "
-        f"allocated {peak_gb:.2f} GB, 0 hand-written kernel launches "
-        f"[{CARD}]")
+        f"allocated {peak_gb:.2f} GB (forward + backward "
+        f"{max(p[1] for p in split.parts):.2f}, update "
+        f"{max(p[3] for p in split.parts):.2f}), 0 hand-written kernel "
+        f"launches [{CARD}]")
     train_profile(model, params, opt, batch, ocfg)
+    rmodel = build_model(cfg, device="cuda", use_kernels=False,
+                         moe_dispatch="sorted", remat=True)
+    # handed over in a dict, so that no name here keeps the first trees
+    # alive through the remat steps' peaks
+    state = {"params": params, "opt": opt}
+    del params, opt
+    params, opt = remat_steps(rmodel, state, batch, ocfg, split.parts)
+    train_checkpoint(params, opt)
     del opt
     gc.collect()
     torch.cuda.empty_cache()
     return train_eval(cfg, model, kmodel, params, batch)
+
+
+def remat_steps(model, state, batch, ocfg, plain_parts):
+    """Two steps with ``remat=True`` and ``accum_steps=2`` (two
+    microbatches of B 1) from ``state`` (``{"params", "opt"}``, emptied):
+    each step's wall and peak, the forward + backward apart from the
+    update, beside the ``remat=False`` steps' (``plain_parts``)."""
+    import math
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.train import make_train_step
+    params, opt = state.pop("params"), state.pop("opt")
+    step_fn = make_train_step(model, ocfg, accum_steps=2)
+    ops.reset_launch_counts()
+    walls = []
+    with StepSplit() as split:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            split.start()
+            params, opt, met = step_fn(params, opt, batch)
+            loss = float(met["loss"])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            require(math.isfinite(loss), f"train remat: loss {loss}")
+            fb, fb_gb, up, up_gb = split.parts[-1]
+            log(f"train remat step (accum 2): loss {loss:.4f}, "
+                f"{walls[-1]:.1f} ms (forward + backward {fb:.1f} ms, peak "
+                f"{fb_gb:.2f} GB; update {up:.1f} ms, peak {up_gb:.2f} GB)")
+    require(not any(ops.launch_counts().values()),
+            f"train remat: kernels launched: {ops.launch_counts()}")
+    fb_plain = max(p[1] for p in plain_parts)
+    fb_remat = max(p[1] for p in split.parts)
+    up_plain = max(p[3] for p in plain_parts)
+    up_remat = max(p[3] for p in split.parts)
+    log(f"train remat + accum 2 vs remat off: forward + backward peak "
+        f"{fb_remat:.2f} GB vs {fb_plain:.2f} GB, wall "
+        f"{split.parts[-1][0]:.1f} ms vs "
+        f"{statistics.median(p[0] for p in plain_parts[1:]):.1f} ms; "
+        f"update peak {up_remat:.2f} GB vs {up_plain:.2f} GB (f32 summed "
+        f"gradients against bf16 ones); step {walls[-1]:.1f} ms, peak "
+        f"{max(fb_remat, up_remat):.2f} GB [{CARD}]")
+    return params, opt
+
+
+def disk_room() -> str:
+    """The temporary directory or the checkout's ignored ``build/``,
+    whichever has more free space (each printed)."""
+    import shutil
+    import tempfile
+    dirs = [tempfile.gettempdir(), str(ROOT / "build")]
+    os.makedirs(dirs[1], exist_ok=True)
+    free = {d: shutil.disk_usage(d).free for d in dirs}
+    for d in dirs:
+        u = shutil.disk_usage(d)
+        log(f"disk {d}: {u.free / 1e9:.1f} GB free of {u.total / 1e9:.1f} GB")
+    return max(dirs, key=free.get)
+
+
+def train_checkpoint(params, opt) -> None:
+    """One ``AsyncCheckpointer`` save of ``{"params", "opt"}`` (bf16
+    weights, f32 moments): the snapshot (what the step waits for) and the
+    background write timed apart, then ``restore`` onto the card bit for
+    bit; the directory is deleted."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.optim import tree_leaves
+    tree = {"params": params, "opt": opt}
+    nbytes = sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+    root = tempfile.mkdtemp(prefix="train_ckpt_", dir=disk_room())
+    try:
+        ac = ckpt.AsyncCheckpointer(root, keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ac.save_async(9, tree)
+        t1 = time.perf_counter()
+        ac.wait()
+        t2 = time.perf_counter()
+        on_disk = sum(os.path.getsize(os.path.join(root, "step_9", n))
+                      for n in os.listdir(os.path.join(root, "step_9")))
+        t3 = time.perf_counter()
+        back = ckpt.restore(root, 9, tree)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        same = all(a.dtype == b.dtype and a.device == b.device
+                   and torch.equal(a, b)
+                   for a, b in zip(tree_leaves(back), tree_leaves(tree)))
+        require(same, "train checkpoint: the restored state differs")
+        del back
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"train checkpoint: {{params, opt}} {nbytes / 1e9:.2f} GB "
+        f"({on_disk / 1e9:.2f} GB on disk, "
+        f"{len(tree_leaves(tree))} leaves): snapshot {t1 - t0:.2f} s (the "
+        f"step waits for it), background write {t2 - t1:.2f} s "
+        f"({nbytes / 1e9 / (t2 - t1):.2f} GB/s), restore onto the card "
+        f"{t4 - t3:.2f} s, bit-identical; deleted [{CARD}]")
 
 
 def train_profile(model, params, opt, batch, ocfg) -> None:
@@ -5491,13 +5731,175 @@ def flash_train_row(best, n_launch) -> dict:
                 "enable_gqa)", launches=n_launch)
 
 
-def train_phases() -> list[dict]:
-    """The training phase and its kernel row; the weights are freed on
-    return."""
+#: lm-100m's resume check: straight steps, and where the first run stops
+RESUME = dict(steps=20, stop=10)
+
+
+def lm100m_phase() -> None:
+    """``launch/train_100m.main()`` at its defaults on the card (lm-100m,
+    79.95 M f32 parameters, 300 steps of B 8 x S 256 at ``accum_steps`` 2,
+    remat): the loss drop > 0.5, 0 hand-written kernel launches, three
+    checkpoints of ~0.96 GB; tokens/s and peak allocated memory printed."""
+    import io
+    import math
+    import contextlib
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train_100m
+    disk_room()                # its checkpoints go to the temporary dir
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = train_100m.main(["--device", "cuda"])     # its defaults
+    wall = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        log(f"  train_100m| {line}")
+    launched = {k: n for k, n in ops.launch_counts().items() if n}
+    require(not launched, f"lm-100m: kernels launched: {launched}")
+    hist = res["history"]
+    drop = hist[0]["loss"] - hist[-1]["loss"]
+    require(drop > 0.5, f"lm-100m: loss drop {drop} <= 0.5")
+    ckpts = res["checkpoints"]
+    require([s for s, _ in ckpts] == [100, 200, 300]
+            and all(0.9e9 < n < 1.0e9 for _, n in ckpts),
+            f"lm-100m: checkpoints {ckpts}, want steps 100/200/300 of "
+            "~0.96 GB")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"lm-100m full width (12 layers, d 512, 79.95 M f32 parameters, B 8 "
+        f"x S 256, accum 2, remat): loss {hist[0]['loss']:.4f} -> "
+        f"{hist[-1]['loss']:.4f} (drop {drop:.3f}; ln 32000 = "
+        f"{math.log(32000):.2f}) over 300 steps, {res['seconds']:.2f} s of "
+        f"steps ({res['seconds'] / 300 * 1e3:.1f} ms a step, "
+        f"{res['tokens'] / res['seconds']:.0f} tokens/s), {wall:.1f} s in "
+        f"all, peak allocated {peak:.2f} GB, 0 hand-written kernel "
+        f"launches, checkpoints {[(s, round(n / 1e9, 3)) for s, n in ckpts]}"
+        f" GB [{CARD}]")
+
+
+def lm100m_resume_phase() -> None:
+    """lm-100m as ``train_100m`` trains it: 20 straight steps against 10
+    steps, then a new ``Trainer`` that resumes from the checkpoint at 10
+    and runs 10 more; parameters and optimizer state held bit for bit.
+    Where they differ, a second straight run gives the run-to-run spread
+    and ``torch.use_deterministic_algorithms(True, warn_only=True)`` names
+    the nondeterministic ops; the resume is then held at that spread."""
+    import shutil
+    import tempfile
+    import warnings
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.data import make_global_batch
+    from repro_torch.launch.train_100m import CFG
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import AdamWConfig, tree_leaves
+    from repro_torch.train import Trainer
+    model = build_model(CFG, device="cuda", use_kernels=False, remat=True)
+    stream = SyntheticLMStream(CFG, ShapeConfig("ex", 256, 8, "train"),
+                               DataConfig(seed=7))
+    opt = AdamWConfig(base_lr=1e-3, warmup_steps=20, total_steps=300)
+
+    def batches(s):
+        return make_global_batch(stream.batch(s), "cuda")
+
+    def run(d, steps):
+        tr = Trainer(model, opt, ckpt_dir=d, ckpt_every=RESUME["stop"],
+                     accum_steps=2)
+        p, o, s0 = tr.init_or_restore(0)
+        p, o, _ = tr.run(p, o, batches, s0, steps)
+        return s0, tree_leaves({"p": p, "o": o})
+
+    def gap(a, b):
+        return max(float((x.float() - y.float()).abs().max())
+                   for x, y in zip(a, b))
+    root = tempfile.mkdtemp(prefix="resume_", dir=disk_room())
+    try:
+        t0 = time.perf_counter()
+        _, straight = run(os.path.join(root, "a"), RESUME["steps"])
+        run(os.path.join(root, "b"), RESUME["stop"])
+        s0, resumed = run(os.path.join(root, "b"), RESUME["steps"])
+        require(s0 == RESUME["stop"], f"resume: started at {s0}")
+        diff = gap(straight, resumed)
+        if diff == 0.0:
+            log(f"lm-100m resume: {RESUME['steps']} straight steps == "
+                f"{RESUME['stop']} + resume + "
+                f"{RESUME['steps'] - RESUME['stop']}, parameters and "
+                f"optimizer state bit for bit "
+                f"({time.perf_counter() - t0:.1f}s) [{CARD}]")
+            return
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                _, again = run(os.path.join(root, "c"), RESUME["steps"])
+        finally:
+            torch.use_deterministic_algorithms(False)
+        ops = sorted({str(w.message).split(" does not have")[0]
+                      for w in caught
+                      if "deterministic" in str(w.message)})
+        spread = gap(straight, again)
+        log(f"lm-100m resume: differs from the straight run by {diff:.3g} "
+            f"(max |diff| over leaves); two straight runs differ by "
+            f"{spread:.3g}; nondeterministic ops: {ops} [{CARD}]")
+        require(diff <= spread, f"resume: {diff} past the run-to-run spread "
+                f"{spread}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def launcher_phase() -> None:
+    """``python -m repro_torch.launch.train --arch granite-8b --reduced
+    --steps 6 --ckpt-every 3`` on the card, then again with ``--steps 9``:
+    the second run resumes from step 6."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="launch_", dir=disk_room())
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    try:
+        outs = []
+        for steps in (6, 9):
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 "granite-8b", "--reduced", "--steps", str(steps),
+                 "--ckpt-every", "3", "--ckpt-dir", root, "--device",
+                 "cuda"],
+                capture_output=True, text=True, timeout=300, env=env)
+            require(r.returncode == 0, f"launcher --steps {steps}: exit "
+                    f"{r.returncode}: {r.stderr[-2000:]}")
+            outs.append(r.stdout)
+            for line in r.stdout.splitlines():
+                log(f"  launch.train --steps {steps}| {line}")
+            log(f"launcher --steps {steps}: {time.perf_counter() - t0:.1f}s")
+        require("resumed" not in outs[0] and "final loss:" in outs[0],
+                "launcher: the first run did not train from scratch")
+        require(outs[1].startswith("resumed from step 6\n")
+                and "final loss:" in outs[1],
+                "launcher: the second run did not resume from step 6")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"launcher: reduced granite-8b 6 steps, then resumed from step 6 "
+        f"to 9 on the card [{CARD}]")
+
+
+def train_phases() -> list[dict]:
+    """The training loop (lm-100m, its resume, the launcher), then the
+    granite-moe training phase and its kernel row; the weights are freed
+    on return."""
+    import torch
+    t0 = time.perf_counter()
+    lm100m_phase()
+    lm100m_resume_phase()
+    launcher_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train: loop phases in {time.perf_counter() - t0:.1f}s [{CARD}]")
     rows = train_phase()
     print_rows(rows)
-    log(f"train: phase in {time.perf_counter() - t0:.1f}s [{CARD}]")
+    log(f"train: phases in {time.perf_counter() - t0:.1f}s [{CARD}]")
     return rows
 
 

@@ -18,6 +18,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops, ref
 
@@ -238,3 +239,20 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) \
         @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# activation checkpointing
+# ---------------------------------------------------------------------------
+
+
+def remat_apply(remat: bool, fn, *args):
+    """``fn(*args)``; under grad mode with ``remat``, through
+    ``torch.utils.checkpoint`` (non-reentrant): the body keeps only its
+    inputs and recomputes its activations in the backward (JAX's
+    ``jax.checkpoint`` of a scan body).  Under ``torch.no_grad()`` the body
+    runs as it is."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)

@@ -78,7 +78,7 @@ class RecurrentGemmaLM:
     """The ``hybrid_rglru`` family on one device."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, remat: bool = True):
         if cfg.family != "hybrid_rglru":
             raise ValueError(f"RecurrentGemmaLM serves the hybrid_rglru "
                              f"family, got {cfg.family!r}")
@@ -87,6 +87,9 @@ class RecurrentGemmaLM:
         #: False routes the RG-LRU, the copies and the decode attention to
         #: their plain versions even on the card (JAX's ``use_kernels``)
         self.use_kernels = use_kernels
+        #: activation checkpointing under grad of each superblock and each
+        #: tail layer (JAX's ``jax.checkpoint`` of its two scan bodies)
+        self.remat = remat
         self.dtype = L.DTYPES[cfg.param_dtype]
         self.pattern = cfg._full_pattern()
         n_super = cfg.num_layers // len(cfg.block_pattern)
@@ -224,10 +227,24 @@ class RecurrentGemmaLM:
     # training forward
     # ------------------------------------------------------------------
 
+    def _layers_train(self, first: int, layers: list, x: torch.Tensor,
+                      positions: torch.Tensor, h0: torch.Tensor,
+                      conv0: torch.Tensor) -> torch.Tensor:
+        """The training forward of the layers ``first, first + 1, ...``: a
+        superblock (``rec0, rec1, attn``) or one tail layer, the bodies of
+        JAX's two scans (``rglru.py:223-247``)."""
+        for kind, p in zip(self.pattern[first:], layers):
+            if kind == "rglru":
+                x = self._recurrent_block(p, x, h0, conv0)[0]
+            else:
+                x = self._attention_block_train(p, x, positions)
+        return x
+
     def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         """The training forward of ``tokens [B, T]`` from a zero state (JAX
         ``rglru.py:207-250``, tail layers included): the final-norm hidden
-        states ``[B, T, D]``."""
+        states ``[B, T, D]``.  Under grad mode with ``remat`` each
+        superblock and each tail layer is checkpointed."""
         cfg = self.cfg
         b, t = tokens.shape
         positions = torch.arange(t, device=tokens.device).expand(b, t)
@@ -236,11 +253,14 @@ class RecurrentGemmaLM:
                          device=x.device)
         conv0 = torch.zeros((b, CONV_WIDTH - 1, self.rdim), dtype=self.dtype,
                             device=x.device)
-        for kind, p in zip(self.pattern, params["layers"]):
-            if kind == "rglru":
-                x = self._recurrent_block(p, x, h0, conv0)[0]
-            else:
-                x = self._attention_block_train(p, x, positions)
+        n = len(cfg.block_pattern)
+        supers = len(self.pattern) // n * n      # layers in superblocks
+        spans = ([(i, i + n) for i in range(0, supers, n)]
+                 + [(i, i + 1) for i in range(supers, len(self.pattern))])
+        for first, end in spans:
+            x = L.remat_apply(self.remat, self._layers_train, first,
+                              params["layers"][first:end], x, positions, h0,
+                              conv0)
         return L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
 
     def loss(self, params: Params, batch: dict[str, torch.Tensor]):

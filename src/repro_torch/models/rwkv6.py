@@ -73,7 +73,8 @@ class RWKV6LM:
     """The ``rwkv6`` family on one device."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
-                 use_kernels: bool = True, tm_impl: str = "sequential"):
+                 use_kernels: bool = True, tm_impl: str = "sequential",
+                 remat: bool = True):
         if cfg.family != "rwkv6":
             raise ValueError(f"RWKV6LM serves the rwkv6 family, got "
                              f"{cfg.family!r}")
@@ -86,6 +87,9 @@ class RWKV6LM:
         #: card (JAX's ``use_kernels=False`` routes)
         self.use_kernels = use_kernels
         self.tm_impl = tm_impl
+        #: activation checkpointing of each layer under grad (JAX's
+        #: ``jax.checkpoint`` of its scan body)
+        self.remat = remat
         self.dtype = L.DTYPES[cfg.param_dtype]
 
     # ------------------------------------------------------------------
@@ -155,8 +159,8 @@ class RWKV6LM:
     def _time_mix(self, p: Params, x: torch.Tensor, x_prev: torch.Tensor,
                   wkv_state: torch.Tensor, wkv_out: torch.Tensor):
         """x [B, T, D]; x_prev [B, D]; wkv_state [B, H, N, N] f32, read;
-        ``wkv_out`` (same shape) receives the new state in place.  Returns
-        (out [B, T, D], new x_prev)."""
+        ``wkv_out`` (same shape, or None) receives the new state in place.
+        Returns (out [B, T, D], new x_prev, the new state [B*H, N, N])."""
         cfg = self.cfg
         b, t, d = x.shape
         h, n = cfg.num_rwkv_heads, cfg.rwkv_head_size
@@ -177,17 +181,17 @@ class RWKV6LM:
                 b * h, t, n).float().contiguous()
 
         u = tm["u"].repeat(b, 1)                               # [B*H, N]
-        o, _ = ops.wkv6(
+        o, s = ops.wkv6(
             to_heads(r), to_heads(k), to_heads(v), to_heads(w), u,
             wkv_state.reshape(b * h, n, n),
             use_kernel=self.use_kernels,
             matmul_chunks=(self.tm_impl == "chunked_matmul"),
-            out_state=wkv_out.view(b * h, n, n),
+            out_state=None if wkv_out is None else wkv_out.view(b * h, n, n),
         )
         o = o.reshape(b, h, t, n).transpose(1, 2)              # [B, T, H, N]
         o = _head_rms(o, tm["ln_x"].reshape(h, n)).reshape(b, t, d)
         out = (o.to(x.dtype) * F.silu(g)) @ tm["wo"]
-        return out, x[:, -1, :]
+        return out, x[:, -1, :], s
 
     def _channel_mix(self, p: Params, x: torch.Tensor, x_prev: torch.Tensor):
         cm = p["cm"]
@@ -200,11 +204,12 @@ class RWKV6LM:
     def _block(self, block_p: Params, x, tm_prev, cm_prev, wkv, wkv_out):
         cfg = self.cfg
         xn = L.rmsnorm(block_p["ln1"], x, cfg.norm_eps)
-        tm_out, tm_new = self._time_mix(block_p, xn, tm_prev, wkv, wkv_out)
+        tm_out, tm_new, s = self._time_mix(block_p, xn, tm_prev, wkv,
+                                           wkv_out)
         x = x + tm_out
         xn = L.rmsnorm(block_p["ln2"], x, cfg.norm_eps)
         cm_out, cm_new = self._channel_mix(block_p, xn, cm_prev)
-        return x + cm_out, tm_new, cm_new
+        return x + cm_out, tm_new, cm_new, s
 
     # ------------------------------------------------------------------
     # forward
@@ -215,23 +220,32 @@ class RWKV6LM:
                 ) -> tuple[torch.Tensor, RecurrentState]:
         """tokens [B, T] -> (final-norm hidden states [B, T, D], the state
         after the T tokens, with seq_lens advanced by T).  Runs under
-        autograd when grad mode is on (training); ``prefill`` and
-        ``decode_step`` call it under ``torch.no_grad()``."""
+        autograd when grad mode is on (training), each layer checkpointed
+        under ``remat`` (the new wkv states then stacked, not written in
+        place); ``prefill`` and ``decode_step`` call it under
+        ``torch.no_grad()``."""
         cfg = self.cfg
         b, t = tokens.shape
         x = params["embed"][tokens.long()]
         if state is None:
             state = self.init_state(b)
-        wkv_new = torch.empty_like(state.wkv)
-        tm_s, cm_s = [], []
+        remat = self.remat and torch.is_grad_enabled()
+        wkv_new = None if remat else torch.empty_like(state.wkv)
+        tm_s, cm_s, wkv_s = [], [], []
         for li, block_p in enumerate(params["blocks"]):
-            x, tm_new, cm_new = self._block(
-                block_p, x, state.tm_shift[li], state.cm_shift[li],
-                state.wkv[li], wkv_new[li])
+            args = (block_p, x, state.tm_shift[li], state.cm_shift[li],
+                    state.wkv[li])
+            if remat:
+                x, tm_new, cm_new, s = L.remat_apply(True, self._block,
+                                                     *args, None)
+                wkv_s.append(s.view(state.wkv[li].shape))
+            else:
+                x, tm_new, cm_new, _ = self._block(*args, wkv_new[li])
             tm_s.append(tm_new)
             cm_s.append(cm_new)
-        new_state = RecurrentState(torch.stack(tm_s), torch.stack(cm_s),
-                                   wkv_new, state.seq_lens + t)
+        new_state = RecurrentState(
+            torch.stack(tm_s), torch.stack(cm_s),
+            torch.stack(wkv_s) if remat else wkv_new, state.seq_lens + t)
         return L.rmsnorm(params["ln_f"], x, cfg.norm_eps), new_state
 
     def loss(self, params: Params, batch: dict[str, torch.Tensor]):

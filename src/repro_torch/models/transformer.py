@@ -41,7 +41,10 @@ Port of the dense, MoE, VLM and audio families of
     superblocks and added at 0.01.  A hand-written kernel has no backward:
     a model that trains is built with ``use_kernels=False``, as JAX's
     trainer builds its own; with ``use_kernels=True`` a grad-enabled loss
-    raises in ``ops`` and a no-grad one runs the kernels.
+    raises in ``ops`` and a no-grad one runs the kernels.  ``remat``
+    (JAX's default, True) checkpoints each superblock under grad mode
+    (``layers.remat_apply``): its activations are recomputed in the
+    backward.
 
 Every tensor lives on ``self.device``: ``cuda`` unless the caller passes
 ``device="cpu"`` (the kernels' plain versions then run).
@@ -94,7 +97,8 @@ class TransformerLM:
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  use_kernels: bool = True, kv_dtype: str = "native",
-                 capacity_factor: float = 1.25, moe_dispatch: str = "sorted"):
+                 capacity_factor: float = 1.25, moe_dispatch: str = "sorted",
+                 remat: bool = True):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not served by TransformerLM: "
@@ -116,6 +120,9 @@ class TransformerLM:
         #: the serve paths pick their own (``_ffn_serve``)
         self.capacity_factor = capacity_factor
         self.moe_dispatch = moe_dispatch
+        #: activation checkpointing of each superblock under grad (JAX's
+        #: ``jax.checkpoint`` of its scan body)
+        self.remat = remat
         self.dtype = L.DTYPES[cfg.param_dtype]
         #: layers a superblock; only its last one routes (JAX ``_is_moe_sub``)
         self.moe_every = cfg.moe_every if cfg.family == "moe" else 1
@@ -221,6 +228,17 @@ class TransformerLM:
                                         **moe_kw)
         return x + ff.reshape(b, s, d), aux
 
+    def _superblock_apply(self, blocks: list, x: torch.Tensor,
+                          positions: torch.Tensor, first: int):
+        """The layers ``first, first + 1, ...`` of one superblock of
+        ``moe_every`` (JAX ``_superblock_apply``, the body of its scan).
+        Returns (x, the superblock's summed router aux loss)."""
+        aux = None
+        for i, p in enumerate(blocks):
+            x, a = self._block_apply(p, x, positions, self.is_moe(first + i))
+            aux = a if aux is None else aux + a
+        return x, aux
+
     def forward(self, params: Params, tokens: torch.Tensor,
                 positions: torch.Tensor | None = None,
                 vision_embeds: torch.Tensor | None = None):
@@ -229,7 +247,8 @@ class TransformerLM:
         ``arange(S)``); ``vision_embeds [B, Nvis, D]`` replace the first
         embedded positions.  Returns (final-norm hidden [B, S, D], the
         router aux loss: over each superblock of ``moe_every`` layers the
-        sum, over superblocks the mean; 0 outside the moe family)."""
+        sum, over superblocks the mean; 0 outside the moe family).  Under
+        grad mode with ``remat`` each superblock is checkpointed."""
         cfg = self.cfg
         b, s = tokens.shape[:2]
         if positions is None:
@@ -240,13 +259,12 @@ class TransformerLM:
         if vision_embeds is not None:
             nvis = vision_embeds.shape[1]
             x = torch.cat([vision_embeds.to(x.dtype), x[:, nvis:]], dim=1)
-        auxs = []
-        for li, block_p in enumerate(params["blocks"]):
-            x, a = self._block_apply(block_p, x, positions, self.is_moe(li))
-            if li % self.moe_every == 0:
-                auxs.append(a)
-            else:
-                auxs[-1] = auxs[-1] + a
+        auxs, m = [], self.moe_every
+        for first in range(0, len(params["blocks"]), m):
+            x, a = L.remat_apply(self.remat, self._superblock_apply,
+                                 params["blocks"][first:first + m], x,
+                                 positions, first)
+            auxs.append(a)
         aux = (torch.stack(auxs).mean() if cfg.family == "moe"
                else x.new_zeros((), dtype=torch.float32))
         return L.rmsnorm(params["ln_f"], x, cfg.norm_eps), aux

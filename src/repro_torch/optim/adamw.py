@@ -30,13 +30,17 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        children = [tree_map(fn, v, *(r[i] for r in rest))
+                    for i, v in enumerate(tree)]
+        # a NamedTuple (``AdamWState``) takes its fields as arguments
+        return (type(tree)(*children) if hasattr(tree, "_fields")
+                else type(tree)(children))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any) -> list:
-    """The leaves of ``tree``, dict keys in sorted order (``jax.tree``'s)."""
+    """The leaves of ``tree``, dict keys in sorted order and a
+    ``NamedTuple``'s in field order (``jax.tree``'s)."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):

@@ -2320,3 +2320,109 @@ def test_kernel_refuses_grad_on_card(gen, name):
         calls[name](x)
     torch.cuda.synchronize()
     assert ops.launch_counts()[name] == 1
+
+
+# ---------------------------------------------------------------------------
+# the training loop: make_train_step, remat, the checkpointer
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("arch", [a for a in TRAIN_ARCHS
+                                  if a != "qwen2-vl-7b"])
+def test_train_step_card_equals_cpu(gen, arch, accum):
+    """``make_train_step`` (single, and two microbatches) on the card and
+    on the CPU from the same weights and batch: the loss within 1e-5
+    relative, the card's parameters within 1e-6 of each leaf's peak of
+    the CPU optimizer's step on the gradients the card's step handed to
+    its update; no kernel launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   tree_leaves, tree_map)
+    from repro_torch.train import loop, make_train_step
+    cfg = get_config(arch, reduced=True)
+    ocfg = AdamWConfig(base_lr=1e-3, warmup_steps=2, total_steps=8)
+    cpu = build_model(cfg, device="cpu", use_kernels=False)
+    card = build_model(cfg, device="cuda", use_kernels=False)
+    cpu_params = cpu.init(0)
+    params = on(cpu_params, "cuda")
+    batch = _train_batch(cfg)
+    seen, real = [], loop.adamw_update
+
+    def spy(grads, *a, **kw):
+        seen.append(grads)
+        return real(grads, *a, **kw)
+    ops.reset_launch_counts()
+    try:
+        loop.adamw_update = spy
+        got, _, met = make_train_step(card, ocfg, accum_steps=accum)(
+            params, adamw_init(params), on(batch, "cuda"))
+        _, _, want_met = make_train_step(cpu, ocfg, accum_steps=accum)(
+            cpu_params, adamw_init(cpu_params), batch)
+    finally:
+        loop.adamw_update = real
+    assert not any(ops.launch_counts().values())
+    assert abs(met["loss"].item() - want_met["loss"].item()) <= (
+        1e-5 * abs(want_met["loss"].item()))
+    want, _, _ = adamw_update(tree_map(lambda g: g.cpu(), seen[0]),
+                              adamw_init(cpu_params), cpu_params, ocfg)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert (a.cpu() - b).abs().max().item() <= 1e-6 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_remat_gradients_equal_no_remat_on_card(gen, arch):
+    """Activation checkpointing recomputes the same operations: the card's
+    gradients with ``remat=True`` equal ``remat=False``'s bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import value_and_grad
+    cfg = get_config(arch, reduced=True)
+    params = on(build_model(cfg, device="cpu").init(0), "cuda")
+    batch = on(_train_batch(cfg), "cuda")
+    out = [value_and_grad(build_model(cfg, device="cuda", use_kernels=False,
+                                      remat=r), params, batch)
+           for r in (False, True)]
+    assert torch.equal(out[0][0], out[1][0])
+    for a, b in zip(tree_leaves(out[0][2]), tree_leaves(out[1][2])):
+        assert torch.equal(a, b)
+
+
+def test_checkpoint_bf16_round_trip_onto_the_card(gen, tmp_path):
+    """bf16 (stored as its uint16 bits), f32 and an int32 step from CUDA
+    tensors, restored onto the card bit for bit."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.optim import adamw_init, tree_leaves
+    params = {"w": torch.randn((64, 33), generator=gen,
+                               device="cuda").to(torch.bfloat16),
+              "blocks": [{"b": torch.randn(7, generator=gen,
+                                           device="cuda")}]}
+    tree = {"params": params, "opt": adamw_init(params)}
+    ckpt.save(str(tmp_path), 4, tree)
+    out = ckpt.restore(str(tmp_path), 4, tree)
+    for a, b in zip(tree_leaves(out), tree_leaves(tree)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    cpu = ckpt.restore(str(tmp_path), 4, tree, device="cpu")
+    assert all(x.device.type == "cpu" for x in tree_leaves(cpu))
+
+
+def test_async_snapshot_of_cuda_tensors(gen, tmp_path):
+    """``save_async`` copies the CUDA leaves to the host before it returns:
+    an in-place change on the card afterwards does not reach the
+    checkpoint."""
+    from repro_torch import checkpoint as ckpt
+    tree = {"a": torch.randn(1 << 20, generator=gen, device="cuda"),
+            "b": torch.randn(999, generator=gen,
+                             device="cuda").to(torch.bfloat16)}
+    want = {k: v.clone() for k, v in tree.items()}
+    ac = ckpt.AsyncCheckpointer(str(tmp_path))
+    ac.save_async(1, tree)
+    for v in tree.values():
+        v.add_(1)
+    ac.wait()
+    out = ckpt.restore(str(tmp_path), 1, tree)
+    for k in tree:
+        assert out[k].device.type == "cuda" and torch.equal(out[k], want[k])

@@ -1,9 +1,9 @@
 """Guards of the PyTorch port's boundary.
 
 * No module of ``src/repro_torch`` (and not ``chip_smoke.py``) imports
-  ``jax``, ``jaxlib`` or anything of the JAX package ``repro``: checked on
-  the AST of every file, and by importing every module with ``jax``
-  blocked.
+  ``jax``, ``jaxlib``, ``ml_dtypes`` or anything of the JAX package
+  ``repro``: checked on the AST of every file, and by importing every
+  module with those blocked.
 * Entry points built without ``device=`` run on the CUDA card and raise on
   a machine with none, instead of quietly running on the CPU.
 """
@@ -27,7 +27,8 @@ pytestmark = pytest.mark.torch_port
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = pathlib.Path(repro_torch.__file__).resolve().parent
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+#: ``ml_dtypes`` too: the card's machine does not have it
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def imported_roots(path: pathlib.Path) -> set[str]:
@@ -57,7 +58,7 @@ def test_every_module_imports_with_jax_blocked():
         "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py")
     code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            f"for m in {FORBIDDEN!r}:\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"

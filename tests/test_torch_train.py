@@ -88,9 +88,11 @@ def jax_loss_grads(arch, b=2, s=16, **model_kw):
 
 
 def port_loss_grads(arch, np_params, bn, **model_kw):
-    """The port's (loss, metrics, grads tree, model, params) on the CPU."""
+    """The port's (loss, metrics, grads tree, model, params) on the CPU,
+    with ``remat=False`` as JAX's model is built."""
     cfg = get_config(arch, reduced=True)
-    model = build_model(cfg, device="cpu", use_kernels=False, **model_kw)
+    model = build_model(cfg, device="cpu", use_kernels=False, remat=False,
+                        **model_kw)
     params = params_from_jax(np_params, cfg, "cpu")
     tree_map(lambda x: x.requires_grad_(True), params)
     loss, metrics = model.loss(params, {k: t(v) for k, v in bn.items()})
@@ -393,6 +395,36 @@ def test_adamw_does_not_change_its_inputs():
     adamw_update(grads, state, params, AdamWConfig(warmup_steps=0))
     assert torch.equal(params["w"], torch.ones(4))
     assert int(state.step) == 0 and state.m["w"].abs().sum() == 0
+
+
+def test_tree_helpers_rebuild_adamw_state_as_jax():
+    """``tree_map`` / ``tree_unflatten`` over ``{"params", "opt"}`` rebuild
+    the ``AdamWState`` NamedTuple with its fields in order, and
+    ``tree_leaves`` keeps ``jax.tree.leaves``' order for the same tree
+    built in JAX (the checkpointer walks this tree)."""
+    rng = np.random.default_rng(0)
+    np_params = {"w": rng.standard_normal((3, 2)).astype(np.float32),
+                 "blocks": [{"b": rng.standard_normal(4).astype(np.float32),
+                             "a": rng.standard_normal(1).astype(np.float32)}
+                            for _ in range(2)]}
+    params = tree_map(t, np_params)
+    tree = {"params": params, "opt": adamw_init(params)}
+    mapped = tree_map(lambda x: x + 1, tree)
+    assert type(mapped["opt"]) is type(tree["opt"])
+    assert mapped["opt"]._fields == ("step", "m", "v")
+    assert int(mapped["opt"].step) == 1
+    rebuilt = tree_unflatten(tree, tree_leaves(mapped))
+    assert type(rebuilt["opt"]) is type(tree["opt"])
+    for a, b in zip(tree_leaves(rebuilt), tree_leaves(mapped)):
+        assert a is b
+    jparams = jax.tree_util.tree_map(jnp.asarray, np_params)
+    jtree = {"params": jparams, "opt": jax_adamw_init(jparams)}
+    jmapped = jax.tree_util.tree_map(lambda x: x + 1, jtree)
+    jleaves = jax.tree.leaves(jmapped)
+    leaves = tree_leaves(mapped)
+    assert len(leaves) == len(jleaves)
+    for a, b in zip(leaves, jleaves):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
