@@ -64,6 +64,30 @@ printing its lines; any failure exits non-zero before the last line:
    ``remat=True`` gradients equal ``remat=False``'s bit for bit, and
    ``make_train_step`` single and at ``accum_steps=2`` (not the VLM) held
    the same way;
+3a. mesh: 8 ranks of this script (``--mesh-rank R``) share the card
+   over gloo (NCCL refuses two ranks on one device), started after the
+   build so no rank races nvcc, each with a 120 s process-group timeout
+   and the phase with its own (any rank's failure or timeout fails it).
+   First the wrapper grid case (Hkv 2, G 2, D 16, f32 and int8 pools) of
+   each ``ops.*_sharded`` entry point on ``make_host_serve_mesh(2, 16,
+   num_devices=4)``, a (kv 2, hd 2) mesh of ranks 0-3 (ranks 4-7 left
+   out), kernel against plain version on the same DTensor inputs (copies
+   bit-identical and in place, attention within 1e-5); then qwen2-7b at
+   full width cut to 2 layers (bf16, the same seeded weights on every
+   rank, checked by a checksum all ranks compare) on
+   ``make_host_serve_mesh(4, 128)``, (kv 4, hd 2): local shapes Hkv 1, G
+   7, pool slices of D 64 gathered to 128.  4 prompts of 300-400 tokens,
+   a continuation chunk of ~120 and 16 greedy decode steps, native and
+   int8, each through ``TransformerLM(kernel_mesh=...)`` with the launch
+   counts zeroed just before and read just after (every rank must launch
+   the five serve kernels; its routes are printed) and through the same
+   model on one rank with no mesh: identical greedy tokens, logits within
+   four bf16 steps, each rank's pool slices against the matching slices
+   of the one-rank pools; wall time per part and the bytes each rank
+   all-gathers a layer.  The mesh run again, untimed, records each serve
+   kernel's inputs at the local shapes, and each kernel is held to its
+   plain version there (copies bit-identical, attention row by row within
+   four bf16 steps);
 4. serve: qwen2-7b at full width (bf16, random weights from a seeded
    generator) serves 8 requests (64-512-token prompts, 32 new tokens,
    page 16, horizon 8) cold, in a pool tight enough to preempt; launch
@@ -2169,23 +2193,25 @@ def attended_pairs(starts, chunks) -> int:
 COLD_OPS = ("paged_copy_kv", "flash_attention", "paged_decode_attention")
 
 
-def record_inputs(model, params, cold, int8, cont, cont_int8):
-    """Repeat serve runs, untimed, with each ``ops`` wrapper wrapped in a
-    :class:`Recorder` (which synchronizes to weigh each call), and return
-    the recorders of the bf16 runs, the int8 decode recorder and the int8
-    continuation-attention recorder.  Each run is ``(ServeConfig, prefix,
-    requests)``: ``cold`` records the copy, flash and decode attention,
-    ``int8`` the decode attention over int8 pools, each of ``cont`` the
-    continuation copy and attention, ``cont_int8`` the continuation
-    attention over int8 pools."""
+#: the ``ops`` functions of the serve path: :func:`serve_recorders` wraps
+#: each (``paged_copy_kv_at`` through a :class:`ChunkTap`)
+SERVE_OPS = (*COLD_OPS, "paged_copy_kv_at", "paged_prefill_attention")
+
+
+def attended(tap):
+    """The work of a continuation attention call: the (query, key) pairs
+    of the chunks ``tap`` saw its layer's copy write."""
+    return lambda q, kp, vp, pt, starts, **kw: attended_pairs(
+        starts[:q.shape[0]].tolist(), tap.lens[:q.shape[0]].tolist())
+
+
+def serve_recorders():
+    """A :class:`Recorder` around each of ``SERVE_OPS`` as ``ops`` holds it
+    now, keyed by kernel name (the copies record their pair forms), and
+    the :class:`ChunkTap` that stands for ``paged_copy_kv_at`` (it calls
+    the continuation copy's recorder and keeps the chunk lengths for the
+    continuation attention's).  Nothing is installed."""
     from repro_torch.kernels import ops
-
-    def pairs(tap):
-        return lambda q, kp, vp, pt, starts, **kw: attended_pairs(
-            starts[:q.shape[0]].tolist(), tap.lens[:q.shape[0]].tolist())
-
-    saved = {n: getattr(ops, n) for n in (*COLD_OPS, "paged_copy_kv_at",
-                                          "paged_prefill_attention")}
     rec = {
         "paged_copy": Recorder(
             ops.paged_copy_kv,
@@ -2201,12 +2227,27 @@ def record_inputs(model, params, cold, int8, cont, cont_int8):
     }
     tap = ChunkTap(rec["paged_copy_at"])
     rec["paged_prefill_attention"] = Recorder(
-        ops.paged_prefill_attention, pairs(tap),
+        ops.paged_prefill_attention, attended(tap),
         keep=lambda: tap.lens.clone())
+    return rec, tap
+
+
+def record_inputs(model, params, cold, int8, cont, cont_int8):
+    """Repeat serve runs, untimed, with each ``ops`` wrapper wrapped in a
+    :class:`Recorder` (which synchronizes to weigh each call), and return
+    the recorders of the bf16 runs, the int8 decode recorder and the int8
+    continuation-attention recorder.  Each run is ``(ServeConfig, prefix,
+    requests)``: ``cold`` records the copy, flash and decode attention,
+    ``int8`` the decode attention over int8 pools, each of ``cont`` the
+    continuation copy and attention, ``cont_int8`` the continuation
+    attention over int8 pools."""
+    from repro_torch.kernels import ops
+    saved = {n: getattr(ops, n) for n in SERVE_OPS}
+    rec, tap = serve_recorders()
     rec_q = Recorder(saved["paged_decode_attention"],
                      rec["paged_decode_attention"].work)
     tap_q = ChunkTap(saved["paged_copy_kv_at"])
-    rec_pq = Recorder(saved["paged_prefill_attention"], pairs(tap_q),
+    rec_pq = Recorder(saved["paged_prefill_attention"], attended(tap_q),
                       keep=lambda: tap_q.lens.clone())
 
     def use(**wrappers):
@@ -5903,6 +5944,413 @@ def train_phases() -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the serve mesh: ranks of this script sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+
+#: ranks on the one card; qwen2-7b's Hkv 4, D 128 factor as (kv 4, hd 2)
+MESH_RANKS = 8
+#: qwen2-7b at full width, depth cut to this many layers
+MESH_LAYERS = 2
+#: prompts of lo..hi tokens, a continuation chunk of chunk +- 8, greedy steps
+MESH_TRAFFIC = dict(batch=4, lo=300, hi=400, chunk=120, steps=16, page=16,
+                    seed=11)
+#: the five serve kernels every rank must launch on the mesh
+MESH_KERNELS = ("paged_copy", "paged_copy_at", "flash_attention",
+                "paged_prefill_attention", "paged_decode_attention")
+#: seconds the whole phase may take (rank start-up, ~30 s for 8 CUDA
+#: contexts, included); a rank's collectives time out after 120 s
+MESH_TIMEOUT_S = 300
+
+
+def mesh_small_check(dev) -> dict:
+    """The wrapper grid case of each sharded entry point on a (kv 2, hd 2)
+    mesh of ranks 0-3, kernel against plain version on the same DTensor
+    inputs (every rank draws the same full inputs from one seed).  Every
+    rank builds the mesh; ranks 4-7 are left out of it."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_serve_mesh
+    mesh = make_host_serve_mesh(2, 16, num_devices=4, device="cuda")
+    if mesh.get_coordinate() is None:
+        return {"in_mesh": False}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q_l = ops.placements(mesh, {"kv": 1})
+    pool_l = ops.placements(mesh, {"kv": 2, "hd": 3})
+    errs = {}
+
+    def sh(t, layout):
+        return ops.shard_tensor(t, mesh, layout)
+
+    def both(fn, *args, **kw):
+        return [ops.unshard(fn(*args, use_kernel=u, mesh=mesh, **kw))
+                for u in (True, False)]
+    for quant in (False, True):
+        kvs = 1 / 24 if quant else None
+        q, kp, vp, table, lens = paged_inputs(
+            gen, dev, b=3, hkv=2, g=2, d=16, page=4, n_frames=40,
+            max_pages=10, lens=[9, 32, 17], dtype=torch.float32, quant=quant)
+        got, want = both(ops.paged_decode_attention_sharded, sh(q, q_l),
+                         sh(kp, pool_l), sh(vp, pool_l), table, lens,
+                         page_size=4, kv_scale=kvs)
+        errs[f"decode{'_int8' if quant else ''}"] = max_err(got, want)
+        q, kp, vp, table, starts, chunks = prefill_inputs(
+            gen, dev, hkv=2, g=2, d=16, page=4, n_frames=48, max_pages=10,
+            starts=[5, 0, 16], chunks=[13, 8, 1], dtype=torch.float32,
+            quant=quant)
+        got, want = both(ops.paged_prefill_attention_sharded,
+                         sh(q.contiguous(), ops.placements(mesh, {"kv": 2})),
+                         sh(kp, pool_l), sh(vp, pool_l), table, starts,
+                         page_size=4, kv_scale=kvs)
+        errs[f"prefill{'_int8' if quant else ''}"] = max(
+            max_err(got[i, :c], want[i, :c]) for i, c in enumerate(chunks))
+    qf = torch.randn((2, 4, 40, 16), generator=gen, device=dev)
+    kf, vf = (torch.randn((2, 2, 40, 16), generator=gen, device=dev)
+              for _ in range(2))
+    got, want = both(ops.flash_attention_sharded, sh(qf, q_l), sh(kf, q_l),
+                     sh(vf, q_l), causal=True)
+    errs["flash"] = max_err(got, want)
+    for e in errs.values():
+        require(e <= 1e-5, f"mesh small check: {errs}")
+    # the copies: K and V sources [B, S, 2, 16], f32 pools, in place
+    src = [torch.randn((2, 12, 2, 16), generator=gen, device=dev)
+           for _ in range(2)]
+    table = torch.randperm(30, generator=gen, device=dev).int()[:8].view(2, 4)
+    lens = torch.tensor([12, 7], dtype=torch.int32, device=dev)
+    starts = torch.tensor([3, 9], dtype=torch.int32, device=dev)
+    base = torch.randn((30, 4, 2, 16), generator=gen, device=dev)
+    copies = {
+        "copy": lambda ps, u: [ops.paged_copy_sharded(
+            sh(src[0], pool_l), ps[0], table, lens, page_size=4, mesh=mesh,
+            use_kernel=u)],
+        "copy_at": lambda ps, u: [ops.paged_copy_at_sharded(
+            sh(src[0], pool_l), ps[0], table, starts, lens - 3, page_size=4,
+            mesh=mesh, use_kernel=u)],
+        "copy_kv": lambda ps, u: list(ops.paged_copy_kv_sharded(
+            sh(src[0], pool_l), sh(src[1], pool_l), ps[0], ps[1], table,
+            lens, page_size=4, mesh=mesh, use_kernel=u)),
+        "copy_kv_at": lambda ps, u: list(ops.paged_copy_kv_at_sharded(
+            sh(src[0], pool_l), sh(src[1], pool_l), ps[0], ps[1], table,
+            starts, lens - 3, page_size=4, mesh=mesh, use_kernel=u)),
+    }
+    for name, fn in copies.items():
+        outs = []
+        for u in (True, False):
+            ps = [sh(base, pool_l), sh(base.flip(0), pool_l)]
+            ptrs = [p.to_local().data_ptr() for p in ps]
+            got = fn(ps, u)
+            require(all(g is p for g, p in zip(got, ps)) and ptrs[:len(got)]
+                    == [g.to_local().data_ptr() for g in got],
+                    f"mesh small check: {name} not in place")
+            outs.append([g.to_local() for g in got])
+        require(all(torch.equal(a, b) for a, b in zip(*outs)),
+                f"mesh small check: {name} kernel != plain")
+    return {"in_mesh": True, "errs": errs, "coord": mesh.get_coordinate()}
+
+
+def mesh_workload(vocab: int):
+    """Prompts, continuation chunks and a page table of distinct frames,
+    the same on every rank (numpy from the seed)."""
+    import numpy as np
+    t = MESH_TRAFFIC
+    rng = np.random.default_rng(t["seed"])
+    b, page = t["batch"], t["page"]
+    lens = rng.integers(t["lo"], t["hi"] + 1, b).astype(np.int32)
+    chunks = rng.integers(t["chunk"] - 8, t["chunk"] + 9, b).astype(np.int32)
+    toks = rng.integers(0, vocab, (b, int(lens.max()))).astype(np.int32)
+    cont = rng.integers(0, vocab, (b, int(chunks.max()))).astype(np.int32)
+    max_pages = -(-(int((lens + chunks).max()) + t["steps"] + 1) // page)
+    frames = b * max_pages + 1                # the last: decode scratch
+    table = rng.permutation(frames - 1)[:b * max_pages].reshape(
+        b, max_pages).astype(np.int32)
+    return toks, lens, cont, chunks, table, frames, max_pages
+
+
+class AllGatherTap:
+    """Counts the bytes ``ops._gather`` hands back on this rank and the
+    host milliseconds it takes (gloo's all-gather returns once the bytes
+    are on the card)."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.fn, self.bytes, self.ms = ops._gather, 0, 0.0
+        ops._gather = self
+
+    def __call__(self, local, mesh, axis, dim):
+        t0 = time.perf_counter()
+        out = self.fn(local, mesh, axis, dim)
+        self.ms += (time.perf_counter() - t0) * 1e3
+        self.bytes += out.numel() * out.element_size()
+        return out
+
+    def take(self) -> tuple[int, float]:
+        got, self.bytes, self.ms = (self.bytes, self.ms), 0, 0.0
+        return got
+
+
+def mesh_serve(model, params, work, tap) -> dict:
+    """prefill -> prefill_continue -> greedy decode steps on one model;
+    per part: wall ms, bytes all-gathered; logits, tokens and the local
+    pool slices."""
+    import torch
+    from repro_torch.kernels import ops
+    toks, lens, cont, chunks, table, frames, max_pages = (
+        torch.from_numpy(a).cuda() if hasattr(a, "shape") else a
+        for a in work)
+    st = model.init_kv_state(len(lens), frames, MESH_TRAFFIC["page"],
+                             max_pages)._replace(page_table=table)
+    out = {"ms": {}, "gathered": {}, "gather_ms": {}}
+
+    def part(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["ms"][name] = (time.perf_counter() - t0) * 1e3
+        out["gathered"][name], out["gather_ms"][name] = tap.take()
+        return res
+    logits, st = part("prefill", lambda: model.prefill(params, toks, lens,
+                                                       st))
+    all_logits = [logits]
+    logits, st = part("continue", lambda: model.prefill_continue(
+        params, cont, st.seq_lens, chunks, st))
+    all_logits.append(logits)
+    tokens, step_logits, st = part("decode", lambda: greedy_decode(
+        model, params, logits, st, MESH_TRAFFIC["steps"]))
+    pools = (st.k_pools, st.v_pools)
+    if model.kernel_mesh is not None:
+        pools = tuple(p.to_local() for p in pools)
+    out.update(logits=all_logits + step_logits[1:], tokens=tokens,
+               k=pools[0], v=pools[1])
+    return out
+
+
+def mesh_kernel_checks(tag, model, params, work, gather_tap) -> dict:
+    """The mesh run again, untimed, with each serve op recorded on this
+    rank's local slices (:func:`serve_recorders`: Hkv 1, G 7, the pools
+    gathered to D 128); then each kernel against its plain version on the
+    largest call's inputs: the copies bit-identical, the attention kernels
+    row by row within four bf16 steps, each on its Hopper route.  Returns
+    the attention kernels' max errors."""
+    from repro_torch.kernels import ops
+    saved = {n: getattr(ops, n) for n in SERVE_OPS}
+    rec, chunk_tap = serve_recorders()
+    wrapped = dict(paged_copy_kv=rec["paged_copy"],
+                   paged_copy_kv_at=chunk_tap,
+                   **{n: rec[n] for n in SERVE_OPS if n in rec})
+    try:
+        for n in SERVE_OPS:
+            setattr(ops, n, wrapped[n])
+        mesh_serve(model, params, work, gather_tap)
+    finally:
+        for n, f in saved.items():
+            setattr(ops, n, f)
+    copy_check(rec["paged_copy"].best, f"{tag} ")
+    copy_check(rec["paged_copy_at"].best, f"{tag} ")
+    return {
+        "flash_attention": flash_check(rec["flash_attention"].best,
+                                       f"{tag} flash_attention")[0],
+        "paged_prefill_attention": prefill_check(
+            f"{tag} paged_prefill_attention",
+            rec["paged_prefill_attention"])[0],
+        "paged_decode_attention": decode_check(
+            f"{tag} paged_decode_attention",
+            rec["paged_decode_attention"].best)[0],
+    }
+
+
+def mesh_model_check(dev, rank: int) -> dict:
+    """qwen2-7b (2 layers) on the (kv 4, hd 2) mesh of all ranks against
+    the same model on this rank alone, native and int8."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_serve_mesh
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.optim import tree_leaves
+    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=MESH_LAYERS)
+    mesh = make_host_serve_mesh(cfg.num_kv_heads, cfg.head_dim,
+                                device="cuda")
+    shape = tuple(mesh.mesh.shape)
+    require(shape == (4, 2), f"qwen2-7b on 8 ranks: mesh {shape}")
+    t0 = time.perf_counter()
+    params = TransformerLM(cfg, device=dev).init(0)
+    sums = [sum(float(c.double().sum()) for c in x.flatten().split(1 << 24))
+            for x in tree_leaves(params)]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, sums)
+    require(all(s == sums for s in every), "ranks made different weights")
+    res = {"init_s": time.perf_counter() - t0, "coord": mesh.get_coordinate(),
+           "weights_gb": torch.cuda.memory_allocated() / 1e9}
+    work = mesh_workload(cfg.vocab_size)
+    tap = AllGatherTap()
+    kv_l = ops.placements(mesh, {"kv": 3, "hd": 4})
+    for kvd in ("native", "int8"):
+        one = mesh_serve(TransformerLM(cfg, device=dev, kv_dtype=kvd),
+                         params, work, tap)
+        model = TransformerLM(cfg, device=dev, kv_dtype=kvd, kernel_mesh=mesh)
+        ops.reset_launch_counts()
+        got = mesh_serve(model, params, work, tap)
+        launches, routes = ops.launch_counts(), ops.route_counts()
+        for k in MESH_KERNELS:
+            require(launches[k] > 0, f"rank {rank} {kvd}: {k} never "
+                                     f"launched on the mesh: {launches}")
+        kernel_errs = mesh_kernel_checks(f"rank {rank} {kvd}", model, params,
+                                         work, tap)
+        require(torch.equal(got["tokens"], one["tokens"]),
+                f"rank {rank} {kvd}: greedy tokens differ from one rank's")
+        errs = [bf16_check(f"rank {rank} {kvd} logits {i}", g, w)[0]
+                for i, (g, w) in enumerate(zip(got["logits"],
+                                               one["logits"]))]
+        pools = {}
+        for name in ("k", "v"):
+            want = ops.local_slice(one[name], mesh, kv_l)
+            diff = (got[name].float() - want.float()).abs()
+            pools[name] = dict(
+                equal_layers=[bool(torch.equal(got[name][li], want[li]))
+                              for li in range(MESH_LAYERS)],
+                max_diff=float(diff.max()),
+                share_equal=float((diff == 0).float().mean()))
+            # layer 0 sees identical inputs on both runs: bit for bit
+            require(pools[name]["equal_layers"][0],
+                    f"rank {rank} {kvd}: layer-0 {name} pool slice differs")
+            if kvd == "int8":
+                require(pools[name]["max_diff"] <= 1, f"rank {rank}: int8 "
+                        f"{name} pool slice more than one step off")
+            else:
+                bf16_check(f"rank {rank} {kvd} {name} pool", got[name], want)
+        res[kvd] = dict(
+            launches={k: launches[k] for k in MESH_KERNELS},
+            routes={k: routes[k] for k in MESH_KERNELS if k in routes},
+            logits_err=max(errs), pools=pools, kernel_errs=kernel_errs,
+            ms=got["ms"],
+            one_ms=one["ms"], gathered=got["gathered"],
+            gather_ms=got["gather_ms"],
+            tokens_equal=True)
+    return res
+
+
+def mesh_rank(rank: int, world: int, store: str, out: str) -> int:
+    """One rank of the mesh phase (``chip_smoke.py --mesh-rank R WORLD
+    STORE OUT``): writes ``OUT/rank{R}.json``; 0 iff every check passed."""
+    import datetime
+    import traceback
+    import torch
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    res = {"rank": rank, "ok": False}
+    dev = torch.device("cuda")
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.zeros(1, device=dev)
+        res["cuda_s"] = time.perf_counter() - t0
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=120))
+        t1 = time.perf_counter()
+        res["small"] = mesh_small_check(dev)
+        res["small_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        res.update(mesh_model_check(dev, rank))
+        res["model_s"] = time.perf_counter() - t1
+        res["ok"] = True
+    except Exception:            # the rank's report: the parent fails it
+        res["error"] = traceback.format_exc()
+    finally:
+        res["total_s"] = time.perf_counter() - t0
+        pathlib.Path(out, f"rank{rank}.json").write_text(json.dumps(res))
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0 if res["ok"] else 1
+
+
+def mesh_phase() -> None:
+    """Start the ranks, wait for them (killing all at the phase's timeout),
+    require each rank's report, print them."""
+    import shutil
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "mesh"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(r),
+         str(MESH_RANKS), str(out / "store"), str(out)],
+        stdout=subprocess.DEVNULL) for r in range(MESH_RANKS)]
+    try:
+        for p in procs:
+            left = MESH_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                p.wait(timeout=max(left, 1))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"mesh: a rank did not finish in "
+                                   f"{MESH_TIMEOUT_S} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    reports = []
+    for r, p in enumerate(procs):
+        f = out / f"rank{r}.json"
+        require(f.exists(), f"mesh rank {r} exited {p.returncode} with no "
+                            "report")
+        res = json.loads(f.read_text())
+        require(res["ok"] and p.returncode == 0,
+                f"mesh rank {r} failed:\n{res.get('error')}")
+        reports.append(res)
+    small = [r["small"] for r in reports if r["small"]["in_mesh"]]
+    log(f"mesh small: (kv 2, hd 2) on ranks 0-3, ranks 4-7 left out; each "
+        f"sharded wrapper kernel == plain (copies bit-identical, in place); "
+        f"attention max err per case {json.dumps(small[0]['errs'])} "
+        f"[{CARD}]")
+    for res in reports:
+        parts = []
+        for kvd in ("native", "int8"):
+            m = res[kvd]
+            routes = ", ".join(
+                f"{k} " + " ".join(f"{r} {n}" for r, n
+                                   in m["routes"][k].items() if n)
+                for k in MESH_KERNELS)
+            pools = ", ".join(
+                f"{n} layers equal {m['pools'][n]['equal_layers']} max diff "
+                f"{m['pools'][n]['max_diff']:.3g}" for n in ("k", "v"))
+            kernel = ", ".join(f"{k} {e:.3g}"
+                               for k, e in m["kernel_errs"].items())
+            parts.append(f"{kvd}: {routes}; kernel vs plain at these "
+                         f"shapes: {kernel} (copies bit-identical); logits "
+                         f"err {m['logits_err']:.4g}; pools {pools}")
+        log(f"mesh rank {res['rank']} coord {res['coord']}: "
+            + " | ".join(parts))
+    r0 = reports[0]
+    for kvd in ("native", "int8"):
+        m, steps = r0[kvd], MESH_TRAFFIC["steps"]
+        log(f"mesh {kvd} rank 0: prefill {m['ms']['prefill']:.1f} ms "
+            f"(one rank {m['one_ms']['prefill']:.1f}; all-gathers "
+            f"{m['gather_ms']['prefill']:.1f}), continue "
+            f"{m['ms']['continue']:.1f} ms ({m['one_ms']['continue']:.1f}; "
+            f"{m['gather_ms']['continue']:.1f}), decode "
+            f"{m['ms']['decode'] / steps:.2f} ms/step "
+            f"({m['one_ms']['decode'] / steps:.2f}; "
+            f"{m['gather_ms']['decode'] / steps:.2f}); all-gathered a layer: "
+            f"prefill {m['gathered']['prefill'] / MESH_LAYERS:.0f} B, "
+            f"continue {m['gathered']['continue'] / MESH_LAYERS:.0f} B, "
+            f"decode {m['gathered']['decode'] / MESH_LAYERS / steps:.0f} "
+            f"B a step [{CARD}]")
+    log(f"mesh: {MESH_RANKS} ranks, qwen2-7b ({MESH_LAYERS} layers) on "
+        f"(kv 4, hd 2), greedy tokens == one rank's, native and int8; rank "
+        f"start {max(r['cuda_s'] for r in reports):.1f} s, small check "
+        f"{max(r['small_s'] for r in reports):.1f} s, model "
+        f"{max(r['model_s'] for r in reports):.1f} s (init "
+        f"{max(r['init_s'] for r in reports):.1f} s, "
+        f"{max(r['weights_gb'] for r in reports):.2f} GB a rank); phase "
+        f"{wall:.1f} s [{CARD}]")
+    shutil.rmtree(out, ignore_errors=True)
+
+
 def print_rows(rows) -> None:
     for r in rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -5951,6 +6399,20 @@ def rwkv_phases() -> list[dict]:
     return rows
 
 
+def timed(phase):
+    """Run ``phase()``, free what it left on the card (its model), print
+    its wall time and the memory still allocated; return what it
+    returns."""
+    import torch
+    t0 = time.perf_counter()
+    out = phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated after")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5966,48 +6428,26 @@ def main() -> int:
               "a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        rank, world, store, out = sys.argv[2:6]
+        return mesh_rank(int(rank), int(world), store, out)
     quick = "--quick" in sys.argv[1:]
     t0 = time.perf_counter()
     try:
-        probe()
-        build()
-        reduced_checks()
-        reduced_wkv_checks()
-        reduced_engine_check()
-        reduced_moe_check()
-        reduced_family_check()
-        reduced_router_check()
-        reduced_rwkv_check()
-        reduced_rglru_check()
-        reduced_train_check()
-        reduced_vm_checks()
+        for phase in (probe, build, reduced_checks, reduced_wkv_checks,
+                      reduced_engine_check, reduced_moe_check,
+                      reduced_family_check, reduced_router_check,
+                      reduced_rwkv_check, reduced_rglru_check,
+                      reduced_train_check, reduced_vm_checks):
+            timed(phase)
         if quick:
             log("quick: stopping after the reduced checks")
             return 0
-        rows = dense_phases()
-        gc.collect()                   # free the qwen2-7b weights first
-        torch.cuda.empty_cache()
-        log(f"freed qwen2-7b: {torch.cuda.memory_allocated() / 1e9:.1f} GB "
-            "allocated")
-        rows += rwkv_phases()
-        gc.collect()                   # free the rwkv6-7b weights first
-        torch.cuda.empty_cache()
-        rows += rglru_phases()
-        gc.collect()                   # free the recurrentgemma-9b weights
-        torch.cuda.empty_cache()
-        rows += moe_phases()
-        gc.collect()                   # free the granite-moe weights first
-        torch.cuda.empty_cache()
-        rows += train_phases()
-        gc.collect()                   # free the trained weights first
-        torch.cuda.empty_cache()
-        vlm_phases()
-        gc.collect()                   # free the qwen2-vl-7b weights first
-        torch.cuda.empty_cache()
-        rows += audio_phases()
-        gc.collect()
-        torch.cuda.empty_cache()
-        rows += vm_phases()
+        timed(mesh_phase)
+        rows = []
+        for phase in (dense_phases, rwkv_phases, rglru_phases, moe_phases,
+                      train_phases, vlm_phases, audio_phases, vm_phases):
+            rows += timed(phase) or []
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -352,3 +352,304 @@ def wkv6(r, k, v, w, u, initial_state=None, *, use_kernel: bool = True,
     if out_state is not None:
         s = out_state.copy_(s)
     return o, s
+
+
+# ---------------------------------------------------------------------------
+# sharded dispatch over a ('kv', 'hd') serve mesh
+#
+# Counterparts of JAX's ``*_sharded`` wrappers (``src/repro/kernels/
+# ops.py:334-541``).  A sharded operand is a ``DTensor`` whose placements
+# are the declared layout (JAX: a ``jax.Array`` with a ``NamedSharding``);
+# the placements are checked, each body runs the single-device op on
+# ``to_local()``, and the result is a ``DTensor`` again.  Pools and copy
+# sources keep the natural 4-D layout [.., Hkv, hd] up to the boundary:
+# a (kv, hd)-split pool is not a split of the merged W = Hkv * hd axis,
+# so the merge to W is a reshape of the local slice, inside the body.
+# Replicated operands (page table, lengths, starts) may be plain tensors,
+# the same on every rank, or replicated DTensors.  The 'kv' axis needs no
+# collective; on 'hd' the attention bodies all-gather the K/V pool slices
+# to the full head_dim (one list ``all_gather`` of K and V together, the
+# form gloo takes on CPU and CUDA tensors alike) and every 'hd' rank
+# computes the same output.  The copies never gather, and write each
+# rank's pool slice in place.  A mesh of one rank (or none) calls the
+# unsharded op, as JAX does.
+# ---------------------------------------------------------------------------
+
+
+def _is_dtensor(t) -> bool:
+    """Whether ``t`` is a ``DTensor``; a plain tensor is answered without
+    importing ``torch.distributed.tensor`` (a second of start-up the
+    unsharded callers never pay)."""
+    if type(t) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _kv_axes(mesh, num_kv_heads: int, head_dim: int):
+    # deferred, as JAX's ops.py defers it: the kernel layer does not import
+    # the launcher, and only sharded callers need the rule
+    from repro_torch.launch.mesh import kv_partition_axes
+    return kv_partition_axes(mesh, num_kv_heads, head_dim)
+
+
+def kv_layout(mesh, num_kv_heads: int, head_dim: int, kv_dim: int,
+              hd_dim: int | None = None) -> tuple:
+    """Placements of a KV-shaped operand: its heads (``kv_dim``) split over
+    'kv' and, given ``hd_dim``, its head_dim over 'hd', each only where
+    ``launch.mesh.kv_partition_axes`` lets it split."""
+    kv_ax, hd_ax = _kv_axes(mesh, num_kv_heads, head_dim)
+    spec = {kv_ax: kv_dim} if hd_dim is None else {kv_ax: kv_dim,
+                                                   hd_ax: hd_dim}
+    return placements(mesh, spec)
+
+
+def placements(mesh, spec: dict) -> tuple:
+    """DTensor placements of a spec ``{mesh axis: tensor dim}`` (JAX's
+    ``PartitionSpec``); axes not in it (or ``None``) are replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(spec[a]) if a in spec else Replicate()
+                 for a in mesh.mesh_dim_names)
+
+
+def local_slice(full, mesh, layout):
+    """This rank's slice of ``full`` (the same tensor on every rank) under
+    ``layout``, contiguous."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not in the mesh")
+    out = full
+    for i, p in enumerate(layout):
+        if isinstance(p, Shard):
+            n = mesh.size(i)
+            if out.shape[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(out.shape)} does "
+                                 f"not split over {n} ranks")
+            step = out.shape[p.dim] // n
+            out = out.narrow(p.dim, coord[i] * step, step)
+    return out.contiguous()
+
+
+def wrap_local(local, mesh, layout, shape):
+    """``local`` (this rank's slice) as a ``DTensor`` of global ``shape``
+    under ``layout``, with no communication."""
+    from torch.distributed.tensor import DTensor
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, mesh, layout, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def shard_tensor(full, mesh, layout):
+    """``full`` (the same tensor on every rank) as a ``DTensor`` under
+    ``layout``, with no communication: each rank keeps its slice."""
+    return wrap_local(local_slice(full, mesh, layout), mesh, layout,
+                      full.shape)
+
+
+def _gather(local, mesh, axis: str, dim: int):
+    """``local`` gathered along ``dim`` over mesh ``axis`` (JAX's
+    ``all_gather(..., tiled=True)``): one list ``all_gather``."""
+    import torch.distributed as dist
+    i = mesh.mesh_dim_names.index(axis)
+    parts = [torch.empty_like(local) for _ in range(mesh.size(i))]
+    dist.all_gather(parts, local.contiguous(), group=mesh.get_group(i))
+    return torch.cat(parts, dim=dim)
+
+
+def unshard(t):
+    """The whole tensor of a ``DTensor`` on every rank (each split mesh
+    axis all-gathered); a plain tensor as it is."""
+    from torch.distributed.tensor import Shard
+    if not _is_dtensor(t):
+        return t
+    out = t.to_local()
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard):
+            out = _gather(out, t.device_mesh, t.device_mesh.mesh_dim_names[i],
+                          p.dim)
+    return out
+
+
+def _local(name: str, t, mesh, layout):
+    """``t.to_local()`` after checking that ``t`` is a ``DTensor`` on
+    ``mesh`` with the declared ``layout``."""
+    if not _is_dtensor(t):
+        raise TypeError(f"{name}: a sharded operand must be a DTensor "
+                        f"(placements {layout}), got {type(t).__name__}")
+    if t.device_mesh != mesh or tuple(t.placements) != tuple(layout):
+        raise ValueError(f"{name}: placements {tuple(t.placements)} on "
+                         f"{t.device_mesh}, declared {tuple(layout)} on "
+                         f"{mesh}")
+    return t.to_local()
+
+
+def _replicated(name: str, t):
+    """A replicated operand: a plain tensor, or a DTensor that is
+    replicated over every mesh axis."""
+    from torch.distributed.tensor import Replicate
+    if not _is_dtensor(t):
+        return t
+    if not all(isinstance(p, Replicate) for p in t.placements):
+        raise ValueError(f"{name}: must be replicated, got "
+                         f"{tuple(t.placements)}")
+    return t.to_local()
+
+
+def _plain_mesh(mesh) -> bool:
+    return mesh is None or mesh.size() == 1
+
+
+def _whole(t):
+    """Any tensor's local data (a one-rank mesh's DTensor holds it all)."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
+def _gather_hd(kp_l, vp_l, mesh, hd_ax):
+    """K and V pool slices gathered to the full head_dim over 'hd' in one
+    collective (a no-op where 'hd' does not split them)."""
+    if hd_ax is None or mesh.size(mesh.mesh_dim_names.index(hd_ax)) == 1:
+        return kp_l, vp_l
+    both = _gather(torch.stack((kp_l, vp_l)), mesh, hd_ax, -1)
+    return both[0], both[1]
+
+
+def _copy_sharded(src_pools, mesh, body) -> None:
+    """Hand ``body`` each (src, pool) pair merged to ``[.., W]`` views:
+    on a mesh this rank's slices, checked against ``P(None, None, kv,
+    hd)``; on none (or one rank) the whole tensors.  The pools are
+    written in place."""
+    if _plain_mesh(mesh):
+        pairs = [(_whole(s), _whole(p)) for s, p in src_pools]
+    else:
+        src0 = src_pools[0][0]
+        spec = kv_layout(mesh, src0.shape[2], src0.shape[3], 2, 3)
+        pairs = [(_local("src", s, mesh, spec), _local("pool", p, mesh, spec))
+                 for s, p in src_pools]
+    body(*(t for s, p in pairs for t in (s.reshape(*s.shape[:2], -1),
+                                         p.view(*p.shape[:2], -1))))
+
+
+def paged_copy_sharded(src, pool, page_table, lens, *, page_size: int, mesh,
+                       use_kernel: bool = True):
+    """:func:`paged_copy` of ``src [B, S, Hkv, hd]`` into ``pool [P, page,
+    Hkv, hd]``, each rank into its slice: src and pool ``P(None, None, kv,
+    hd)``, page table and lens replicated; no collective.  Returns
+    ``pool``, written in place."""
+    pt, ln = _replicated("page_table", page_table), _replicated("lens", lens)
+    _copy_sharded([(src, pool)], mesh, lambda s, p: paged_copy(
+        s, p, pt, ln, page_size=page_size, use_kernel=use_kernel))
+    return pool
+
+
+def paged_copy_at_sharded(src, pool, page_table, starts, lens, *,
+                          page_size: int, mesh, use_kernel: bool = True):
+    """:func:`paged_copy_at` over the mesh (the layouts of
+    :func:`paged_copy_sharded`; starts replicated).  Returns ``pool``,
+    written in place."""
+    pt, st = _replicated("page_table", page_table), _replicated("starts",
+                                                               starts)
+    ln = _replicated("lens", lens)
+    _copy_sharded([(src, pool)], mesh, lambda s, p: paged_copy_at(
+        s, p, pt, st, ln, page_size=page_size, use_kernel=use_kernel))
+    return pool
+
+
+def paged_copy_kv_sharded(k_src, v_src, k_pool, v_pool, page_table, lens, *,
+                          page_size: int, mesh, use_kernel: bool = True):
+    """:func:`paged_copy_kv` (a layer's K and V, one launch on the card)
+    over the mesh, with :func:`paged_copy_sharded`'s layouts.  Returns
+    ``(k_pool, v_pool)``, written in place."""
+    pt, ln = _replicated("page_table", page_table), _replicated("lens", lens)
+    _copy_sharded([(k_src, k_pool), (v_src, v_pool)], mesh,
+                  lambda ks, kp, vs, vp: paged_copy_kv(
+                      ks, vs, kp, vp, pt, ln, page_size=page_size,
+                      use_kernel=use_kernel))
+    return k_pool, v_pool
+
+
+def paged_copy_kv_at_sharded(k_src, v_src, k_pool, v_pool, page_table,
+                             starts, lens, *, page_size: int, mesh,
+                             use_kernel: bool = True):
+    """:func:`paged_copy_kv_at` over the mesh, with
+    :func:`paged_copy_at_sharded`'s layouts.  Returns ``(k_pool,
+    v_pool)``, written in place."""
+    pt, st = _replicated("page_table", page_table), _replicated("starts",
+                                                               starts)
+    ln = _replicated("lens", lens)
+    _copy_sharded([(k_src, k_pool), (v_src, v_pool)], mesh,
+                  lambda ks, kp, vs, vp: paged_copy_kv_at(
+                      ks, vs, kp, vp, pt, st, ln, page_size=page_size,
+                      use_kernel=use_kernel))
+    return k_pool, v_pool
+
+
+def _attention_sharded(q, k_pool, v_pool, mesh, heads_dim: int, op):
+    """The body of the paged attention wrappers: q and the output split
+    over 'kv' on ``heads_dim``, pools ``P(None, None, kv, hd)`` gathered
+    over 'hd'; ``op(q_l, kp, vp)`` is the single-device call (on the
+    whole tensors where there is no mesh, or one rank)."""
+    if _plain_mesh(mesh):
+        return op(*map(_whole, (q, k_pool, v_pool)))
+    kv_ax, hd_ax = _kv_axes(mesh, q.shape[heads_dim], q.shape[-1])
+    q_spec = placements(mesh, {kv_ax: heads_dim})
+    pool_spec = placements(mesh, {kv_ax: 2, hd_ax: 3})
+    q_l = _local("q", q, mesh, q_spec)
+    kp_l, vp_l = _gather_hd(_local("k_pool", k_pool, mesh, pool_spec),
+                            _local("v_pool", v_pool, mesh, pool_spec),
+                            mesh, hd_ax)
+    return wrap_local(op(q_l, kp_l, vp_l), mesh, q_spec, q.shape)
+
+
+def paged_decode_attention_sharded(q, k_pool, v_pool, page_table, seq_lens,
+                                   *, page_size: int, mesh,
+                                   scale: float | None = None,
+                                   window: int | None = None,
+                                   kv_scale: float | None = None,
+                                   use_kernel: bool = True):
+    """:func:`paged_decode_attention` on each rank's slice: q ``[B, Hkv,
+    G, D]`` and the output ``P(None, kv, None, None)``, pools ``P(None,
+    None, kv, hd)`` (all-gathered over 'hd' in the body), page table and
+    lengths replicated."""
+    pt = _replicated("page_table", page_table)
+    ln = _replicated("seq_lens", seq_lens)
+    return _attention_sharded(
+        q, k_pool, v_pool, mesh, 1,
+        lambda q_l, kp, vp: paged_decode_attention(
+            q_l, kp, vp, pt, ln, page_size=page_size, scale=scale,
+            window=window, kv_scale=kv_scale, use_kernel=use_kernel))
+
+
+def paged_prefill_attention_sharded(q, k_pool, v_pool, page_table, starts, *,
+                                    page_size: int, mesh,
+                                    scale: float | None = None,
+                                    kv_scale: float | None = None,
+                                    use_kernel: bool = True):
+    """:func:`paged_prefill_attention` over the mesh: q ``[B, S, Hkv, G,
+    D]`` and the output ``P(None, None, kv, None, None)``, pools ``P(None,
+    None, kv, hd)`` (gathered over 'hd'), page table and starts
+    replicated."""
+    pt, st = _replicated("page_table", page_table), _replicated("starts",
+                                                               starts)
+    return _attention_sharded(
+        q, k_pool, v_pool, mesh, 2,
+        lambda q_l, kp, vp: paged_prefill_attention(
+            q_l, kp, vp, pt, st, page_size=page_size, scale=scale,
+            kv_scale=kv_scale, use_kernel=use_kernel))
+
+
+def flash_attention_sharded(q, k, v, *, mesh, causal: bool = True,
+                            scale: float | None = None,
+                            use_kernel: bool = True):
+    """:func:`flash_attention` with heads split over 'kv': q ``[B, Hq, S,
+    D]`` (kv-major heads, Hq = Hkv * G), k and v ``[B, Hkv, S, D]`` and the
+    output all ``P(None, kv, None, None)``; D is the contraction and stays
+    whole, so there is no collective."""
+    if _plain_mesh(mesh):
+        return flash_attention(*map(_whole, (q, k, v)), causal=causal,
+                               scale=scale, use_kernel=use_kernel)
+    spec = kv_layout(mesh, k.shape[1], q.shape[3], 1)
+    out = flash_attention(*(_local(n, t, mesh, spec) for n, t in
+                            (("q", q), ("k", k), ("v", v))),
+                          causal=causal, scale=scale, use_kernel=use_kernel)
+    return wrap_local(out, mesh, spec, q.shape)

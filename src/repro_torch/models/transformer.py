@@ -48,6 +48,18 @@ Port of the dense, MoE, VLM and audio families of
 
 Every tensor lives on ``self.device``: ``cuda`` unless the caller passes
 ``device="cpu"`` (the kernels' plain versions then run).
+
+With ``kernel_mesh``, a ('kv', 'hd') ``DeviceMesh`` of more than one rank
+(``launch.mesh``), each rank runs the serve paths: the KV pools are
+DTensors split over (kv, hd), every other tensor (weights, page table,
+lengths, activations, logits) is replicated, and the five serve kernels
+run on each rank's slice through ``ops.*_sharded`` (JAX's shard_map
+dispatch, ``src/repro/models/transformer.py:288-296``).  What GSPMD does
+implicitly in JAX is explicit here: the attention output, split over kv,
+is all-gathered before the replicated ``wo``, and the decode step's row
+scatter writes each rank's (kv, hd) slice of the new K/V into its pool
+slice.  Unlike JAX, ``use_kernels=False`` keeps the mesh: the plain
+versions run on each slice through the same wrappers.
 """
 
 from __future__ import annotations
@@ -91,14 +103,14 @@ MOE_DISPATCHES = ("sorted", "ragged", "dense")
 
 class TransformerLM:
     """GQA transformer (the ``dense``, ``moe``, ``vlm`` and ``audio``
-    families) on one device."""
+    families) on one device, or serving on a (kv, hd) mesh."""
 
     KV_INT8_SCALE = 24.0  # fixed-point scale (values are post-norm, O(1))
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  use_kernels: bool = True, kv_dtype: str = "native",
                  capacity_factor: float = 1.25, moe_dispatch: str = "sorted",
-                 remat: bool = True):
+                 remat: bool = True, kernel_mesh=None):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not served by TransformerLM: "
@@ -123,6 +135,12 @@ class TransformerLM:
         #: activation checkpointing of each superblock under grad (JAX's
         #: ``jax.checkpoint`` of its scan body)
         self.remat = remat
+        #: a ('kv', 'hd') ``DeviceMesh`` (``launch.mesh``): with more than
+        #: one rank the serve paths keep the KV pools split over it and
+        #: dispatch the kernels through ``ops.*_sharded``
+        if kernel_mesh is not None and kernel_mesh.get_coordinate() is None:
+            raise ValueError("kernel_mesh: this rank is not in the mesh")
+        self.kernel_mesh = kernel_mesh
         self.dtype = L.DTYPES[cfg.param_dtype]
         #: layers a superblock; only its last one routes (JAX ``_is_moe_sub``)
         self.moe_every = cfg.moe_every if cfg.family == "moe" else 1
@@ -302,16 +320,57 @@ class TransformerLM:
         return torch.clamp(torch.round(x.float() * self.KV_INT8_SCALE),
                            -127, 127).to(torch.int8)
 
+    # ------------------------------------------------------------------
+    # the serve mesh
+    # ------------------------------------------------------------------
+
+    def _serve_kernel_mesh(self):
+        """The ('kv', 'hd') mesh the serve paths shard over, or None for
+        one device (JAX ``_serve_kernel_mesh``).  JAX drops the mesh when
+        ``use_kernels`` is off and lets GSPMD split its plain ops; the port
+        keeps it, and the plain versions run on each rank's slice through
+        the same wrappers."""
+        m = self.kernel_mesh
+        return m if m is not None and m.size() > 1 else None
+
+    def _split(self, t: torch.Tensor, mesh, kv_dim: int,
+               hd_dim: int | None = None):
+        """``t`` (the same on every rank) as a DTensor split over 'kv' on
+        ``kv_dim`` and over 'hd' on ``hd_dim``, where ``kv_partition_axes``
+        lets them split; ``t`` itself where there is no mesh."""
+        if mesh is None:
+            return t
+        return ops.shard_tensor(t, mesh, ops.kv_layout(
+            mesh, self.cfg.num_kv_heads, self.cfg.head_dim, kv_dim, hd_dim))
+
+    @staticmethod
+    def _layer_pools(state: PagedKVState, li: int, mesh):
+        """Layer ``li``'s K and V pools, views of the stacked pools (on a
+        mesh: this rank's slice, wrapped with the layer's placements)."""
+        return _layer(state.k_pools, li, mesh), _layer(state.v_pools, li,
+                                                        mesh)
+
     def init_kv_state(self, batch: int, num_pages: int, page_size: int,
                       max_pages: int) -> PagedKVState:
+        """Zeroed pools ``[L, P, page, Hkv, hd]`` (on a mesh of more than
+        one rank, DTensors split over (kv, hd) as ``kv_partition_axes``
+        says, each rank holding its slice), an unmapped page table and
+        zero lengths (replicated plain tensors)."""
         cfg, dev = self.cfg, self.device
         shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
                  cfg.head_dim)
+        mesh = self._serve_kernel_mesh()
+
+        def pool():
+            if mesh is None:
+                return torch.zeros(shape, dtype=self._kv_store_dtype(),
+                                   device=dev)
+            # only the local slice of the broadcast zero is materialised
+            zero = torch.zeros((), dtype=self._kv_store_dtype(), device=dev)
+            return self._split(zero.expand(shape), mesh, 3, 4)
         return PagedKVState(
-            k_pools=torch.zeros(shape, dtype=self._kv_store_dtype(),
-                                device=dev),
-            v_pools=torch.zeros(shape, dtype=self._kv_store_dtype(),
-                                device=dev),
+            k_pools=pool(),
+            v_pools=pool(),
             page_table=torch.full((batch, max_pages), INVALID_PAGE,
                                   dtype=torch.int32, device=dev),
             seq_lens=torch.zeros((batch,), dtype=torch.int32, device=dev),
@@ -370,30 +429,31 @@ class TransformerLM:
         cfg = self.cfg
         b, s = tokens.shape[:2]
         page = state.page_size
-        hkv, hd = cfg.num_kv_heads, cfg.head_dim
         rope = self._rope(torch.arange(s, device=tokens.device).expand(b, s))
         x = self.embed(params, tokens)
         if vision_embeds is not None:
             nvis = vision_embeds.shape[1]
             x = torch.cat([vision_embeds.to(x.dtype), x[:, nvis:]], dim=1)
+        mesh = self._serve_kernel_mesh()
         for li, block_p in enumerate(params["blocks"]):
             q, k, v = self._block_serve_qkv(block_p, x, rope)
             # unit-stride burst write of K and V through the page table
             # (C2-burst), one launch; the pool stores its own dtype
             # (quantized under int8), the chunk's own attention below keeps
             # the raw activations
-            ops.paged_copy_kv(
-                self._kv_quant(k).reshape(b, s, hkv * hd),
-                self._kv_quant(v).reshape(b, s, hkv * hd),
-                state.k_pools[li].view(-1, page, hkv * hd),
-                state.v_pools[li].view(-1, page, hkv * hd),
-                state.page_table, prompt_lens, page_size=page,
+            ops.paged_copy_kv_sharded(
+                self._split(self._kv_quant(k), mesh, 2, 3),
+                self._split(self._kv_quant(v), mesh, 2, 3),
+                *self._layer_pools(state, li, mesh), state.page_table,
+                prompt_lens, page_size=page, mesh=mesh,
                 use_kernel=self.use_kernels,
             )
-            o = ops.flash_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal=True, use_kernel=self.use_kernels,
-            )                                         # [B, Hq, S, hd]
+            # on a mesh the heads are split over 'kv', and gathered whole
+            # before the replicated wo (GSPMD's implicit all-gather in JAX)
+            o = ops.unshard(ops.flash_attention_sharded(
+                *(self._split(t.transpose(1, 2), mesh, 1) for t in (q, k, v)),
+                causal=True, mesh=mesh, use_kernel=self.use_kernels,
+            ))                                        # [B, Hq, S, hd]
             x = x + o.transpose(1, 2).reshape(b, s, -1) @ block_p["attn"]["wo"]
             x = self._ffn_serve(block_p, x, self.is_moe(li))
         x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
@@ -428,22 +488,21 @@ class TransformerLM:
         rope = self._rope(positions)
         kv_scale = self._kv_scale()
         x = self.embed(params, tokens)
+        mesh = self._serve_kernel_mesh()
         for li, block_p in enumerate(params["blocks"]):
             q, k, v = self._block_serve_qkv(block_p, x, rope)
-            ops.paged_copy_kv_at(
-                self._kv_quant(k).reshape(b, s, hkv * hd),
-                self._kv_quant(v).reshape(b, s, hkv * hd),
-                state.k_pools[li].view(-1, page, hkv * hd),
-                state.v_pools[li].view(-1, page, hkv * hd),
-                state.page_table, start_lens, chunk_lens, page_size=page,
-                use_kernel=self.use_kernels,
+            kp, vp = self._layer_pools(state, li, mesh)
+            ops.paged_copy_kv_at_sharded(
+                self._split(self._kv_quant(k), mesh, 2, 3),
+                self._split(self._kv_quant(v), mesh, 2, 3),
+                kp, vp, state.page_table, start_lens, chunk_lens,
+                page_size=page, mesh=mesh, use_kernel=self.use_kernels,
             )
-            o = ops.paged_prefill_attention(
-                q.reshape(b, s, hkv, g, hd), state.k_pools[li],
-                state.v_pools[li], state.page_table, start_lens,
-                page_size=page, kv_scale=kv_scale,
-                use_kernel=self.use_kernels,
-            )                                         # [B, S, Hkv, G, hd]
+            o = ops.unshard(ops.paged_prefill_attention_sharded(
+                self._split(q.reshape(b, s, hkv, g, hd), mesh, 2), kp, vp,
+                state.page_table, start_lens, page_size=page, mesh=mesh,
+                kv_scale=kv_scale, use_kernel=self.use_kernels,
+            ))                                        # [B, S, Hkv, G, hd]
             x = x + o.reshape(b, s, hkv * g * hd) @ block_p["attn"]["wo"]
             x = self._ffn_serve(block_p, x, self.is_moe(li))
         x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
@@ -479,17 +538,24 @@ class TransformerLM:
         new_lens = torch.where(frames < 0, pos, pos + 1).to(torch.int32)
         kv_scale = self._kv_scale()
         rope = self._rope(pos[:, None])
+        mesh = self._serve_kernel_mesh()
         for li, block_p in enumerate(params["blocks"]):
             q, k, v = self._block_serve_qkv(block_p, x, rope)
-            # the single-token row scatter is a plain index_put_
-            state.k_pools[li].view(-1, hkv, hd)[rows] = self._kv_quant(k[:, 0])
-            state.v_pools[li].view(-1, hkv, hd)[rows] = self._kv_quant(v[:, 0])
-            o = ops.paged_decode_attention(
-                q[:, 0].reshape(b, hkv, g, hd), state.k_pools[li],
-                state.v_pools[li], state.page_table, new_lens,
-                page_size=page, kv_scale=kv_scale,
-                use_kernel=self.use_kernels,
-            )                                          # [B, Hkv, G, hd]
+            kp, vp = self._layer_pools(state, li, mesh)
+            # the single-token row scatter is a plain index_put_; on a mesh
+            # each rank writes its (kv, hd) slice of the new K/V into its
+            # pool slice (GSPMD splits JAX's .at[rows].set the same way)
+            for pool, new in ((kp, k[:, 0]), (vp, v[:, 0])):
+                new = self._kv_quant(new)
+                if mesh is not None:
+                    pool = pool.to_local()
+                    new = self._split(new, mesh, 1, 2).to_local()
+                pool.view(-1, *new.shape[1:])[rows] = new
+            o = ops.unshard(ops.paged_decode_attention_sharded(
+                self._split(q[:, 0].reshape(b, hkv, g, hd), mesh, 1), kp, vp,
+                state.page_table, new_lens, page_size=page, mesh=mesh,
+                kv_scale=kv_scale, use_kernel=self.use_kernels,
+            ))                                         # [B, Hkv, G, hd]
             x = x + o.reshape(b, 1, hkv * g * hd) @ block_p["attn"]["wo"]
             x = self._ffn_serve(block_p, x, self.is_moe(li))
         x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
@@ -530,6 +596,19 @@ class TransformerLM:
             seq_lens = ns.seq_lens
             block.append(new_tok)
         return torch.stack(block), state._replace(seq_lens=seq_lens)
+
+
+def _layer(pools, li: int, mesh):
+    """``pools[li]``: a view; on a mesh (a DTensor split on its later
+    dims), the local slice's layer wrapped again with the placements moved
+    down one dim (no dispatch through DTensor's ops, no communication)."""
+    from torch.distributed.tensor import Shard
+    if mesh is None:
+        return pools[li]
+    pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+               for p in pools.placements)
+    return ops.wrap_local(pools.to_local()[li], pools.device_mesh, pl,
+                          pools.shape[1:])
 
 
 def sample(logits: torch.Tensor, gen: torch.Generator | None,

@@ -83,8 +83,10 @@ def check_ported(model: TransformerLM, cfg: ServeConfig) -> None:
         raise NotImplementedError(f"{model.cfg.name}: {RECURRENT_REFUSAL}")
     refused = []
     if cfg.serve_mesh not in (None, "off"):
-        refused.append(f"serve_mesh={cfg.serve_mesh!r} (sharded executor: "
-                       "later slice)")
+        refused.append(f"serve_mesh={cfg.serve_mesh!r} (the executor on "
+                       "the mesh; launch.mesh and TransformerLM(kernel_mesh"
+                       "=...) are ported, the executor's sharded steps are "
+                       "not)")
     if refused:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(refused)

@@ -297,13 +297,17 @@ class ServeConfig:
         )
 
     def build_mesh(self, model_cfg):
-        """Resolve ``serve_mesh``: only ``"off"`` (one card) is ported; a
-        sharded serve mesh waits for the sharded-executor slice."""
+        """Resolve ``serve_mesh``: only ``"off"`` (one card) is served.
+        The mesh (``launch.mesh``) and the model's sharded kernel dispatch
+        (``TransformerLM(kernel_mesh=...)``) are ported; the executor on
+        the mesh (its sharded steps and state) is not yet."""
         if self.serve_mesh in (None, "off"):
             return None
         raise NotImplementedError(
-            f"serve_mesh={self.serve_mesh!r}: the sharded executor is not "
-            "ported yet (a later slice of the PyTorch port); use 'off'")
+            f"serve_mesh={self.serve_mesh!r}: the executor on a serve mesh "
+            "is not ported yet (launch.mesh and TransformerLM(kernel_mesh="
+            "...) are; the executor's sharded steps and state are still "
+            "missing); use 'off'")
 
 
 class RestoreFailure(RuntimeError):
