@@ -77,7 +77,7 @@ printing its lines; any failure exits non-zero before the last line:
    rank, checked by a checksum all ranks compare) on
    ``make_host_serve_mesh(4, 128)``, (kv 4, hd 2): local shapes Hkv 1, G
    7, pool slices of D 64 gathered to 128.  4 prompts of 300-400 tokens,
-   a continuation chunk of ~120 and 16 greedy decode steps, native and
+   a continuation chunk of ~120 and 8 greedy decode steps, native and
    int8, each through ``TransformerLM(kernel_mesh=...)`` with the launch
    counts zeroed just before and read just after (every rank must launch
    the five serve kernels; its routes are printed) and through the same
@@ -87,7 +87,17 @@ printing its lines; any failure exits non-zero before the last line:
    all-gathers a layer.  The mesh run again, untimed, records each serve
    kernel's inputs at the local shapes, and each kernel is held to its
    plain version there (copies bit-identical, attention row by row within
-   four bf16 steps);
+   four bf16 steps).  Then the engine on the mesh, the same ranks, group
+   and weights: ``Engine(..., mesh=...)`` (page 16, horizon 8, 4 lanes;
+   steps eager, no CUDA graphs on a mesh) serves 8 requests of 64-512
+   tokens, 32 new tokens, in 72 frames (preempting), native and int8, and
+   8 ``share_prefix`` forks of a preloaded 200-token prefix, with the
+   launch counts zeroed before each engine and read after its drain; rank
+   0 alone then serves each run on the unsharded engine (CUDA graphs on),
+   and every rank's tokens, counters and switch stats must equal it, with
+   ``ref_path_dispatches`` 0 and all five serve kernels launched through
+   the engine on every rank (routes printed), and the bytes and time of
+   the gloo all-gathers a layer, the spill gathers apart;
 4. serve: qwen2-7b at full width (bf16, random weights from a seeded
    generator) serves 8 requests (64-512-token prompts, 32 new tokens,
    page 16, horizon 8) cold, in a pool tight enough to preempt; launch
@@ -1409,17 +1419,19 @@ def graph_runs(cfg):
             radix, fork)
 
 
-def served(model, params, scfg, reqs, prefix=None, *, graphs: bool):
+def served(model, params, scfg, reqs, prefix=None, *, graphs: bool,
+           mesh=None):
     """One run (as :func:`run_engine`, and the engine's build time) with the
     launch counts zeroed before the engine is built and read after the
-    drain; with ``graphs=False`` inside ``disable_graphs()``."""
+    drain; with ``graphs=False`` inside ``disable_graphs()``; on ``mesh``
+    when given (where no graph is captured)."""
     import contextlib
     from repro_torch.kernels import ops
     from repro_torch.serve import Engine, disable_graphs
     ops.reset_launch_counts()
     with contextlib.nullcontext() if graphs else disable_graphs():
         t0 = time.perf_counter()
-        eng = Engine(model, params, scfg)
+        eng = Engine(model, params, scfg, mesh=mesh)
         build = time.perf_counter() - t0
         if prefix is not None:
             eng.preload_prefix(prefix)
@@ -5954,7 +5966,7 @@ MESH_RANKS = 8
 #: qwen2-7b at full width, depth cut to this many layers
 MESH_LAYERS = 2
 #: prompts of lo..hi tokens, a continuation chunk of chunk +- 8, greedy steps
-MESH_TRAFFIC = dict(batch=4, lo=300, hi=400, chunk=120, steps=16, page=16,
+MESH_TRAFFIC = dict(batch=4, lo=300, hi=400, chunk=120, steps=8, page=16,
                     seed=11)
 #: the five serve kernels every rank must launch on the mesh
 MESH_KERNELS = ("paged_copy", "paged_copy_at", "flash_attention",
@@ -6068,18 +6080,19 @@ def mesh_workload(vocab: int):
 
 
 class AllGatherTap:
-    """Counts the bytes ``ops._gather`` hands back on this rank and the
-    host milliseconds it takes (gloo's all-gather returns once the bytes
-    are on the card)."""
+    """Counts the bytes ``ops.<name>`` hands back on this rank and the host
+    milliseconds it takes (gloo's all-gather returns once the bytes are on
+    the card): ``_gather``, the attention's gathers, or ``gather_whole``,
+    the spill's."""
 
-    def __init__(self):
+    def __init__(self, name: str = "_gather"):
         from repro_torch.kernels import ops
-        self.fn, self.bytes, self.ms = ops._gather, 0, 0.0
-        ops._gather = self
+        self.fn, self.bytes, self.ms = getattr(ops, name), 0, 0.0
+        setattr(ops, name, self)
 
-    def __call__(self, local, mesh, axis, dim):
+    def __call__(self, *args):
         t0 = time.perf_counter()
-        out = self.fn(local, mesh, axis, dim)
+        out = self.fn(*args)
         self.ms += (time.perf_counter() - t0) * 1e3
         self.bytes += out.numel() * out.element_size()
         return out
@@ -6160,13 +6173,12 @@ def mesh_kernel_checks(tag, model, params, work, gather_tap) -> dict:
     }
 
 
-def mesh_model_check(dev, rank: int) -> dict:
-    """qwen2-7b (2 layers) on the (kv 4, hd 2) mesh of all ranks against
-    the same model on this rank alone, native and int8."""
+def mesh_model_setup(dev):
+    """qwen2-7b cut to 2 layers, the (kv 4, hd 2) mesh of all ranks and the
+    seeded weights, checked equal on every rank by a checksum."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_serve_mesh
     from repro_torch.models.transformer import TransformerLM
     from repro_torch.optim import tree_leaves
@@ -6182,10 +6194,19 @@ def mesh_model_check(dev, rank: int) -> dict:
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, sums)
     require(all(s == sums for s in every), "ranks made different weights")
-    res = {"init_s": time.perf_counter() - t0, "coord": mesh.get_coordinate(),
-           "weights_gb": torch.cuda.memory_allocated() / 1e9}
+    return cfg, mesh, params, {
+        "init_s": time.perf_counter() - t0, "coord": mesh.get_coordinate(),
+        "weights_gb": torch.cuda.memory_allocated() / 1e9}
+
+
+def mesh_model_check(dev, rank: int, cfg, mesh, params, tap) -> dict:
+    """The model on the mesh against the same model on this rank alone,
+    native and int8."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import TransformerLM
+    res = {}
     work = mesh_workload(cfg.vocab_size)
-    tap = AllGatherTap()
     kv_l = ops.placements(mesh, {"kv": 3, "hd": 4})
     for kvd in ("native", "int8"):
         one = mesh_serve(TransformerLM(cfg, device=dev, kv_dtype=kvd),
@@ -6232,6 +6253,70 @@ def mesh_model_check(dev, rank: int) -> dict:
     return res
 
 
+#: the engine's runs on the mesh: the serve phase's cold workload in its
+#: 72-frame pool (it preempts), native and int8, and 8 forks of a
+#: preloaded 200-token prefix in the continuation pool (64 frames)
+MESH_ENGINE_RUNS = ("cold", "cold_int8", "fork")
+#: what the unsharded engine's run must equal on every rank
+MESH_ENGINE_SAME = ("tokens", "counters", "switch")
+
+
+def mesh_engine_runs(cfg) -> dict:
+    from repro_torch.serve import ServeConfig
+    scfg = ServeConfig(**SERVE)
+    cold = serve_workload(cfg.vocab_size, **WORKLOAD)
+    prefix, forks = fork_workload(cfg.vocab_size)
+    return {"cold": (scfg, cold, None),
+            "cold_int8": (dataclasses.replace(scfg, kv_dtype="int8"), cold,
+                          None),
+            "fork": (ServeConfig(**CONT), forks, prefix)}
+
+
+def mesh_engine_check(dev, rank: int, cfg, mesh, params, tap) -> dict:
+    """The engine on the mesh: each run of :func:`mesh_engine_runs`
+    through ``Engine(..., mesh=mesh)`` with the launch counts zeroed before
+    the engine is built and read after its drain; the wall, tokens,
+    counters, switch stats, the five kernels' launches and routes, and the
+    bytes and ms of the attention's and the spill's all-gathers.  Rank 0
+    then serves each run alone on the unsharded engine, CUDA graphs on
+    (the parent holds every rank to it)."""
+    from repro_torch.models.transformer import TransformerLM
+    model = TransformerLM(cfg, device=dev)
+    spill = AllGatherTap("gather_whole")
+    tap.take()
+    out = {}
+    for name, (scfg, reqs, prefix) in mesh_engine_runs(cfg).items():
+        got = served(model, params, scfg, reqs, prefix, graphs=True,
+                     mesh=mesh)
+        (att_b, att_ms), (sp_b, sp_ms) = tap.take(), spill.take()
+        require(got["counters"].get("ref_path_dispatches", 0) == 0,
+                f"rank {rank} {name}: plain-path steps on the mesh")
+        require(not got["replays"], f"rank {rank} {name}: a CUDA graph "
+                                    "was captured on the mesh")
+        out[name] = dict(
+            dt=got["dt"], build=got["build"],
+            **{k: got[k] for k in MESH_ENGINE_SAME},
+            launches={k: got["launches"][k] for k in MESH_KERNELS},
+            routes={k: got["routes"][k] for k in MESH_KERNELS
+                    if k in got["routes"]},
+            gathered=att_b, gather_ms=att_ms, spilled=sp_b, spill_ms=sp_ms)
+    for k in MESH_KERNELS:
+        require(sum(out[n]["launches"][k] for n in out) > 0,
+                f"rank {rank}: {k} never launched by the engine on the "
+                f"mesh: {[out[n]['launches'] for n in out]}")
+    for name in ("cold", "cold_int8"):
+        require(out[name]["counters"].get("preemptions", 0) > 0,
+                f"rank {rank} {name}: no preemption")
+    if rank == 0:
+        for name, (scfg, reqs, prefix) in mesh_engine_runs(cfg).items():
+            one = served(model, params, scfg, reqs, prefix, graphs=True)
+            require(bool(one["replays"]), f"{name}: the unsharded engine "
+                                          "replayed no graph")
+            out[name]["one"] = dict(dt=one["dt"], **{
+                k: one[k] for k in MESH_ENGINE_SAME})
+    return out
+
+
 def mesh_rank(rank: int, world: int, store: str, out: str) -> int:
     """One rank of the mesh phase (``chip_smoke.py --mesh-rank R WORLD
     STORE OUT``): writes ``OUT/rank{R}.json``; 0 iff every check passed."""
@@ -6254,8 +6339,14 @@ def mesh_rank(rank: int, world: int, store: str, out: str) -> int:
         res["small"] = mesh_small_check(dev)
         res["small_s"] = time.perf_counter() - t1
         t1 = time.perf_counter()
-        res.update(mesh_model_check(dev, rank))
+        cfg, mesh, params, setup = mesh_model_setup(dev)
+        res.update(setup)
+        tap = AllGatherTap()
+        res.update(mesh_model_check(dev, rank, cfg, mesh, params, tap))
         res["model_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        res["engine"] = mesh_engine_check(dev, rank, cfg, mesh, params, tap)
+        res["engine_s"] = time.perf_counter() - t1
         res["ok"] = True
     except Exception:            # the rank's report: the parent fails it
         res["error"] = traceback.format_exc()
@@ -6340,15 +6431,60 @@ def mesh_phase() -> None:
             f"continue {m['gathered']['continue'] / MESH_LAYERS:.0f} B, "
             f"decode {m['gathered']['decode'] / MESH_LAYERS / steps:.0f} "
             f"B a step [{CARD}]")
+    mesh_engine_report(reports)
     log(f"mesh: {MESH_RANKS} ranks, qwen2-7b ({MESH_LAYERS} layers) on "
         f"(kv 4, hd 2), greedy tokens == one rank's, native and int8; rank "
         f"start {max(r['cuda_s'] for r in reports):.1f} s, small check "
         f"{max(r['small_s'] for r in reports):.1f} s, model "
         f"{max(r['model_s'] for r in reports):.1f} s (init "
         f"{max(r['init_s'] for r in reports):.1f} s, "
-        f"{max(r['weights_gb'] for r in reports):.2f} GB a rank); phase "
+        f"{max(r['weights_gb'] for r in reports):.2f} GB a rank), engine "
+        f"{max(r['engine_s'] for r in reports):.1f} s; phase "
         f"{wall:.1f} s [{CARD}]")
     shutil.rmtree(out, ignore_errors=True)
+
+
+def mesh_engine_report(reports) -> None:
+    """Hold every rank's engine runs to rank 0's unsharded engine (tokens,
+    counters, switch stats) and print the runs, routes and gathers."""
+    one = {n: reports[0]["engine"][n]["one"] for n in MESH_ENGINE_RUNS}
+    for res in reports:
+        for name in MESH_ENGINE_RUNS:
+            got = res["engine"][name]
+            for key in MESH_ENGINE_SAME:
+                if got[key] != one[name][key]:
+                    diff = {k: (got[key].get(k), one[name][key].get(k))
+                            for k in set(got[key]) | set(one[name][key])
+                            if got[key].get(k) != one[name][key].get(k)}
+                    raise SmokeFailure(
+                        f"mesh engine rank {res['rank']} {name}: {key} "
+                        f"differ from the unsharded engine's: {diff}")
+        log(f"mesh engine rank {res['rank']}: launches " + "; ".join(
+            f"{n} " + json.dumps(res["engine"][n]["launches"])
+            for n in MESH_ENGINE_RUNS))
+    r0 = reports[0]["engine"]
+    routes = {k: {} for k in MESH_KERNELS}
+    for name in MESH_ENGINE_RUNS:
+        for k, per in r0[name]["routes"].items():
+            for r, n in per.items():
+                if n:
+                    routes[k][r] = routes[k].get(r, 0) + n
+    log(f"mesh engine routes (rank 0, all runs): {json.dumps(routes)}")
+    for name in MESH_ENGINE_RUNS:
+        m, c = r0[name], r0[name]["counters"]
+        toks = sum(len(t) for t in m["tokens"].values())
+        log(f"mesh engine {name}: {toks} tokens, wall {m['dt']:.3f} s on "
+            f"the mesh ({toks / m['dt']:.1f} tok/s; build {m['build']:.2f} "
+            f"s) against {m['one']['dt']:.3f} s unsharded on rank 0 with "
+            f"graphs; preemptions {c.get('preemptions', 0)}, restores "
+            f"{c.get('restores', 0)}, forks {c.get('forked_admissions', 0)},"
+            f" switch {json.dumps(m['switch'])}; gloo all-gathers a layer: "
+            f"attention {m['gathered'] / MESH_LAYERS:.0f} B in "
+            f"{m['gather_ms'] / MESH_LAYERS:.1f} ms, spills "
+            f"{m['spilled'] / MESH_LAYERS:.0f} B in "
+            f"{m['spill_ms'] / MESH_LAYERS:.1f} ms; tokens, counters and "
+            f"switch stats == the unsharded engine's on all "
+            f"{len(reports)} ranks [{CARD}]")
 
 
 def print_rows(rows) -> None:

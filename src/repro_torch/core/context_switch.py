@@ -16,6 +16,15 @@ storage dtype (bf16 and int8 stay as they are: the record is a host torch
 tensor, not numpy); restore writes them into freshly allocated frames in
 place — whole, after a shared pinned prefix, or only a leading part
 (partial restore).  Byte and page counts are those of the JAX switcher.
+
+On a ('kv', 'hd') serve mesh the pools are DTensors, each rank holding its
+(kv, hd) slice.  Spill selects the victim's frames from this rank's slice
+and gathers the slices of every rank in one collective, so every rank
+keeps the WHOLE record, byte for byte the record one device would have
+spilled (as JAX's host record is the whole array): the stats, and the
+portability of records between a mesh engine and a one-device engine,
+are unchanged.  Restore writes this rank's slice of the record into its
+local pools, in place.
 """
 
 from __future__ import annotations
@@ -27,10 +36,48 @@ import torch
 
 from repro_torch.core.costmodel import CostModel
 from repro_torch.core.vmem import VirtualMemory
+from repro_torch.kernels import ops
 
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _record_layout(pools):
+    """The layout of a record ``[2, L, n, page, Hkv, hd]`` of DTensor
+    ``pools``: theirs, one dim further on."""
+    from torch.distributed.tensor import Shard
+    return tuple(Shard(p.dim + 1) if isinstance(p, Shard) else p
+                 for p in pools.placements)
+
+
+def _spill_pages(k_pools, v_pools, pages: list[int]) -> torch.Tensor:
+    """``[2, L, n, page, ...]`` host copy of both pools' frames ``pages``;
+    on a mesh this rank's slice of them, then the slices of every rank
+    gathered whole in one collective."""
+    if not ops.is_dtensor(k_pools):
+        idx = torch.as_tensor(pages, dtype=torch.long, device=k_pools.device)
+        return torch.stack([k_pools.index_select(1, idx),
+                            v_pools.index_select(1, idx)]).cpu()
+    kl, vl = k_pools.to_local(), v_pools.to_local()
+    idx = torch.as_tensor(pages, dtype=torch.long, device=kl.device)
+    local = torch.stack([kl.index_select(1, idx), vl.index_select(1, idx)])
+    return ops.gather_whole(local, k_pools.device_mesh,
+                            _record_layout(k_pools)).cpu()
+
+
+def _restore_pages(k_pools, v_pools, pages: list[int],
+                   data: torch.Tensor) -> None:
+    """Write record ``data`` ``[2, L, n, page, ...]`` into both pools'
+    frames ``pages``, in place; on a mesh, this rank's slice of it into
+    the local pools."""
+    if ops.is_dtensor(k_pools):
+        data = ops.local_slice(data, k_pools.device_mesh,
+                               _record_layout(k_pools))
+        k_pools, v_pools = k_pools.to_local(), v_pools.to_local()
+    idx = torch.as_tensor(pages, dtype=torch.long, device=k_pools.device)
+    k_pools.index_copy_(1, idx, data[0].to(k_pools.device))
+    v_pools.index_copy_(1, idx, data[1].to(v_pools.device))
 
 
 @dataclasses.dataclass
@@ -91,11 +138,8 @@ class ContextSwitcher:
         """Preempt ``seq_id`` by copying ONLY its pages out of both pools
         (``n_victim_pages * page_bytes * 2`` bytes, dtype-preserving)."""
         state = self.vmem.seq(seq_id)
-        pages = torch.as_tensor(state.pages, dtype=torch.long,
-                                device=k_pools.device)
         n = len(state.pages)
-        page_data = torch.stack([k_pools.index_select(1, pages),
-                                 v_pools.index_select(1, pages)]).cpu()
+        page_data = _spill_pages(k_pools, v_pools, state.pages)
         nbytes = _nbytes(page_data)
         self._swap[seq_id] = SpilledState(
             seq_id=seq_id,
@@ -146,10 +190,7 @@ class ContextSwitcher:
         n_keep = len(state.pages)
         data = spilled.page_data[:, :, skip:n_keep]
         if n_keep > skip:
-            pages = torch.as_tensor(state.pages[skip:], dtype=torch.long,
-                                    device=k_pools.device)
-            k_pools.index_copy_(1, pages, data[0].to(k_pools.device))
-            v_pools.index_copy_(1, pages, data[1].to(v_pools.device))
+            _restore_pages(k_pools, v_pools, state.pages[skip:], data)
         del self._swap[seq_id]
         nbytes = _nbytes(data)
         self.stats.bytes_restored += nbytes

@@ -376,7 +376,7 @@ def wkv6(r, k, v, w, u, initial_state=None, *, use_kernel: bool = True,
 # ---------------------------------------------------------------------------
 
 
-def _is_dtensor(t) -> bool:
+def is_dtensor(t) -> bool:
     """Whether ``t`` is a ``DTensor``; a plain tensor is answered without
     importing ``torch.distributed.tensor`` (a second of start-up the
     unsharded callers never pay)."""
@@ -457,11 +457,30 @@ def _gather(local, mesh, axis: str, dim: int):
     return torch.cat(parts, dim=dim)
 
 
+def gather_whole(local, mesh, layout):
+    """The whole tensor on every rank of ``mesh`` from each rank's slice
+    ``local`` under ``layout``, in ONE ``all_gather`` over the mesh's
+    ranks (``launch.mesh.mesh_group``): the slices are joined by mesh
+    coordinate, along each split dim; a replicated axis keeps its first
+    copy."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+    from repro_torch.launch.mesh import mesh_group
+    grid = [torch.empty_like(local) for _ in range(mesh.size())]
+    dist.all_gather(grid, local.contiguous(), group=mesh_group(mesh))
+    # ranks 0 .. size - 1 in row-major mesh order: fold the last axis first
+    for ax in reversed(range(mesh.ndim)):
+        n, p = mesh.size(ax), layout[ax]
+        grid = [torch.cat(grid[i:i + n], p.dim) if isinstance(p, Shard)
+                else grid[i] for i in range(0, len(grid), n)]
+    return grid[0]
+
+
 def unshard(t):
     """The whole tensor of a ``DTensor`` on every rank (each split mesh
     axis all-gathered); a plain tensor as it is."""
     from torch.distributed.tensor import Shard
-    if not _is_dtensor(t):
+    if not is_dtensor(t):
         return t
     out = t.to_local()
     for i, p in enumerate(t.placements):
@@ -474,7 +493,7 @@ def unshard(t):
 def _local(name: str, t, mesh, layout):
     """``t.to_local()`` after checking that ``t`` is a ``DTensor`` on
     ``mesh`` with the declared ``layout``."""
-    if not _is_dtensor(t):
+    if not is_dtensor(t):
         raise TypeError(f"{name}: a sharded operand must be a DTensor "
                         f"(placements {layout}), got {type(t).__name__}")
     if t.device_mesh != mesh or tuple(t.placements) != tuple(layout):
@@ -488,7 +507,7 @@ def _replicated(name: str, t):
     """A replicated operand: a plain tensor, or a DTensor that is
     replicated over every mesh axis."""
     from torch.distributed.tensor import Replicate
-    if not _is_dtensor(t):
+    if not is_dtensor(t):
         return t
     if not all(isinstance(p, Replicate) for p in t.placements):
         raise ValueError(f"{name}: must be replicated, got "
@@ -500,9 +519,9 @@ def _plain_mesh(mesh) -> bool:
     return mesh is None or mesh.size() == 1
 
 
-def _whole(t):
+def local_of(t):
     """Any tensor's local data (a one-rank mesh's DTensor holds it all)."""
-    return t.to_local() if _is_dtensor(t) else t
+    return t.to_local() if is_dtensor(t) else t
 
 
 def _gather_hd(kp_l, vp_l, mesh, hd_ax):
@@ -520,7 +539,7 @@ def _copy_sharded(src_pools, mesh, body) -> None:
     hd)``; on none (or one rank) the whole tensors.  The pools are
     written in place."""
     if _plain_mesh(mesh):
-        pairs = [(_whole(s), _whole(p)) for s, p in src_pools]
+        pairs = [(local_of(s), local_of(p)) for s, p in src_pools]
     else:
         src0 = src_pools[0][0]
         spec = kv_layout(mesh, src0.shape[2], src0.shape[3], 2, 3)
@@ -590,7 +609,7 @@ def _attention_sharded(q, k_pool, v_pool, mesh, heads_dim: int, op):
     over 'hd'; ``op(q_l, kp, vp)`` is the single-device call (on the
     whole tensors where there is no mesh, or one rank)."""
     if _plain_mesh(mesh):
-        return op(*map(_whole, (q, k_pool, v_pool)))
+        return op(*map(local_of, (q, k_pool, v_pool)))
     kv_ax, hd_ax = _kv_axes(mesh, q.shape[heads_dim], q.shape[-1])
     q_spec = placements(mesh, {kv_ax: heads_dim})
     pool_spec = placements(mesh, {kv_ax: 2, hd_ax: 3})
@@ -646,7 +665,7 @@ def flash_attention_sharded(q, k, v, *, mesh, causal: bool = True,
     output all ``P(None, kv, None, None)``; D is the contraction and stays
     whole, so there is no collective."""
     if _plain_mesh(mesh):
-        return flash_attention(*map(_whole, (q, k, v)), causal=causal,
+        return flash_attention(*map(local_of, (q, k, v)), causal=causal,
                                scale=scale, use_kernel=use_kernel)
     spec = kv_layout(mesh, k.shape[1], q.shape[3], 1)
     out = flash_attention(*(_local(n, t, mesh, spec) for n, t in

@@ -18,6 +18,11 @@ of the caller's default process group.
   caller starts the group (``torch.distributed.init_process_group`` with
   its own rendezvous, rank and world size); no 1 x 1 mesh is made on its
   own.
+* :func:`mesh_group` is the process group of exactly a mesh's ranks, for
+  a collective over the whole mesh at once (the executor's spill gathers
+  a victim's pages from every rank in one ``all_gather``): the default
+  group where the mesh spans the world, else a group the ``make_*`` call
+  created beside the mesh, collectively, as it creates the mesh's own.
 
 JAX's ``compat_make_mesh`` and ``use_mesh`` have no counterpart: they
 paper over JAX versions (``axis_types``, ``jax.set_mesh``), and a
@@ -133,6 +138,12 @@ def _world_size() -> int:
     return dist.get_world_size()
 
 
+#: the process group of ranks ``0 .. n - 1``, keyed by (the world's group,
+#: n) for each ``n`` smaller than the world a mesh was made over
+#: (:func:`mesh_group`)
+_GROUPS: dict[tuple, object] = {}
+
+
 def _mk(shape: tuple[int, ...], axes: tuple[str, ...], device):
     from torch.distributed.device_mesh import DeviceMesh
     n = math.prod(shape)
@@ -140,8 +151,20 @@ def _mk(shape: tuple[int, ...], axes: tuple[str, ...], device):
     if n > world:
         raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs {n} "
                          f"ranks; the process group has {world}")
+    key = (dist.group.WORLD, n)
+    if n < world and key not in _GROUPS:
+        # a collective of the whole group, like the mesh's own sub-groups
+        _GROUPS[key] = dist.new_group(list(range(n)))
     return DeviceMesh(resolve_device(device).type,
                       torch.arange(n).reshape(shape), mesh_dim_names=axes)
+
+
+def mesh_group(mesh):
+    """The process group of exactly ``mesh``'s ranks (``0 .. size - 1``):
+    ``None`` (the default group) where the mesh spans the world."""
+    n = mesh.size()
+    return (None if n == dist.get_world_size()
+            else _GROUPS[(dist.group.WORLD, n)])
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):

@@ -17,6 +17,19 @@ one device (``--route-policy``: ``least_loaded`` or ``round_robin``);
 the engines share one model and one weight set, each has its own pools,
 page table and CUDA graphs, and each is preloaded with the prefix.
 
+``--serve-mesh auto|N`` serves SPMD on a ('kv', 'hd') mesh of gloo ranks:
+every rank runs this launcher with the same arguments, builds the same
+model and engines (``--replicas`` too) on the mesh and drives the same
+schedule, each holding its slice of the KV pools.  With no process group
+started the launcher starts one, ``init_process_group("gloo",
+init_method=--dist-init)``, with the rank and world size of ``RANK`` /
+``WORLD_SIZE``: ``torchrun --standalone --nproc-per-node N -m
+repro_torch.launch.serve --serve-mesh N ...`` sets them and the default
+``env://`` rendezvous; ``--dist-init file:///path`` needs no TCP port.
+On the card every rank takes ``cuda:{LOCAL_RANK % device_count()}`` (all
+of them the one card of a one-card machine).  Only rank 0 prints the
+statistics; a rank the mesh leaves out says so and returns.
+
 The model is the arch's reduced config unless ``--full`` asks for the
 published widths; ``--num-layers`` cuts depth only.  An audio arch
 (``musicgen-large``) gets ``[plen, num_codebooks]`` codebook prompts, as
@@ -38,6 +51,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
+import math
+import os
 import time
 
 import numpy as np
@@ -82,7 +98,37 @@ def print_profile(prof, wall_s: float, top: int = 15) -> None:
               f"x{e.count:<6d} {e.key[:90]}")
 
 
-def main() -> None:
+def _start_group(args) -> bool:
+    """Start the gloo process group a serve mesh needs, unless one is
+    started already; True when this call started it."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return False
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        raise SystemExit(
+            f"--serve-mesh {args.serve_mesh}: every rank needs RANK and "
+            "WORLD_SIZE to join the process group; run it under torchrun "
+            "(torchrun --standalone --nproc-per-node N -m "
+            "repro_torch.launch.serve --serve-mesh N ...), or set them and "
+            "pass --dist-init file:///path/to/store")
+    dist.init_process_group("gloo", init_method=args.dist_init,
+                            rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    return True
+
+
+def _mesh_device(args):
+    """The rank's device on a mesh: the CPU if asked, else the card
+    ``LOCAL_RANK`` names, modulo the cards there are."""
+    if args.device is not None and torch.device(args.device).type == "cpu":
+        return args.device
+    local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", 0)))
+    dev = torch.device("cuda", local % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCHS, default="qwen2-7b")
     ap.add_argument("--full", action="store_true",
@@ -114,33 +160,68 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="trace the serve run with torch.profiler and print "
                          "device time by kernel and the device busy share")
+    ap.add_argument("--print-tokens", action="store_true",
+                    help="print each request's generated tokens")
+    ap.add_argument("--dist-init", default="env://",
+                    help="the process group's rendezvous on a serve mesh "
+                         "(init_method of init_process_group): env:// "
+                         "under torchrun, or file:///path")
     ServeConfig.add_args(ap)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=not args.full)
     if cfg.family in RECURRENT_FAMILIES:
         raise SystemExit(f"{args.arch}: {RECURRENT_REFUSAL}")
     if args.num_layers:
         cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
-    model = build_model(cfg, device=args.device)
-    params = model.init(args.seed)
     serve_cfg = ServeConfig.from_args(args, max_pages_per_seq=max(
         4, (args.prefix_len + args.prompt_len + args.max_new_tokens)
         // args.page_size + 2))
+    if args.serve_mesh == "off":
+        return serve(args, cfg, serve_cfg, args.device, None)
+    started = _start_group(args)
+    try:
+        import torch.distributed as dist
+        device = _mesh_device(args)
+        mesh = serve_cfg.build_mesh(cfg, device=device)
+        if mesh.get_coordinate() is None:
+            print(f"rank {dist.get_rank()}: idle, the {mesh.size()}-rank "
+                  f"serve mesh leaves this rank out")
+            return 0
+        # every rank serves; rank 0 alone prints
+        quiet = (contextlib.redirect_stdout(io.StringIO())
+                 if dist.get_rank() else contextlib.nullcontext())
+        with quiet:
+            return serve(args, cfg, serve_cfg, device, mesh)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def serve(args, cfg, serve_cfg, device, mesh) -> int:
+    """Build the model and engines (on ``mesh`` when given), serve the
+    workload and print the statistics."""
+    model = build_model(cfg, device=device)
+    params = model.init(args.seed)
     print(serve_cfg.describe())
+    if mesh is not None:
+        shape = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        print(f"serve mesh: {shape} over {mesh.size()} of "
+              f"{torch.distributed.get_world_size()} ranks (KV pools split, "
+              "page table whole on every rank)")
     print(f"model: {cfg.name} ({cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.param_dtype}) on {device_name(model.device)}")
     if model.device.type == "cuda":
         build.build_all()          # nvcc at first use: keep it out of timing
     # a prompt's trailing shape: [plen, K] codebook streams for audio
     tok_shape = model.token_shape
-    warm = Engine(model, params, serve_cfg)   # first-call costs, untimed
+    warm = Engine(model, params, serve_cfg, mesh=mesh)   # untimed
     warm.submit(ServeRequest(
         prompt=np.zeros((args.page_size,) + tok_shape, np.int32),
         max_new_tokens=2))
     warm.drain()
     warm.close()
-    engines = [Engine(model, params, serve_cfg)
+    engines = [Engine(model, params, serve_cfg, mesh=mesh)
                for _ in range(max(1, args.replicas))]
     eng = engines[0]
     router = None
@@ -188,6 +269,9 @@ def main() -> None:
     print(f"completed {n_done}/{args.requests} requests, {total_tokens} "
           f"tokens in {dt:.3f}s ({total_tokens / dt:.1f} tok/s on "
           f"{device_name(model.device)})")
+    if args.print_tokens:
+        for rid in sorted(results):
+            print(f"tokens {rid}: {[int(t) for t in np.ravel(results[rid].tokens)]}")
     finished = [r for r in results.values() if r.status == "done"]
     if finished:
         ttfts = sorted(r.ttft for r in finished)
@@ -222,9 +306,9 @@ def main() -> None:
               f"{c.get('aot_misses')} misses, "
               f"{c.get('bucket_pad_tokens')} pad tokens")
     kp = eng.kv.k_pools
+    per_page = 2 * kp.shape[0] * math.prod(kp.shape[2:]) * kp.dtype.itemsize
     print(f"  kv pools: dtype={kp.dtype} ({serve_cfg.kv_dtype}), "
-          f"{2 * kp[:, 0].numel() * kp.element_size()} B/page across "
-          f"{kp.shape[1]} frames")
+          f"{per_page} B/page across {kp.shape[1]} frames")
     print(f"  fused decode horizon: mean "
           f"{c.get('decode_horizon') / max(c.get('decode_dispatches'), 1):.2f}"
           f" over {c.get('decode_dispatches')} dispatches, "
@@ -236,7 +320,8 @@ def main() -> None:
     print("pool:", stats["pool"])
     for e in engines:
         e.close()
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

@@ -135,11 +135,6 @@ class TransformerLM:
         #: activation checkpointing of each superblock under grad (JAX's
         #: ``jax.checkpoint`` of its scan body)
         self.remat = remat
-        #: a ('kv', 'hd') ``DeviceMesh`` (``launch.mesh``): with more than
-        #: one rank the serve paths keep the KV pools split over it and
-        #: dispatch the kernels through ``ops.*_sharded``
-        if kernel_mesh is not None and kernel_mesh.get_coordinate() is None:
-            raise ValueError("kernel_mesh: this rank is not in the mesh")
         self.kernel_mesh = kernel_mesh
         self.dtype = L.DTYPES[cfg.param_dtype]
         #: layers a superblock; only its last one routes (JAX ``_is_moe_sub``)
@@ -151,6 +146,21 @@ class TransformerLM:
         #: audio (tokens ``[..., K]``), ``()`` otherwise
         self.token_shape = ((cfg.num_codebooks,) if cfg.family == "audio"
                             and cfg.num_codebooks > 1 else ())
+
+    @property
+    def kernel_mesh(self):
+        """A ('kv', 'hd') ``DeviceMesh`` (``launch.mesh``): with more than
+        one rank the serve paths keep the KV pools split over it and
+        dispatch the kernels through ``ops.*_sharded``.  Setting a mesh
+        this rank is not in raises ``ValueError``, in the constructor and
+        on a twin (``copy.copy`` with the mesh set) alike."""
+        return self._kernel_mesh
+
+    @kernel_mesh.setter
+    def kernel_mesh(self, mesh) -> None:
+        if mesh is not None and mesh.get_coordinate() is None:
+            raise ValueError("kernel_mesh: this rank is not in the mesh")
+        self._kernel_mesh = mesh
 
     def is_moe(self, layer: int) -> bool:
         """Whether layer ``layer`` has an MoE FFN."""

@@ -14,8 +14,10 @@ partial restore — AOT buckets, and the multi-replica router
 (:class:`ReplicaRouter` over N engines, each an :meth:`Engine.as_replica`,
 with portable swap records :class:`SwapExport` and cross-replica
 migration).  On the card the steps run as CUDA graphs captured when each
-engine is built; :func:`disable_graphs` runs them eagerly.  The sharded
-executor is a later slice.
+engine is built; :func:`disable_graphs` runs them eagerly.  On a ('kv',
+'hd') serve mesh of gloo ranks (``Engine(..., mesh=...)``,
+``ServeConfig.serve_mesh``) the executor splits the KV pools over the
+ranks and runs its steps eagerly.
 """
 from repro_torch.serve.api import (
     RequestTiming,

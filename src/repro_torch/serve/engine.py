@@ -1,6 +1,6 @@
 """Continuous-batching serving engine (Scheduler + Executor facade).
 
-Port of ``src/repro/serve/engine.py`` for one card.  The split is the
+Port of ``src/repro/serve/engine.py``.  The split is the
 paper's: the :class:`~repro_torch.serve.scheduler.Scheduler` is the
 CVA6/OS plane (queues, admission, victim selection, page-table policy —
 host-only), the :class:`~repro_torch.serve.executor.Executor` the Ara2
@@ -29,8 +29,11 @@ programs as CUDA graphs when it is built (each decode horizon, the K=1
 step, the bucket programs) and replays them;
 ``serve.executor.disable_graphs()`` runs the same steps eagerly.  The
 dense, MoE, VLM and audio families serve (audio requests carry ``[len,
-K]`` codebook prompts and get ``[K]`` tokens a step).  The engine
-refuses, at construction, a serve mesh (not ported yet), AOT buckets
+K]`` codebook prompts and get ``[K]`` tokens a step).  On a ('kv',
+'hd') serve mesh (``Engine(..., mesh=...)`` or ``ServeConfig.serve_mesh``)
+every rank of the mesh builds the same engine and drives the same
+schedule; only the executor's KV pools are split, and the kernels run on
+each rank's slice.  The engine refuses, at construction, AOT buckets
 with an audio model (the JAX engine fails to build them) and recurrent
 families, which the JAX engine does not serve either: they decode
 through their model's own ``prefill`` / ``decode_step``.
@@ -75,31 +78,30 @@ def _lower(req: ServeRequest, next_id: Callable[[], int],
     return to_internal(req, req_id=rid, cfg=cfg)
 
 
-def check_ported(model: TransformerLM, cfg: ServeConfig) -> None:
-    """Raise ``NotImplementedError`` for a recurrent family (which the
-    engine does not serve) and for any config that would reach a path the
-    port does not have yet."""
+def check_ported(model: TransformerLM) -> None:
+    """Raise ``NotImplementedError`` for a recurrent family, which the
+    engine does not serve."""
     if model.cfg.family in RECURRENT_FAMILIES:
         raise NotImplementedError(f"{model.cfg.name}: {RECURRENT_REFUSAL}")
-    refused = []
-    if cfg.serve_mesh not in (None, "off"):
-        refused.append(f"serve_mesh={cfg.serve_mesh!r} (the executor on "
-                       "the mesh; launch.mesh and TransformerLM(kernel_mesh"
-                       "=...) are ported, the executor's sharded steps are "
-                       "not)")
-    if refused:
-        raise NotImplementedError(
-            "not ported yet: " + "; ".join(refused)
-            + ".  Serve with serve_mesh='off'.")
 
 
 class Engine:
     """Continuous batching over a paged-KV transformer (Scheduler+Executor)."""
 
     def __init__(self, model: TransformerLM, params: Any, cfg: ServeConfig,
-                 cost: CostModel | None = None,
+                 cost: CostModel | None = None, mesh=None,
                  detokenize: Callable[[Any], str] | None = None):
-        check_ported(model, cfg)
+        """``mesh``: a ('kv', 'hd') serve mesh
+        (:func:`repro_torch.launch.mesh.make_host_serve_mesh`); when
+        omitted it is resolved from ``cfg.serve_mesh``
+        (:meth:`ServeConfig.build_mesh`, on the model's device type).  Only
+        the Executor's KV pools split over it; the Scheduler is host policy
+        and needs no change.  A rank the mesh leaves out raises the model's
+        ``ValueError``.  ``detokenize``: token->text hook for the async
+        stream thread."""
+        check_ported(model)
+        if mesh is None:
+            mesh = cfg.build_mesh(model.cfg, device=model.device)
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -113,7 +115,7 @@ class Engine:
         ))
         self.scheduler = Scheduler(cfg, self.vmem, self.cost, self.counters)
         self.executor = Executor(model, params, cfg, self.vmem, self.cost,
-                                 self.counters)
+                                 self.counters, mesh=mesh)
         self.scheduler.attach_plane(self.executor)
         #: async detokenize/stream thread (lazy: requests without a
         #: stream_callback never spawn it)

@@ -1,6 +1,6 @@
 """Device-resident serving executor — the Ara2 data plane of the split.
 
-Port of ``src/repro/serve/executor.py`` for one card.  Everything that
+Port of ``src/repro/serve/executor.py``.  Everything that
 touches a device tensor lives here: the paged KV pools, a *persistent
 device page table* (the satp analogue, updated incrementally from
 ``VirtualMemory.drain_dirty_rows()`` deltas — never re-uploaded
@@ -40,12 +40,26 @@ place.
     migrate a starved victim;
   * every compute step is tallied as ``kernel_dispatches`` (the kernel
     wrappers) or ``ref_path_dispatches`` (the explicit plain-version hatch,
-    ``ServeConfig.use_ref_path``).
+    ``ServeConfig.use_ref_path``);
+  * with a ('kv', 'hd') serve mesh of more than one rank (``Executor(...,
+    mesh=...)``, one executor a rank, every rank driving the same
+    schedule) the KV pools are DTensors split over (kv, hd)
+    (``launch.specs.executor_state_shardings``), and the page table,
+    tokens, lengths, logits and sampled blocks are plain tensors, the
+    same on every rank.  The step model is a twin bound to the mesh
+    (:func:`_mesh_kernel_model`), so the five serve kernels run on each
+    rank's pool slice through ``ops.*_sharded``; spill gathers a victim's
+    whole record on every rank, restore and copy-on-write copies write
+    the local slices in place, and :meth:`Executor.check_sharding_invariants`
+    checks the layout after every mutation.  The steps run eagerly on
+    such a mesh, never as CUDA graphs: the gloo collectives inside them
+    synchronize with the host and cannot be captured.  That is decided
+    when the executor is built, from the mesh; it is no fallback from a
+    failed capture.  A mesh of one rank is served as no mesh.
 
-Not ported yet: the serve mesh, which the engine refuses.  AOT buckets
-take 1-D token prompts only, so an audio model with ``aot_buckets`` is
-refused when the executor is built (the JAX engine fails there too, while
-it compiles its bucket programs).
+AOT buckets take 1-D token prompts only, so an audio model with
+``aot_buckets`` is refused when the executor is built (the JAX engine
+fails there too, while it compiles its bucket programs).
 """
 
 from __future__ import annotations
@@ -72,6 +86,7 @@ from repro_torch.kernels.paged_prefill_attention import (
     prefill_route_rule,
     query_block,
 )
+from repro_torch.launch.specs import executor_state_shardings
 from repro_torch.models.transformer import PagedKVState, TransformerLM, sample
 from repro_torch.serve.scheduler import DecodePlan, Request, ServeConfig
 
@@ -92,6 +107,18 @@ def _kv_dtype_model(model: TransformerLM, kv_dtype: str) -> TransformerLM:
     shared, not copied."""
     twin = copy.copy(model)
     twin.kv_dtype = kv_dtype
+    return twin
+
+
+@functools.lru_cache(maxsize=None)
+def _mesh_kernel_model(model: TransformerLM, mesh) -> TransformerLM:
+    """Mesh twin: a shallow copy with ``kernel_mesh=mesh``, so the serve
+    paths keep the pools split over the mesh and dispatch every kernel
+    through ``ops.*_sharded`` onto this rank's slice.  Cached per (model,
+    mesh) as JAX's is.  On a rank the mesh leaves out, setting the mesh
+    raises the model's ``ValueError``."""
+    twin = copy.copy(model)
+    twin.kernel_mesh = mesh
     return twin
 
 
@@ -242,11 +269,18 @@ class _Graph:
 
 
 class Executor:
-    """Owns KV pools + the device page table; executes scheduler plans."""
+    """Owns KV pools + the device page table; executes scheduler plans.
+
+    With ``mesh`` (a ('kv', 'hd') serve mesh,
+    :func:`repro_torch.launch.mesh.make_host_serve_mesh`) the KV pools are
+    split over it while the page table and every scalar-plane operand stay
+    whole on every rank; the Scheduler needs no change, which is the point
+    of the split.  On a mesh of more than one rank no CUDA graph is
+    captured (gloo collectives cannot be) and ``replays`` stays empty."""
 
     def __init__(self, model: TransformerLM, params: Any, cfg: ServeConfig,
                  vmem: VirtualMemory, cost: CostModel | None = None,
-                 counters: PerfCounters | None = None):
+                 counters: PerfCounters | None = None, mesh=None):
         if cfg.aot_buckets and model.token_shape:
             raise ValueError(
                 f"{model.cfg.name}: aot_buckets take 1-D token prompts, and "
@@ -264,21 +298,41 @@ class Executor:
         self.device = model.device
         self.counters = counters or PerfCounters()
         self.switcher = ContextSwitcher(vmem, cost)
-        # the device pool has num_pages frames; the allocator saw one less
-        # (last frame = scratch for masked lanes)
-        self.kv = model.init_kv_state(
-            cfg.max_batch, cfg.num_pages, cfg.page_size, cfg.max_pages_per_seq
-        )
-        #: persistent satp: updated by delta scatter, read by every step
-        self._ptab = torch.full(
-            (cfg.max_batch, cfg.max_pages_per_seq), INVALID_PAGE,
-            dtype=torch.int32, device=self.device)
-        self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.mesh = mesh
         self._step_model = model
         #: True iff compute steps run the plain versions on purpose
         self._ref_path = bool(cfg.use_ref_path)
         if self._ref_path:
             self._step_model = _ref_path_model(model)
+        if mesh is not None:
+            # the twins compose in JAX's order: kv dtype, plain path, mesh
+            self._step_model = _mesh_kernel_model(self._step_model, mesh)
+        # the device pool has num_pages frames; the allocator saw one less
+        # (last frame = scratch for masked lanes); on a mesh the step
+        # model's pools are split over it
+        self.kv = self._step_model.init_kv_state(
+            cfg.max_batch, cfg.num_pages, cfg.page_size, cfg.max_pages_per_seq
+        )
+        #: on a mesh of more than one rank, what the state is held to
+        #: (:meth:`check_sharding_invariants`): the pools' declared
+        #: placements and local shape, the local storage of each (every
+        #: later update is in place: the port's counterpart of JAX's
+        #: donation), and the replicated placements; else None
+        self._layout = None
+        if self._sharded:
+            sh = executor_state_shardings(mesh, model.cfg.num_kv_heads,
+                                          model.cfg.head_dim)
+            whole = torch.empty(self.kv.k_pools.shape, device="meta")
+            self._layout = dict(
+                pool=sh["pool"], replicated=sh["replicated"],
+                local=tuple(ops.local_slice(whole, mesh, sh["pool"]).shape),
+                ptrs={n: getattr(self.kv, n).to_local().data_ptr()
+                      for n in ("k_pools", "v_pools")})
+        #: persistent satp: updated by delta scatter, read by every step
+        self._ptab = torch.full(
+            (cfg.max_batch, cfg.max_pages_per_seq), INVALID_PAGE,
+            dtype=torch.int32, device=self.device)
+        self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         #: every step program, keyed (kind, n): ("decode", 1),
         #: ("decode_multi", K) for K on the horizon ladder, and the bucket
         #: programs ("prefill" / "continue", bucket)
@@ -297,12 +351,20 @@ class Executor:
         self._aot: dict[tuple[str, int], StepProgram] = {}
         if cfg.aot_buckets:
             self._compile_aot()
-        #: the CUDA graph of each program, captured at build on the card
+        #: the CUDA graph of each program, captured at build on the card;
+        #: none on a mesh of more than one rank (its collectives sync with
+        #: the host), where every program runs eagerly over its buffers
         self._graphs: dict[tuple[str, int], _Graph] = {}
-        if self.device.type == "cuda" and not _graphs_off:
+        if (self.device.type == "cuda" and not _graphs_off
+                and not self._sharded):
             self._pool = torch.cuda.graph_pool_handle()
             for key in self._programs:
                 self._graphs[key] = self._capture(key)
+
+    @property
+    def _sharded(self) -> bool:
+        """Whether the state is split over a mesh of more than one rank."""
+        return self.mesh is not None and self.mesh.size() > 1
 
     def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -468,6 +530,51 @@ class Executor:
         return {k: g.replays for k, g in self._graphs.items()}
 
     # ------------------------------------------------------------------
+    # sharding invariants (mesh mode)
+    # ------------------------------------------------------------------
+
+    def check_sharding_invariants(self, extra=()) -> None:
+        """On a mesh of more than one rank: the persistent state must still
+        have its declared layout after each mutation (the page-table sync,
+        a compute step, a spill, a restore).  The pools are DTensors on
+        the mesh with the placements and the local shape declared at build
+        and still the local storage allocated then (every update is in
+        place); the page table is a plain ``[max_batch, max_pages_per_seq]``
+        int32 tensor; each ``(name, tensor)`` of ``extra`` (a step's logits
+        or token block) is whole on every rank, not a DTensor split or
+        pending a reduction.  Metadata only: no device sync.  A drift
+        raises ``RuntimeError`` (not ``assert``, which ``python -O``
+        drops)."""
+        if self._layout is None:
+            return
+        lay, cfg = self._layout, self.cfg
+        pool_l, local = tuple(lay["pool"]), lay["local"]
+        for name in ("k_pools", "v_pools"):
+            t = getattr(self.kv, name)
+            if not (ops.is_dtensor(t) and t.device_mesh == self.mesh
+                    and tuple(t.placements) == pool_l
+                    and tuple(t.to_local().shape) == local
+                    and t.to_local().data_ptr() == lay["ptrs"][name]):
+                raise RuntimeError(
+                    f"executor {name} drifted off its declared layout: "
+                    f"{type(t).__name__} {getattr(t, 'placements', None)} "
+                    f"local {tuple(ops.local_of(t).shape)}, declared "
+                    f"{pool_l} local {local} in its storage "
+                    "of the build")
+        pt = self._ptab
+        if (ops.is_dtensor(pt) or pt.dtype != torch.int32 or tuple(pt.shape)
+                != (cfg.max_batch, cfg.max_pages_per_seq)):
+            raise RuntimeError(
+                f"executor page_table drifted off its declared layout: "
+                f"{type(pt).__name__} {pt.dtype} {tuple(pt.shape)}")
+        for name, t in extra:
+            if ops.is_dtensor(t) and (tuple(t.placements)
+                                      != tuple(lay["replicated"])):
+                raise RuntimeError(
+                    f"executor {name} is not whole on every rank: "
+                    f"{tuple(t.placements)}")
+
+    # ------------------------------------------------------------------
     # persistent device page table
     # ------------------------------------------------------------------
 
@@ -478,6 +585,7 @@ class Executor:
             self._ptab[self._tensor(rows, torch.long)] = self._tensor(vals)
             self.counters.inc("ptab_rows_uploaded", int(rows.size))
             self.counters.inc("ptab_syncs")
+            self.check_sharding_invariants()
 
     # ------------------------------------------------------------------
     # compute steps
@@ -541,6 +649,7 @@ class Executor:
                                 lens=lens, pt_rows=pt_rows)
             self._block()
         self._count_dispatch()
+        self.check_sharding_invariants(extra=(("prefill_logits", logits),))
         first = self.sample(logits)
         return [np.asarray(first[i]) for i in range(len(reqs))]
 
@@ -554,6 +663,7 @@ class Executor:
                                 pre_lens=pre_lens, active=active)
             self._block()
         self._count_dispatch()
+        self.check_sharding_invariants(extra=(("decode_logits", logits),))
         self.counters.inc("decode_dispatches")
         self.counters.inc("decode_horizon")
         return self.sample(logits)
@@ -574,6 +684,7 @@ class Executor:
                                steps_left=plan.steps_left)
             out = block.to(torch.int32).cpu().numpy()   # the one host sync
         self._count_dispatch()
+        self.check_sharding_invariants(extra=(("decode_block", block),))
         self.counters.inc("host_syncs")
         self.counters.inc("decode_dispatches")
         self.counters.inc("decode_horizon", plan.horizon)
@@ -589,10 +700,12 @@ class Executor:
         the route that ran: a kernel fetches ``pages_touched`` pages per
         row with its route's query block (the serve path's views are
         aligned, so the route follows from dtypes and shapes), the plain
-        version gathers every row's full table reach."""
+        version gathers every row's full table reach.  The model's whole
+        ``Hkv x hd`` is counted on a mesh too, never a rank's slice, as
+        JAX counts it."""
         cfg = self.model.cfg
         per_tok = (2 * cfg.num_kv_heads * cfg.head_dim
-                   * self.kv.k_pools.element_size())
+                   * self.kv.k_pools.dtype.itemsize)
         if ops.kernel_route(self.kv.k_pools, self._step_model.use_kernels):
             route = prefill_route_rule(
                 self._step_model.dtype, self.kv.k_pools.dtype,
@@ -608,11 +721,13 @@ class Executor:
 
     def _copy_pages(self, copies: list[tuple[int, int]]) -> None:
         """Copy-on-write tail pages: every forked frame of both pools in one
-        indexed assignment each."""
+        indexed assignment each, in place (on a mesh, of this rank's
+        slices)."""
         srcs = self._tensor([src for src, _ in copies], torch.long)
         dsts = self._tensor([dst for _, dst in copies], torch.long)
-        self.kv.k_pools[:, dsts] = self.kv.k_pools[:, srcs]
-        self.kv.v_pools[:, dsts] = self.kv.v_pools[:, srcs]
+        for pools in (self.kv.k_pools, self.kv.v_pools):
+            local = ops.local_of(pools)
+            local[:, dsts] = local[:, srcs]
 
     def admit_forked_batch(self, reqs: list[Request], start_lens: list[int],
                            tail_copies: list[tuple[int, int] | None]
@@ -633,6 +748,7 @@ class Executor:
                                 starts=starts, lens=lens, pt_rows=pt_rows)
             self._block()
         self._count_dispatch()
+        self.check_sharding_invariants(extra=(("continue_logits", logits),))
         self.counters.inc("continuation_prefill_tokens", int(lens.sum()))
         self.counters.inc("prefill_bytes_gathered",
                           self._continuation_gather_bytes(
@@ -656,6 +772,7 @@ class Executor:
     def spill(self, req: Request) -> None:
         """Page-granular spill: only the victim's frames leave the device."""
         self.switcher.spill_kv(req.req_id, self.kv.k_pools, self.kv.v_pools)
+        self.check_sharding_invariants()
 
     def restore(self, req: Request, num_tokens: int,
                 shared_pages: list[int] | None = None) -> None:
@@ -674,6 +791,7 @@ class Executor:
         self.switcher.restore_kv(
             req.req_id, self.kv.k_pools, self.kv.v_pools,
             shared_prefix_pages=shared_pages, num_tokens=num_tokens)
+        self.check_sharding_invariants()
 
     def discard(self, req: Request) -> None:
         """Free a failed request's host-side swap record (never restored)."""

@@ -219,10 +219,10 @@ class ServeConfig:
                              "sampling (1 disables fusion)")
         ap.add_argument("--serve-mesh", default="off",
                         help="shard the executor's KV pools over a "
-                             "('kv','hd') serve mesh: 'auto' factors all "
-                             "visible devices, an integer caps the device "
-                             "count, 'off' (default) keeps single-device "
-                             "placement; only 'off' is ported")
+                             "('kv','hd') serve mesh of the process group's "
+                             "ranks: 'auto' factors all of them, an integer "
+                             "caps the rank count, 'off' (default) keeps "
+                             "single-device placement")
         ap.add_argument("--no-prefix-cache", action="store_true",
                         help="disable the radix prefix cache (cold-"
                              "admission baseline)")
@@ -284,6 +284,11 @@ class ServeConfig:
             else "cuda kernels"
         buckets = ",".join(str(b) for b in self.aot_buckets) \
             if self.aot_buckets else "off"
+        mesh = self.serve_mesh
+        if mesh not in (None, "off"):
+            mesh += (" (KV pools split over ('kv', 'hd'); on more than one "
+                     "rank the steps run eagerly, no CUDA graphs: gloo "
+                     "collectives cannot be captured)")
         return (
             f"serve config: page_size={self.page_size} "
             f"num_pages={self.num_pages} (1 scratch) "
@@ -293,21 +298,23 @@ class ServeConfig:
             f"prefix_cache={'on' if self.prefix_cache else 'off'}, "
             f"sampling={'greedy' if self.greedy else f'T={self.temperature}'}"
             f"\n  aot prefill buckets: {buckets}\n"
-            f"  serve mesh: {self.serve_mesh}"
+            f"  serve mesh: {mesh}"
         )
 
-    def build_mesh(self, model_cfg):
-        """Resolve ``serve_mesh``: only ``"off"`` (one card) is served.
-        The mesh (``launch.mesh``) and the model's sharded kernel dispatch
-        (``TransformerLM(kernel_mesh=...)``) are ported; the executor on
-        the mesh (its sharded steps and state) is not yet."""
+    def build_mesh(self, model_cfg, device=None):
+        """Resolve ``serve_mesh`` to a ('kv', 'hd') ``DeviceMesh`` over the
+        process group's ranks (or ``None`` for ``"off"``) — the one place
+        the flag is interpreted.  ``"auto"`` factors every rank, ``N`` at
+        most N (``launch.mesh.make_host_serve_mesh``); ``device`` is the
+        mesh's device type (the card unless ``"cpu"``).  With no process
+        group started it raises the ``RuntimeError`` of ``launch.mesh``,
+        which names ``init_process_group``."""
         if self.serve_mesh in (None, "off"):
             return None
-        raise NotImplementedError(
-            f"serve_mesh={self.serve_mesh!r}: the executor on a serve mesh "
-            "is not ported yet (launch.mesh and TransformerLM(kernel_mesh="
-            "...) are; the executor's sharded steps and state are still "
-            "missing); use 'off'")
+        from repro_torch.launch.mesh import make_host_serve_mesh
+        n = None if self.serve_mesh == "auto" else int(self.serve_mesh)
+        return make_host_serve_mesh(model_cfg.num_kv_heads,
+                                    model_cfg.head_dim, n, device=device)
 
 
 class RestoreFailure(RuntimeError):

@@ -135,9 +135,12 @@ def test_temperature_stream_fused_equals_stepwise(models):
     (dict(serve_mesh="auto"), "serve_mesh"),
 ])
 def test_engine_refuses_unported_paths(models, override, match):
-    """The engine refuses what is not ported (the serve mesh).  AOT buckets
-    are ported: that config builds, with a prefill and a continuation
-    program for its bucket (``tests/test_torch_aot_buckets.py``)."""
+    """Both configs are ported now.  AOT buckets build, with a prefill and
+    a continuation program for the bucket
+    (``tests/test_torch_aot_buckets.py``); the serve mesh is resolved from
+    the config (``tests/test_torch_serve_mesh.py``), and with no process
+    group started that raises ``launch.mesh``'s ``RuntimeError``, which
+    names ``init_process_group``."""
     _, _, tm, tp = models
     cfg = ServeConfig(**{**PORTED, **override})
     if match == "aot_buckets":
@@ -146,7 +149,7 @@ def test_engine_refuses_unported_paths(models, override, match):
                                              ("prefill", 16)]
         eng.close()
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(RuntimeError, match="init_process_group"):
         Engine(tm, tp, cfg)
 
 
