@@ -97,7 +97,23 @@ printing its lines; any failure exits non-zero before the last line:
    and every rank's tokens, counters and switch stats must equal it, with
    ``ref_path_dispatches`` 0 and all five serve kernels launched through
    the engine on every rank (routes printed), and the bytes and time of
-   the gloo all-gathers a layer, the spill gathers apart;
+   the gloo all-gathers a layer, the spill gathers apart.  Then, the
+   serve weights freed, training on the mesh (``mesh_train_check``):
+   granite-moe-1b-a400m at full width cut to 2 layers, f32,
+   ``use_kernels=False``, on (data 4, model 2) through ``Trainer(mesh=
+   ...)``, 3 AdamW steps on B 8 x S 512 with no kernel launched; each
+   rank's parameters and moments in ``launch.sharding``'s layouts; rank 0
+   reruns the steps on one process (``make_train_step``) and rank 1 as
+   the mesh computes them on one process (``shard_rows_step``: a forward
+   a row shard, the loss's sums over the shards): every rank's losses,
+   ``grad_norm`` and ``lr`` within 1e-5 of both; the gathered moments
+   within 1e-4 of each leaf's peak of the row-shard step's, the
+   parameters within 1e-4 of the peak or 1e-2 of the summed learning
+   rate (AdamW's normalized step), the one-process step's gaps printed;
+   the final checkpoint restored onto (data 2, model 4) bit for bit;
+   ``compressed_psum_tree`` on the card against its numpy model of the
+   card's own int8 payloads; wall a step, bytes gathered and all-reduced
+   a step and each rank's peak memory printed;
 4. serve: qwen2-7b at full width (bf16, random weights from a seeded
    generator) serves 8 requests (64-512-token prompts, 32 new tokens,
    page 16, horizon 8) cold, in a pool tight enough to preempt; launch
@@ -180,9 +196,10 @@ printing its lines; any failure exits non-zero before the last line:
    device's busy share and device time by kernel, and each prefill's
    ``wkv6`` and ``wkv6_chunked`` time and share of device time;
 11b. RG-LRU: the rwkv6-7b weights are freed, recurrentgemma-9b at full
-   width (38 layers: 26 RG-LRU and 12 local MQA attention with one KV head
-   of 256 and a 2,048-token window; d_model 4096, d_ff 12288, vocab
-   256,000, bf16, random weights, depth not cut) prefills 8 prompts of 512
+   width (depth cut 38 -> 20, ``DEPTH``: 14 RG-LRU and 6 local
+   MQA attention with one KV head of 256 and a 2,048-token window, the
+   2-layer recurrent tail kept; d_model 4096, d_ff 12288, vocab 256,000,
+   bf16, random weights) prefills 8 prompts of 512
    tokens and decodes 32 greedy tokens, then one 2,560-token prompt
    decodes 16 steps past the window, each after an untimed warm-up with
    the launch counts zeroed just before and read just after: 26 ``rglru``
@@ -208,8 +225,9 @@ printing its lines; any failure exits non-zero before the last line:
    L2, beside the chain it replaces (the parent's 18 launches) and its
    parts (upcasts, f32 GEMVs, gate math and the step);
 12. MoE: the recurrentgemma-9b weights are freed, granite-moe-1b-a400m at full
-   width (24 layers, d_model 1024, 32 experts top-8, bf16, random
-   weights, depth not cut) serves a cold run (8 prompts of 256-640
+   width (depth cut 24 -> 12, ``DEPTH``; d_model 1024, 32
+   experts top-8, bf16, random weights) serves a cold run (8 prompts of
+   256-640
    tokens: one prefill of 2,560 tokens takes the per-row sorted dispatch,
    the rest the ragged one; a preemption), an int8 run and a radix run,
    each with CUDA graphs and inside ``disable_graphs()``, identical in
@@ -238,10 +256,11 @@ printing its lines; any failure exits non-zero before the last line:
    beside its plain version, ``torch._grouped_mm`` and its bound, the
    route printed at each shape;
 12b. training: the loop first — ``launch/train_100m.main`` at its
-   defaults (lm-100m, 79.95 M f32 parameters, 300 steps of B 8 x S 256,
-   accumulation 2, remat: the loss drop > 0.5, tokens/s, peak memory, 0
-   kernel launches, three ~0.96 GB checkpoints), lm-100m's resume (20
-   straight steps against 10 + a new ``Trainer`` resuming at 10 + 10, bit
+   defaults but 150 steps (lm-100m, 79.95 M f32 parameters, B 8 x S 256,
+   accumulation 2, remat: the loss drop > 0.5, printed, tokens/s, peak
+   memory, 0 kernel launches, ~0.96 GB checkpoints at 100 and 150),
+   lm-100m's resume (10
+   straight steps against 5 + a new ``Trainer`` resuming at 5 + 5, bit
    for bit, or the nondeterministic ops named and the resume held at two
    straight runs' spread) and the launcher (reduced granite-8b, 6 steps,
    then ``--steps 9`` resuming from step 6); then granite-moe-1b-a400m
@@ -283,8 +302,9 @@ printing its lines; any failure exits non-zero before the last line:
    TTFT and TPOT p50, traced busy share and kernels per decode
    token-step beside the card's name and power limit;
 14. audio: the qwen2-vl-7b weights are freed, musicgen-large at full
-   width (48 layers, d_model 2048, 32 heads of 64 with 32 KV heads (G
-   1), 4 codebooks of 2048, bf16, depth not cut) serves ``[len, 4]``
+   width (depth cut 48 -> 24, ``DEPTH``; d_model 2048, 32
+   heads of 64 with 32 KV heads (G 1), 4 codebooks of 2048, bf16) serves
+   ``[len, 4]``
    prompts: the cold workload, an int8 run and a default-policy radix
    run whose pool preempts and restores, each with graphs and eager as
    in 13, the cold run traced; the runs repeated untimed with the
@@ -375,6 +395,21 @@ KERNELS = {
 
 #: the card's name and power limit (``nvidia-smi``), set by :func:`probe`
 CARD = "not probed"
+
+#: full-width serve models whose depth is cut to keep the script inside
+#: 1,200 s on a slower machine (widths and shapes of every kernel call
+#: unchanged; launches scale with the layers)
+DEPTH = {"musicgen-large": 24, "granite-moe-1b-a400m": 12,
+         "recurrentgemma-9b": 20}
+
+
+def serve_config(arch: str):
+    """``arch``'s full-width config, its depth cut to :data:`DEPTH`."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch in DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=DEPTH[arch])
+    return cfg
 
 
 class SmokeFailure(RuntimeError):
@@ -3336,12 +3371,12 @@ def rglru_recorders() -> dict:
 
 
 def rglru_full_model():
-    """recurrentgemma-9b at full width (38 layers, bf16, depth not cut)
-    with random weights from a seeded generator on the card."""
+    """recurrentgemma-9b at full width (20 of 38 layers: 6 superblocks and
+    the 2-layer recurrent tail, bf16) with random weights from a seeded
+    generator on the card."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    cfg = get_config(RG_ARCH)
+    cfg = serve_config(RG_ARCH)
     model = build_model(cfg, device="cuda")
     t0 = time.perf_counter()
     params = model.init(0)
@@ -4400,9 +4435,8 @@ RAGGED_KERNELS = ("ragged_mma_kernel", "ragged_wgmma_kernel",
 
 def moe_full_model():
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    cfg = get_config("granite-moe-1b-a400m")   # all 24 layers: depth not cut
+    cfg = serve_config("granite-moe-1b-a400m")     # 12 of 24 layers
     model = build_model(cfg, device="cuda")
     t0 = time.perf_counter()
     params = model.init(0)
@@ -4537,8 +4571,8 @@ def teacher_forced(model, params, tokens, lens, steps, forced=None,
                                                      steps)
     ids, real = [], moe.router_topk
 
-    def tap(p, x, k):
-        out = real(p, x, k)
+    def tap(p, x, k, **kw):
+        out = real(p, x, k, **kw)
         ids.append(out[0].sort(-1).values)
         return out
     moe.router_topk = tap
@@ -4951,12 +4985,11 @@ def np_shape(tokens) -> tuple:
 
 
 def family_full_model(arch: str):
-    """``arch`` at full width on the card, all its layers, random bf16
-    weights from seed 0."""
+    """``arch`` at full width on the card (depth as :data:`DEPTH` says),
+    random bf16 weights from seed 0."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    cfg = get_config(arch)                 # depth not cut
+    cfg = serve_config(arch)
     model = build_model(cfg, device="cuda")
     t0 = time.perf_counter()
     params = model.init(0)
@@ -5201,7 +5234,7 @@ def audio_attention_checks(cfg, model, params, runs):
 
 
 def audio_phases() -> list[dict]:
-    """musicgen-large at full width (48 layers, 4 codebooks): the cold,
+    """musicgen-large at full width (24 of 48 layers, 4 codebooks): the cold,
     int8 and radix serve runs (graphs == eager, traced cold), the copy and
     attention kernels held against their plain versions at its G 1
     shapes, and the G 1 rows of both paged attention kernels (timed, with
@@ -5785,14 +5818,20 @@ def flash_train_row(best, n_launch) -> dict:
 
 
 #: lm-100m's resume check: straight steps, and where the first run stops
-RESUME = dict(steps=20, stop=10)
+RESUME = dict(steps=10, stop=5)
+
+
+#: lm-100m's steps in ``train_100m`` (its default is 300): its checkpoints
+#: fall at 100 and at the last step
+LM100M_STEPS = 150
 
 
 def lm100m_phase() -> None:
-    """``launch/train_100m.main()`` at its defaults on the card (lm-100m,
-    79.95 M f32 parameters, 300 steps of B 8 x S 256 at ``accum_steps`` 2,
-    remat): the loss drop > 0.5, 0 hand-written kernel launches, three
-    checkpoints of ~0.96 GB; tokens/s and peak allocated memory printed."""
+    """``launch/train_100m.main()`` on the card at its defaults but
+    :data:`LM100M_STEPS` steps (lm-100m, 79.95 M f32 parameters, B 8 x S
+    256 at ``accum_steps`` 2, remat): the loss drop > 0.5 (printed), 0
+    hand-written kernel launches, checkpoints of ~0.96 GB at 100 and 150;
+    tokens/s and peak allocated memory printed."""
     import io
     import math
     import contextlib
@@ -5806,7 +5845,8 @@ def lm100m_phase() -> None:
     t0 = time.perf_counter()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        res = train_100m.main(["--device", "cuda"])     # its defaults
+        res = train_100m.main(["--device", "cuda", "--steps",
+                               str(LM100M_STEPS)])
     wall = time.perf_counter() - t0
     for line in out.getvalue().splitlines():
         log(f"  train_100m| {line}")
@@ -5816,16 +5856,17 @@ def lm100m_phase() -> None:
     drop = hist[0]["loss"] - hist[-1]["loss"]
     require(drop > 0.5, f"lm-100m: loss drop {drop} <= 0.5")
     ckpts = res["checkpoints"]
-    require([s for s, _ in ckpts] == [100, 200, 300]
+    require([s for s, _ in ckpts] == [100, LM100M_STEPS]
             and all(0.9e9 < n < 1.0e9 for _, n in ckpts),
-            f"lm-100m: checkpoints {ckpts}, want steps 100/200/300 of "
-            "~0.96 GB")
+            f"lm-100m: checkpoints {ckpts}, want steps 100/{LM100M_STEPS} "
+            "of ~0.96 GB")
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"lm-100m full width (12 layers, d 512, 79.95 M f32 parameters, B 8 "
         f"x S 256, accum 2, remat): loss {hist[0]['loss']:.4f} -> "
         f"{hist[-1]['loss']:.4f} (drop {drop:.3f}; ln 32000 = "
-        f"{math.log(32000):.2f}) over 300 steps, {res['seconds']:.2f} s of "
-        f"steps ({res['seconds'] / 300 * 1e3:.1f} ms a step, "
+        f"{math.log(32000):.2f}) over {LM100M_STEPS} steps, "
+        f"{res['seconds']:.2f} s of steps "
+        f"({res['seconds'] / LM100M_STEPS * 1e3:.1f} ms a step, "
         f"{res['tokens'] / res['seconds']:.0f} tokens/s), {wall:.1f} s in "
         f"all, peak allocated {peak:.2f} GB, 0 hand-written kernel "
         f"launches, checkpoints {[(s, round(n / 1e9, 3)) for s, n in ckpts]}"
@@ -5833,9 +5874,10 @@ def lm100m_phase() -> None:
 
 
 def lm100m_resume_phase() -> None:
-    """lm-100m as ``train_100m`` trains it: 20 straight steps against 10
-    steps, then a new ``Trainer`` that resumes from the checkpoint at 10
-    and runs 10 more; parameters and optimizer state held bit for bit.
+    """lm-100m as ``train_100m`` trains it: :data:`RESUME`'s straight steps
+    (10) against 5 steps, then a new ``Trainer`` that resumes from the
+    checkpoint at 5 and runs 5 more; parameters and optimizer state held
+    bit for bit.
     Where they differ, a second straight run gives the run-to-run spread
     and ``torch.use_deterministic_algorithms(True, warn_only=True)`` names
     the nondeterministic ops; the resume is then held at that spread."""
@@ -6317,6 +6359,293 @@ def mesh_engine_check(dev, rank: int, cfg, mesh, params, tap) -> dict:
     return out
 
 
+#: training on the mesh: granite-moe-1b-a400m at full width cut to this
+#: many layers, f32, on (data 4, model 2); B x S, AdamW steps
+MESH_TRAIN = dict(layers=2, mesh=(4, 2), batch=8, seq=512, steps=3,
+                  restore_mesh=(2, 4))
+#: the optimizer of the training phase (lr 1e-3, warmup 2)
+MESH_TRAIN_OPT = dict(base_lr=1e-3, warmup_steps=2, total_steps=10)
+
+
+def mesh_train_check(dev, rank: int, out: str) -> dict:
+    """Training on the mesh: granite-moe-1b-a400m (full width, 2 layers,
+    f32, ``use_kernels=False``, the shard hook) through ``Trainer(mesh=
+    ...)`` on (data 4, model 2), 3 AdamW steps on seeded ``SyntheticLMStream``
+    batches of B 8 x S 512 (each rank its rows), with the launch counts
+    zeroed before and read after (no kernel may launch).  Each rank's
+    local parameter and moment shapes must be the declared layouts'.
+    The Trainer's final checkpoint is restored onto (data 2, model 4),
+    bit for bit against the gathered parameters' slices under the target
+    layouts; ``compressed_psum_tree`` on CUDA tensors over 'data' against
+    its numpy model.  Rank 0 then reruns the 3 steps through
+    ``make_train_step`` on the whole batch, rank 1 through
+    :func:`shard_rows_step`, each recording its metrics and the gathered
+    state's gaps to its own (:func:`mesh_train_report` holds them).
+    Returns wall per step, bytes gathered and reduced per step, peak
+    allocated memory."""
+    import shutil
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMStream, make_global_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import (AdamWConfig, adamw_init, tree_leaves)
+    from repro_torch.optim.compression import (compressed_psum_tree,
+                                               init_error_state, quantize_int8)
+    from repro_torch.train import Trainer, make_train_step
+    mt = MESH_TRAIN
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              num_layers=mt["layers"], param_dtype="float32")
+    mesh = make_host_mesh(*mt["mesh"], device="cuda")
+    target = make_host_mesh(*mt["restore_mesh"], device="cuda")
+    ocfg = AdamWConfig(**MESH_TRAIN_OPT)
+    stream = SyntheticLMStream(cfg, ShapeConfig("mesh", mt["seq"],
+                                                mt["batch"], "train"),
+                               process=(0, 1))
+    ckpt_dir = pathlib.Path(out, "train_ckpt")
+    model = build_model(cfg, device=dev, use_kernels=False,
+                        shard=sh.make_shard_hook(mesh))
+    walls, comm = [], []
+    trainer = Trainer(model, ocfg, ckpt_dir=str(ckpt_dir), ckpt_every=100,
+                      mesh=mesh,
+                      heartbeat=lambda step, dt: walls.append(dt))
+    params, opt, start = trainer.init_or_restore(0)
+    require(start == 0, f"rank {rank}: a checkpoint was already there")
+    p_sh = sh.param_shardings(params, mesh)
+    ext = sh.mesh_extents(mesh)
+    for tree in (params, opt.m, opt.v):
+        for x, s in zip(tree_leaves(tree), tree_leaves(p_sh)):
+            local = list(x.shape)
+            for d, entry in enumerate(s.spec):
+                for a in (() if entry is None else (entry,)
+                          if isinstance(entry, str) else entry):
+                    local[d] //= ext[a]
+            require(tuple(x.placements) == s.placements
+                    and list(x.to_local().shape) == local,
+                    f"rank {rank}: a leaf is not in its declared layout")
+    step_fn = trainer.step_fn
+
+    def batches(step):
+        b = stream.batch(step)
+        return make_global_batch(b, mesh)
+
+    def counted(params_, opt_, batch_):
+        got = step_fn(params_, opt_, batch_)
+        comm.append(dict(step_fn.comm))
+        return got
+    trainer.step_fn = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    params, opt, hist = trainer.run(params, opt, batches, 0, mt["steps"],
+                                    log_every=1)
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in ops.launch_counts().items() if n}
+    require(not launched, f"rank {rank}: kernels launched while training "
+                          f"on the mesh: {launched}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    whole = [ops.whole(x) for x in tree_leaves(params)]
+    moments = {k: [ops.whole(x) for x in tree_leaves(getattr(opt, k))]
+               for k in ("m", "v")}
+    # the checkpoint the Trainer wrote at its last step, onto (2, 4)
+    t_sh = sh.param_shardings(params, target)
+    t0 = time.perf_counter()
+    restored = ckpt.restore(str(ckpt_dir), mt["steps"], {"params": params},
+                            shardings={"params": t_sh})["params"]
+    restore_s = time.perf_counter() - t0
+    for x, w, s in zip(tree_leaves(restored), whole, tree_leaves(t_sh)):
+        require(tuple(x.placements) == s.placements and torch.equal(
+            x.to_local(), ops.local_slice(w, target, s.placements)),
+            f"rank {rank}: the restore onto {mt['restore_mesh']} differs")
+    del restored
+    # compressed_psum_tree over 'data' on CUDA tensors
+    data_i, model_i = mesh.get_coordinate()
+
+    def grads_of(i):
+        rng = np.random.default_rng((9, i, model_i))
+        return {"a": rng.normal(size=(1024, 512)).astype(np.float32),
+                "b": (rng.normal(size=(4096,)) * 1e-3).astype(np.float32)}
+    mine = {k: torch.from_numpy(v).to(dev) for k, v in
+            grads_of(data_i).items()}
+    mean, err = compressed_psum_tree(mine, init_error_state(mine), mesh)
+    n = np.float32(mt["mesh"][0])
+    for k in mine:
+        peers = [grads_of(i)[k] for i in range(mt["mesh"][0])]
+        # each peer's payload as the card quantizes it (the card divides
+        # by 127 as a product with its reciprocal); the model is the sum
+        qs, scales = zip(*((q.cpu().numpy(), np.float32(s.item()))
+                           for q, s in (quantize_int8(torch.from_numpy(
+                               g).to(dev)) for g in peers)))
+        qsum = np.sum([q.astype(np.int32) for q in qs], axis=0)
+        want = qsum.astype(np.float32) * (np.float32(
+            np.sum(scales, dtype=np.float32)) / n) / n
+        got = mean[k].cpu().numpy()
+        require(np.allclose(got, want, rtol=1e-6, atol=0),
+                f"rank {rank}: compressed_psum_tree's {k} differs from its "
+                f"numpy model by {np.abs(got - want).max()}")
+        require(np.array_equal(err[k].cpu().numpy(), peers[data_i]
+                               - qs[data_i].astype(np.float32)
+                               * scales[data_i]),
+                f"rank {rank}: compressed_psum_tree's {k} residual differs "
+                f"from its numpy model")
+    res = dict(history=hist, walls=walls, comm=comm, peak_gb=peak,
+               restore_s=restore_s, coord=[data_i, model_i],
+               local_gb=sum(x.to_local().numel() * 4 for t in
+                            (params, opt.m, opt.v)
+                            for x in tree_leaves(t)) / 1e9)
+    # the references, side by side: rank 0 the one-process step, rank 1
+    # the row-shard step
+    if rank in (0, 1):
+        one = build_model(cfg, device=dev, use_kernels=False)
+        key, fn = (("one_process", make_train_step(one, ocfg)),
+                   ("shard_rows", functools.partial(
+                       shard_rows_step, one, ocfg, mt["mesh"][0])))[rank]
+        p1 = one.init(0)
+        o1 = adamw_init(p1)
+        ref = []
+        for s in range(mt["steps"]):
+            p1, o1, m = fn(p1, o1, make_global_batch(stream.batch(s),
+                                                     dev))
+            ref.append({k: float(v) for k, v in m.items()})
+        # each leaf's gap to the reference: (gap, peak) of the
+        # parameters and of both moments
+        res[key] = dict(history=ref, gaps={
+            name: [leaf_gap(w, want), leaf_gap(m, m1), leaf_gap(v, v1)]
+            for (name, _), w, want, m, m1, v, v1 in zip(
+                ckpt.leaf_paths(params), whole, tree_leaves(p1),
+                moments["m"], tree_leaves(o1.m), moments["v"],
+                tree_leaves(o1.v))})
+        del p1, o1
+    del whole, moments, params, opt
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return res
+
+
+def shard_rows_step(model, ocfg, shards: int, params, opt, batch):
+    """One AdamW step of the mesh's arithmetic on one process: the loss of
+    the whole batch from ``shards`` forwards of its row shards (the mesh
+    ranks' shapes, so the GEMMs round as theirs do and the router picks
+    the same experts), the cross entropy's masked sums and token counts
+    summed over the shards, the router loss their mean; then one backward
+    and ``adamw_update``.  (The whole batch in one forward runs GEMMs of
+    other shapes, which round otherwise.)"""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.optim import adamw_update, tree_leaves, tree_unflatten
+    leaves = tree_leaves(params)
+    for x in leaves:
+        x.requires_grad_(True)
+    nums, dens, auxs = [], [], []
+    for rows in zip(*(v.chunk(shards) for v in batch.values())):
+        b = dict(zip(batch, rows))
+        h, aux = model.forward(params, b["tokens"])
+        logits = model.logits_fn(params, h).float()
+        nll = (torch.logsumexp(logits, dim=-1) - logits.gather(
+            -1, b["labels"].long()[..., None])[..., 0])
+        mask = b["mask"].float()
+        nums.append((nll * mask).sum())
+        dens.append(mask.sum())
+        auxs.append(aux)
+    xent = torch.stack(nums).sum() / torch.stack(dens).sum().clamp(min=1.0)
+    aux = torch.stack(auxs).mean()
+    loss = xent + 0.01 * aux
+    grads = torch.autograd.grad(loss, leaves)
+    for x in leaves:
+        x.requires_grad_(False)
+    params, opt, opt_m = adamw_update(tree_unflatten(params, grads), opt,
+                                      params, ocfg)
+    return params, opt, {"xent": xent.detach(), "aux": aux.detach(),
+                         **opt_m, "loss": loss.detach()}
+
+
+def mesh_train_report(reports) -> None:
+    """Print the training on the mesh (walls, bytes, peaks, the gaps to
+    rank 0's references), then hold every rank's metrics to the
+    one-process step and to the row-shard step within 1e-5, and the
+    gathered state to the row-shard step's: both moments within 1e-4 of
+    each leaf's peak, the parameters within 1e-4 of the peak or 1e-2 of
+    the summed learning rate, whichever is larger (AdamW's normalized
+    step turns a tiny gradient entry's rounding into the same relative
+    error of the step: ROADMAP Queue 3's bound for ``w_lora_B``).  The
+    one-process step's gaps are printed: its whole-batch GEMMs run other
+    shapes than the ranks'."""
+    import torch
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    mt, r0 = MESH_TRAIN, reports[0]["train"]
+    r0 = dict(r0, shard_rows=reports[1]["train"]["shard_rows"])
+    ocfg = AdamWConfig(**MESH_TRAIN_OPT)
+    lr_sum = sum(float(cosine_schedule(torch.tensor(s + 1), ocfg))
+                 for s in range(mt["steps"]))
+    metric_gap = {}
+    for ref in ("one_process", "shard_rows"):
+        for res in reports:
+            for got, want in zip(res["train"]["history"],
+                                 r0[ref]["history"]):
+                for k in ("loss", "xent", "aux", "grad_norm", "lr"):
+                    gap = abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                    key = (ref, res["rank"], got["step"], k)
+                    metric_gap[key] = (gap, got[k], want[k])
+    rel = {ref: {name: [g / max(top, 1e-30) for g, top in parts]
+                 for name, parts in r0[ref]["gaps"].items()}
+           for ref in ("one_process", "shard_rows")}
+
+    def worst_leaves(ref):
+        top = sorted(rel[ref].items(), key=lambda kv: -max(kv[1]))[:4]
+        return "; ".join(f"{n} {p:.3g} {m:.3g} {v:.3g}"
+                         for n, (p, m, v) in top)
+    walls = [max(r["train"]["walls"][i] for r in reports)
+             for i in range(mt["steps"])]
+    log(f"mesh training: granite-moe-1b-a400m (full width, {mt['layers']} "
+        f"layers, f32) on (data {mt['mesh'][0]}, model {mt['mesh'][1]}), "
+        f"{len(reports)} ranks, B {mt['batch']} x S {mt['seq']}, "
+        f"{mt['steps']} AdamW steps through Trainer(mesh=...): losses "
+        f"{[round(h['loss'], 5) for h in r0['history']]}; every rank's "
+        f"losses, xent, aux, grad_norm and lr against rank 0's "
+        f"one-process make_train_step: worst " + str(max(
+            g for (ref, *_), (g, _, _) in metric_gap.items()
+            if ref == "one_process")) + " relative, against its row-shard "
+        f"step: " + str(max(g for (ref, *_), (g, _, _) in metric_gap.items()
+                            if ref == "shard_rows"))
+        + f" (bound 1e-5); no kernel launched; the checkpoint restored "
+        f"onto (data {mt['restore_mesh'][0]}, model "
+        f"{mt['restore_mesh'][1]}) bit for bit in "
+        f"{max(r['train']['restore_s'] for r in reports):.2f} s; "
+        f"compressed_psum_tree on the card == its numpy model [{CARD}]")
+    log(f"mesh training: the gathered state's largest gaps of a leaf's peak "
+        f"(parameter, m, v) to the row-shard step: "
+        f"{worst_leaves('shard_rows')} (bound 1e-4); to the one-process "
+        f"step (printed): {worst_leaves('one_process')}")
+    log(f"mesh training: wall a step (slowest rank) "
+        f"{[round(w * 1e3, 1) for w in walls]} ms; a rank gathers "
+        f"{r0['comm'][-1]['gathered']} B and all-reduces "
+        f"{r0['comm'][-1]['reduced']} B a step; local state (params + "
+        f"both moments) {r0['local_gb']:.3f} GB a rank; peak allocated "
+        f"{[round(r['train']['peak_gb'], 2) for r in reports]} GB by rank "
+        f"[{CARD}]")
+    for res in reports:
+        require(len(res["train"]["history"]) == mt["steps"],
+                f"mesh training rank {res['rank']}: "
+                f"{len(res['train']['history'])} steps")
+    for (ref, rank, step, k), (gap, got, want) in metric_gap.items():
+        require(gap <= 1e-5, f"mesh training rank {rank} step {step}: {k} "
+                f"{got} against {want} of the {ref} step")
+    for name, ((p, top), m, v) in zip(rel["shard_rows"],
+                                      r0["shard_rows"]["gaps"].values()):
+        pr, mr, vr = rel["shard_rows"][name]
+        require(max(mr, vr) <= 1e-4 and p <= max(1e-4 * top, 1e-2 * lr_sum),
+                f"mesh training: {name}'s gap to the row-shard step is "
+                f"{pr:.3g} (parameter; {p:.3g} against the summed lr "
+                f"{lr_sum:.3g}), {mr:.3g} (m), {vr:.3g} (v) of its peak")
+
+
 def mesh_rank(rank: int, world: int, store: str, out: str) -> int:
     """One rank of the mesh phase (``chip_smoke.py --mesh-rank R WORLD
     STORE OUT``): writes ``OUT/rank{R}.json``; 0 iff every check passed."""
@@ -6347,6 +6676,12 @@ def mesh_rank(rank: int, world: int, store: str, out: str) -> int:
         t1 = time.perf_counter()
         res["engine"] = mesh_engine_check(dev, rank, cfg, mesh, params, tap)
         res["engine_s"] = time.perf_counter() - t1
+        del params              # the serve weights, before training
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        res["train"] = mesh_train_check(dev, rank, out)
+        res["train_s"] = time.perf_counter() - t1
         res["ok"] = True
     except Exception:            # the rank's report: the parent fails it
         res["error"] = traceback.format_exc()
@@ -6432,6 +6767,7 @@ def mesh_phase() -> None:
             f"decode {m['gathered']['decode'] / MESH_LAYERS / steps:.0f} "
             f"B a step [{CARD}]")
     mesh_engine_report(reports)
+    mesh_train_report(reports)
     log(f"mesh: {MESH_RANKS} ranks, qwen2-7b ({MESH_LAYERS} layers) on "
         f"(kv 4, hd 2), greedy tokens == one rank's, native and int8; rank "
         f"start {max(r['cuda_s'] for r in reports):.1f} s, small check "
@@ -6439,7 +6775,8 @@ def mesh_phase() -> None:
         f"{max(r['model_s'] for r in reports):.1f} s (init "
         f"{max(r['init_s'] for r in reports):.1f} s, "
         f"{max(r['weights_gb'] for r in reports):.2f} GB a rank), engine "
-        f"{max(r['engine_s'] for r in reports):.1f} s; phase "
+        f"{max(r['engine_s'] for r in reports):.1f} s, training "
+        f"{max(r['train_s'] for r in reports):.1f} s; phase "
         f"{wall:.1f} s [{CARD}]")
     shutil.rmtree(out, ignore_errors=True)
 

@@ -20,6 +20,15 @@
     target leaf's device (or on ``device``).
   * RETENTION: the ``keep`` newest checkpoints survive
     :func:`garbage_collect`.
+  * MESHES: a tree of ``DTensor`` leaves (a mesh's ranks each holding its
+    slices) is saved whole, in the same layout and names: every rank of
+    the mesh gathers each leaf (one all-gather a leaf, on the calling
+    thread, in leaf order), the mesh's first rank alone writes, and the
+    others wait for it (a barrier; ``AsyncCheckpointer`` waits in
+    :meth:`~AsyncCheckpointer.wait`, so its writer thread runs no
+    collective).  ``restore(..., shardings=...)`` reads the whole leaves
+    and keeps each rank's slice under the target layouts, whatever mesh
+    wrote them (JAX's elastic reshard on load).
 """
 
 from __future__ import annotations
@@ -33,7 +42,30 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+
+
+def _mesh_of(leaves) -> Any:
+    """The mesh of the first ``DTensor`` among ``leaves``, or None."""
+    return next((x.device_mesh for x in leaves if ops.is_dtensor(x)), None)
+
+
+def _gathered(leaves) -> list:
+    """Each leaf whole (``ops.whole``: one all-gather over its mesh a
+    split ``DTensor``, in leaf order)."""
+    return [ops.whole(x) for x in leaves]
+
+
+def _is_writer(mesh) -> bool:
+    """Whether this rank writes a mesh's checkpoint: its first rank."""
+    return all(c == 0 for c in mesh.get_coordinate())
+
+
+def _barrier(mesh) -> None:
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import mesh_group
+    dist.barrier(group=mesh_group(mesh))
 
 _MANIFEST = "manifest.json"
 
@@ -84,7 +116,22 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def save(ckpt_dir: str, step: int, tree: Any) -> str:
-    """Synchronous atomic save.  Returns the committed directory."""
+    """Synchronous atomic save.  Returns the committed directory.  A tree
+    of ``DTensor`` leaves is gathered on every rank of its mesh, written
+    by the first, and the call returns on every rank once it is
+    committed."""
+    leaves = tree_leaves(tree)
+    mesh = _mesh_of(leaves)
+    if mesh is None:
+        return _write(ckpt_dir, step, tree)
+    whole = tree_unflatten(tree, _gathered(leaves))
+    if _is_writer(mesh):
+        _write(ckpt_dir, step, whole)
+    _barrier(mesh)
+    return os.path.join(ckpt_dir, f"step_{step}")
+
+
+def _write(ckpt_dir: str, step: int, tree: Any) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
     final = os.path.join(ckpt_dir, f"step_{step}")
@@ -114,28 +161,39 @@ def _host_copy(x: Any) -> Any:
 
 class AsyncCheckpointer:
     """Snapshot to host memory synchronously, write in a background
-    thread; one outstanding save at a time."""
+    thread; one outstanding save at a time.  A mesh's tree is gathered
+    before the snapshot, its first rank writes, and every rank's
+    :meth:`wait` returns once that write is committed."""
 
     def __init__(self, ckpt_dir: str, keep: int = 3):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
         self._thread: threading.Thread | None = None
+        self._mesh = None
 
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None:
+            mesh, self._mesh = self._mesh, None
+            _barrier(mesh)
 
     def save_async(self, step: int, tree: Any) -> None:
         self.wait()
-        host_tree = tree_unflatten(tree, [_host_copy(x)
-                                          for x in tree_leaves(tree)])
+        leaves = tree_leaves(tree)
+        self._mesh = mesh = _mesh_of(leaves)
+        if mesh is not None:
+            leaves = _gathered(leaves)
+            if not _is_writer(mesh):
+                return
+        host_tree = tree_unflatten(tree, [_host_copy(x) for x in leaves])
 
-        def _write():
-            save(self.ckpt_dir, step, host_tree)
+        def _commit():
+            _write(self.ckpt_dir, step, host_tree)
             garbage_collect(self.ckpt_dir, self.keep)
 
-        self._thread = threading.Thread(target=_write, daemon=True)
+        self._thread = threading.Thread(target=_commit, daemon=True)
         self._thread.start()
 
 
@@ -148,12 +206,16 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, target: Any, device=None) -> Any:
+def restore(ckpt_dir: str, step: int, target: Any, device=None,
+            shardings: Any | None = None) -> Any:
     """Restore into the structure of ``target`` (a tree of tensors; on
     the ``meta`` device for shapes only, as JAX takes
     ``ShapeDtypeStruct``s): each leaf on its target leaf's device (the
     CPU for a meta leaf), or on ``device``; a leaf the checkpoint lacks
-    raises ``ValueError``."""
+    raises ``ValueError``.  ``shardings`` (a tree like ``target`` of
+    ``launch.sharding.NamedSharding``) reshards on load: each leaf a
+    ``DTensor`` of that layout holding this rank's slice, on the rank's
+    device of its mesh."""
     d = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(d, _MANIFEST)) as f:
         manifest = json.load(f)
@@ -162,10 +224,18 @@ def restore(ckpt_dir: str, step: int, target: Any, device=None) -> Any:
     if missing:
         raise ValueError(
             f"checkpoint at step {step} missing leaves: {missing[:5]}")
+    layouts = (tree_leaves(shardings) if shardings is not None
+               else [None] * len(named))
     out = []
-    for name, leaf in named:
+    for (name, leaf), sh in zip(named, layouts):
         arr = np.load(os.path.join(d, f"{name}.npy"))
         x = _from_numpy(arr, manifest["leaves"][name]["dtype"])
+        if sh is not None:
+            from repro_torch.launch.sharding import mesh_device
+            part = ops.local_slice(x, sh.mesh, sh.placements)
+            out.append(ops.wrap_local(part.to(mesh_device(sh.mesh)),
+                                      sh.mesh, sh.placements, x.shape))
+            continue
         dev = device if device is not None else getattr(leaf, "device",
                                                         "cpu")
         if torch.device(dev).type == "meta":   # a target of shapes only

@@ -1,4 +1,5 @@
 """Deterministic synthetic data pipeline (port of ``src/repro/data``)."""
 from repro_torch.data.pipeline import (DataConfig, SyntheticLMStream,
-                                       make_global_batch)
-__all__ = ["DataConfig", "SyntheticLMStream", "make_global_batch"]
+                                       host_index_count, make_global_batch)
+__all__ = ["DataConfig", "SyntheticLMStream", "host_index_count",
+           "make_global_batch"]

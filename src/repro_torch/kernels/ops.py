@@ -476,6 +476,18 @@ def gather_whole(local, mesh, layout):
     return grid[0]
 
 
+def whole(t):
+    """The whole tensor of a ``DTensor`` on every rank: its local data
+    where every mesh axis replicates it, else one :func:`gather_whole`; a
+    plain tensor as it is."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(t):
+        return t
+    if not any(isinstance(p, Shard) for p in t.placements):
+        return t.to_local()
+    return gather_whole(t.to_local(), t.device_mesh, t.placements)
+
+
 def unshard(t):
     """The whole tensor of a ``DTensor`` on every rank (each split mesh
     axis all-gathered); a plain tensor as it is."""

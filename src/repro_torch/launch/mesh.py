@@ -32,6 +32,7 @@ paper over JAX versions (``axis_types``, ``jax.set_mesh``), and a
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.distributed as dist
@@ -194,3 +195,36 @@ def make_host_serve_mesh(num_kv_heads: int, head_dim: int,
     n = min(num_devices, world) if num_devices is not None else world
     return _mk(host_serve_mesh_shape(num_kv_heads, head_dim, n), SERVE_AXES,
                device)
+
+
+def start_group(init_method: str, what: str, command: str) -> bool:
+    """Start the gloo process group a mesh launcher needs, with the rank
+    and world size of ``RANK`` / ``WORLD_SIZE`` and ``init_method`` (the
+    launcher's ``--dist-init``), unless one is started already; True when
+    this call started it.  Without ``RANK`` / ``WORLD_SIZE`` it exits
+    with a message that names ``what`` asked for a mesh and how to run
+    ``command`` under torchrun."""
+    if dist.is_initialized():
+        return False
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        raise SystemExit(
+            f"{what}: every rank needs RANK and WORLD_SIZE to join the "
+            f"process group; run it under torchrun (torchrun --standalone "
+            f"--nproc-per-node N -m {command} ...), or set them and pass "
+            "--dist-init file:///path/to/store")
+    dist.init_process_group("gloo", init_method=init_method,
+                            rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    return True
+
+
+def rank_device(device=None):
+    """A mesh rank's device: the CPU if ``device`` asks for it, else the
+    card ``LOCAL_RANK`` (or ``RANK``) names, modulo the cards there are,
+    made the current device."""
+    if device is not None and torch.device(device).type == "cpu":
+        return device
+    local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", 0)))
+    dev = torch.device("cuda", local % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev

@@ -53,7 +53,6 @@ import contextlib
 import dataclasses
 import io
 import math
-import os
 import time
 
 import numpy as np
@@ -61,6 +60,7 @@ import torch
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.kernels import build
+from repro_torch.launch.mesh import rank_device, start_group
 from repro_torch.models import build_model
 from repro_torch.serve import Engine, ReplicaRouter, ServeConfig, ServeRequest
 from repro_torch.serve.engine import RECURRENT_FAMILIES, RECURRENT_REFUSAL
@@ -96,36 +96,6 @@ def print_profile(prof, wall_s: float, top: int = 15) -> None:
         us = _device_us(e)
         print(f"  {us / 1e3:9.2f} ms {100 * us / max(busy_us, 1e-9):5.1f}% "
               f"x{e.count:<6d} {e.key[:90]}")
-
-
-def _start_group(args) -> bool:
-    """Start the gloo process group a serve mesh needs, unless one is
-    started already; True when this call started it."""
-    import torch.distributed as dist
-    if dist.is_initialized():
-        return False
-    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
-        raise SystemExit(
-            f"--serve-mesh {args.serve_mesh}: every rank needs RANK and "
-            "WORLD_SIZE to join the process group; run it under torchrun "
-            "(torchrun --standalone --nproc-per-node N -m "
-            "repro_torch.launch.serve --serve-mesh N ...), or set them and "
-            "pass --dist-init file:///path/to/store")
-    dist.init_process_group("gloo", init_method=args.dist_init,
-                            rank=int(os.environ["RANK"]),
-                            world_size=int(os.environ["WORLD_SIZE"]))
-    return True
-
-
-def _mesh_device(args):
-    """The rank's device on a mesh: the CPU if asked, else the card
-    ``LOCAL_RANK`` names, modulo the cards there are."""
-    if args.device is not None and torch.device(args.device).type == "cpu":
-        return args.device
-    local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", 0)))
-    dev = torch.device("cuda", local % torch.cuda.device_count())
-    torch.cuda.set_device(dev)
-    return dev
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -179,10 +149,11 @@ def main(argv: list[str] | None = None) -> int:
         // args.page_size + 2))
     if args.serve_mesh == "off":
         return serve(args, cfg, serve_cfg, args.device, None)
-    started = _start_group(args)
+    started = start_group(args.dist_init, f"--serve-mesh {args.serve_mesh}",
+                          "repro_torch.launch.serve --serve-mesh N")
     try:
         import torch.distributed as dist
-        device = _mesh_device(args)
+        device = rank_device(args.device)
         mesh = serve_cfg.build_mesh(cfg, device=device)
         if mesh.get_coordinate() is None:
             print(f"rank {dist.get_rank()}: idle, the {mesh.size()}-rank "

@@ -13,6 +13,7 @@ Conventions (those of ``src/repro/models/layers.py``):
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any
 
@@ -25,6 +26,29 @@ from repro_torch.kernels import ops, ref
 Params = dict[str, Any]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def no_shard(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The models' default activation hook: ``x`` as it is."""
+    return x
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the ``meta`` device, so the
+    initializers, which draw on ``gen.device``, make meta tensors."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def generator(device: torch.device, seed: int) -> torch.Generator:
+    """The seeded ``torch.Generator`` a model's ``init`` draws from, on
+    ``device``; on ``meta`` one that makes tensors of shapes only (JAX's
+    ``jax.eval_shape(model.init)``)."""
+    if device.type == "meta":
+        return _MetaGenerator().manual_seed(int(seed))
+    return torch.Generator(device=device).manual_seed(int(seed))
 
 
 # ---------------------------------------------------------------------------
@@ -215,19 +239,83 @@ def _windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, hq, s, d).to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# batch statistics over data-parallel ranks
+# ---------------------------------------------------------------------------
+
+#: the process groups a batch is split over (:func:`data_parallel`); empty
+#: where this process holds the whole batch
+_DP_GROUPS: tuple = ()
+
+
+@contextlib.contextmanager
+def data_parallel(groups):
+    """Inside, the losses' batch statistics (the cross entropy's masked
+    sum and token count, the MoE router's batch means) are summed over the
+    ranks of ``groups``, each rank holding an equal share of the batch's
+    rows: every rank computes the loss of the whole batch, and the
+    gradients of its rows' share of it (their sum over ``groups`` is the
+    batch's gradient).  ``groups``: one process group per data-parallel
+    mesh axis."""
+    global _DP_GROUPS
+    saved, _DP_GROUPS = _DP_GROUPS, tuple(groups)
+    try:
+        yield
+    finally:
+        _DP_GROUPS = saved
+
+
+class _BatchSum(torch.autograd.Function):
+    """The sum over :data:`_DP_GROUPS`; its backward passes the gradient
+    through, so each rank back-propagates into its own rows only."""
+
+    @staticmethod
+    def forward(ctx, x):
+        import torch.distributed as dist
+        out = x.clone()
+        for g in _DP_GROUPS:
+            dist.all_reduce(out, group=g)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the data-parallel ranks (:func:`data_parallel`);
+    ``x`` itself outside."""
+    return _BatchSum.apply(x) if _DP_GROUPS else x
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the data-parallel ranks of a mean over each rank's
+    equal share of the batch: the batch's mean; ``x`` itself outside
+    :func:`data_parallel`."""
+    if not _DP_GROUPS:
+        return x
+    import torch.distributed as dist
+    return batch_sum(x) / math.prod(dist.get_world_size(g)
+                                    for g in _DP_GROUPS)
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean causal-LM cross entropy of ``logits [B, S, V]`` against
     ``labels [B, S]``, f32 statistics; a ``mask`` weights the tokens and
-    divides by ``max(mask.sum(), 1)`` (JAX ``layers.softmax_xent``)."""
+    divides by ``max(mask.sum(), 1)`` (JAX ``layers.softmax_xent``).
+    Under :func:`data_parallel` the mean is the whole batch's."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     nll = lse - gold
-    if mask is not None:
-        mask = mask.float()
-        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
-    return nll.mean()
+    if mask is None:
+        return batch_mean(nll.mean())
+    mask = mask.float()
+    num, den = (nll * mask).sum(), mask.sum()
+    if _DP_GROUPS:
+        num, den = batch_sum(torch.stack([num, den])).unbind()
+    return num / den.clamp(min=1.0)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -58,9 +58,13 @@ def moe_init(gen: torch.Generator, cfg, dtype) -> Params:
     }
 
 
-def router_topk(params: Params, x: torch.Tensor, k: int):
+def router_topk(params: Params, x: torch.Tensor, k: int, *,
+                batch: bool = False):
     """Returns (expert_ids [T, k] int64, gates [T, k] f32, aux_loss scalar
-    f32, the Switch-style load-balance loss kept for training)."""
+    f32, the Switch-style load-balance loss kept for training).  ``batch``:
+    the T tokens are a batch's, whose means are taken over every
+    data-parallel rank's tokens (``layers.batch_mean``) before their
+    product."""
     logits = x.float() @ params["router"]                       # [T, E]
     e = logits.shape[-1]
     gates_all = torch.softmax(logits, dim=-1)
@@ -70,7 +74,10 @@ def router_topk(params: Params, x: torch.Tensor, k: int):
     density = torch.zeros((e,), dtype=torch.float32, device=x.device
                           ).index_add_(0, flat, torch.ones_like(
                               flat, dtype=torch.float32)) / flat.numel()
-    aux = e * torch.sum(density * gates_all.mean(dim=0))
+    means = torch.stack([density, gates_all.mean(dim=0)])
+    if batch:
+        means = L.batch_mean(means)
+    aux = e * torch.sum(means[0] * means[1])
     return expert_ids, gates, aux
 
 
@@ -127,7 +134,7 @@ def moe_apply_sorted_rows(params: Params, x: torch.Tensor, *,
     outs, auxs = zip(*(moe_apply_sorted(
         params, row, num_experts=num_experts, k=k,
         capacity_factor=capacity_factor) for row in x))
-    return torch.stack(outs), torch.stack(auxs).mean()
+    return torch.stack(outs), L.batch_mean(torch.stack(auxs).mean())
 
 
 def moe_apply_ragged(params: Params, x: torch.Tensor, *, num_experts: int,
@@ -135,7 +142,7 @@ def moe_apply_ragged(params: Params, x: torch.Tensor, *, num_experts: int,
     """Drop-free grouped-product dispatch of ``x [T, D]`` through
     ``ops.ragged_dot``.  Returns (out [T, D], aux)."""
     t, d = x.shape
-    expert_ids, gates, aux = router_topk(params, x, k)
+    expert_ids, gates, aux = router_topk(params, x, k, batch=True)
     flat_e = expert_ids.reshape(-1)                             # [T*k]
     order = torch.argsort(flat_e, stable=True)
     xs = x[order // k]                                          # [T*k, D]
@@ -157,7 +164,7 @@ def moe_apply_dense(params: Params, x: torch.Tensor, *, num_experts: int,
                     k: int):
     """O(E T) oracle: every expert computes every token; mask and
     combine.  Exact top-k, no capacity."""
-    expert_ids, gates, aux = router_topk(params, x, k)
+    expert_ids, gates, aux = router_topk(params, x, k, batch=True)
     up = torch.einsum("td,edf->etf", x, params["w_up"])
     gate = torch.einsum("td,edf->etf", x, params["w_gate"])
     h2 = torch.einsum("etf,efd->etd", F.silu(gate) * up, params["w_down"])

@@ -78,7 +78,7 @@ class RecurrentGemmaLM:
     """The ``hybrid_rglru`` family on one device."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
-                 use_kernels: bool = True, remat: bool = True):
+                 use_kernels: bool = True, remat: bool = True, shard=None):
         if cfg.family != "hybrid_rglru":
             raise ValueError(f"RecurrentGemmaLM serves the hybrid_rglru "
                              f"family, got {cfg.family!r}")
@@ -90,6 +90,8 @@ class RecurrentGemmaLM:
         #: activation checkpointing under grad of each superblock and each
         #: tail layer (JAX's ``jax.checkpoint`` of its two scan bodies)
         self.remat = remat
+        #: the activation hook ``shard(x, name)`` at JAX's sites
+        self.shard = shard or L.no_shard
         self.dtype = L.DTYPES[cfg.param_dtype]
         self.pattern = cfg._full_pattern()
         n_super = cfg.num_layers // len(cfg.block_pattern)
@@ -141,7 +143,7 @@ class RecurrentGemmaLM:
         with the JAX package's distributions (not its numbers): ``lam``
         uniform in [0.4, 0.8) in f32, ``conv_w`` normal x 0.1."""
         cfg, dt = self.cfg, self.dtype
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        gen = L.generator(self.device, seed)
         return {
             "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
             "layers": [self._init_recurrent(gen) if kind == "rglru"
@@ -232,7 +234,11 @@ class RecurrentGemmaLM:
                       conv0: torch.Tensor) -> torch.Tensor:
         """The training forward of the layers ``first, first + 1, ...``: a
         superblock (``rec0, rec1, attn``) or one tail layer, the bodies of
-        JAX's two scans (``rglru.py:223-247``)."""
+        JAX's two scans (``rglru.py:223-247``); the activation hook at
+        a superblock's start, as there."""
+        n = len(self.cfg.block_pattern)
+        if first < len(self.pattern) // n * n:
+            x = self.shard(x, "act_btd")
         for kind, p in zip(self.pattern[first:], layers):
             if kind == "rglru":
                 x = self._recurrent_block(p, x, h0, conv0)[0]
@@ -268,8 +274,8 @@ class RecurrentGemmaLM:
         ``batch["labels"]`` (``batch["mask"]`` optional); returns (xent,
         {"xent", "aux": 0})."""
         h = self.forward(params, batch["tokens"])
-        xent = L.softmax_xent(h @ params["head"], batch["labels"],
-                              batch.get("mask"))
+        xent = L.softmax_xent(self.shard(h @ params["head"], "logits"),
+                              batch["labels"], batch.get("mask"))
         return xent, {"xent": xent, "aux": xent.new_zeros(())}
 
     @staticmethod

@@ -74,7 +74,7 @@ class RWKV6LM:
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  use_kernels: bool = True, tm_impl: str = "sequential",
-                 remat: bool = True):
+                 remat: bool = True, shard=None):
         if cfg.family != "rwkv6":
             raise ValueError(f"RWKV6LM serves the rwkv6 family, got "
                              f"{cfg.family!r}")
@@ -90,6 +90,8 @@ class RWKV6LM:
         #: activation checkpointing of each layer under grad (JAX's
         #: ``jax.checkpoint`` of its scan body)
         self.remat = remat
+        #: the activation hook ``shard(x, name)`` at JAX's sites
+        self.shard = shard or L.no_shard
         self.dtype = L.DTYPES[cfg.param_dtype]
 
     # ------------------------------------------------------------------
@@ -139,7 +141,7 @@ class RWKV6LM:
         with the JAX package's distributions (not its numbers):
         ``w_lora_B`` starts at zero, as there."""
         cfg, dt = self.cfg, self.dtype
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        gen = L.generator(self.device, seed)
         return {
             "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
             "blocks": [self._init_block(gen) for _ in range(cfg.num_layers)],
@@ -203,6 +205,7 @@ class RWKV6LM:
 
     def _block(self, block_p: Params, x, tm_prev, cm_prev, wkv, wkv_out):
         cfg = self.cfg
+        x = self.shard(x, "act_btd")
         xn = L.rmsnorm(block_p["ln1"], x, cfg.norm_eps)
         tm_out, tm_new, s = self._time_mix(block_p, xn, tm_prev, wkv,
                                            wkv_out)
@@ -253,8 +256,8 @@ class RWKV6LM:
         ``batch["labels"]`` (``batch["mask"]`` optional) from a zero state;
         returns (xent, {"xent", "aux": 0})."""
         h, _ = self.forward(params, batch["tokens"])
-        xent = L.softmax_xent(h @ params["head"], batch["labels"],
-                              batch.get("mask"))
+        xent = L.softmax_xent(self.shard(h @ params["head"], "logits"),
+                              batch["labels"], batch.get("mask"))
         return xent, {"xent": xent, "aux": xent.new_zeros(())}
 
     # ------------------------------------------------------------------

@@ -110,7 +110,7 @@ class TransformerLM:
     def __init__(self, cfg: ModelConfig, *, device=None,
                  use_kernels: bool = True, kv_dtype: str = "native",
                  capacity_factor: float = 1.25, moe_dispatch: str = "sorted",
-                 remat: bool = True, kernel_mesh=None):
+                 remat: bool = True, kernel_mesh=None, shard=None):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not served by TransformerLM: "
@@ -136,6 +136,9 @@ class TransformerLM:
         #: ``jax.checkpoint`` of its scan body)
         self.remat = remat
         self.kernel_mesh = kernel_mesh
+        #: the activation hook ``shard(x, name)`` at JAX's sites and with
+        #: JAX's names (``launch.sharding.make_shard_hook``)
+        self.shard = shard or L.no_shard
         self.dtype = L.DTYPES[cfg.param_dtype]
         #: layers a superblock; only its last one routes (JAX ``_is_moe_sub``)
         self.moe_every = cfg.moe_every if cfg.family == "moe" else 1
@@ -175,7 +178,7 @@ class TransformerLM:
         """Random weights from a seeded ``torch.Generator`` on the device,
         with the JAX package's distributions (not its numbers)."""
         cfg, dt = self.cfg, self.dtype
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        gen = L.generator(self.device, seed)
         blocks = []
         for li in range(cfg.num_layers):
             blocks.append({
@@ -233,12 +236,13 @@ class TransformerLM:
         ``src/repro/models/transformer.py:171-206``).  Returns (x, the
         layer's router aux loss, 0 for a dense layer)."""
         cfg = self.cfg
+        x = self.shard(x, "act_btd")
         x = x + L.attention_train(
             p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), positions, cfg,
             use_kernel=self.use_kernels)
         hn = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
         if not is_moe:
-            return (x + L.swiglu(p["mlp"], hn),
+            return (self.shard(x + L.swiglu(p["mlp"], hn), "act_btd"),
                     x.new_zeros((), dtype=torch.float32))
         b, s, d = hn.shape
         moe_kw = dict(num_experts=cfg.num_experts, k=cfg.experts_per_token)
@@ -246,7 +250,7 @@ class TransformerLM:
             # per-row groups, capacity per row: drops past it
             ff, aux = M.moe_apply_sorted_rows(
                 p["mlp"], hn, capacity_factor=self.capacity_factor, **moe_kw)
-            return x + ff, aux
+            return self.shard(x + ff, "act_btd"), aux
         if self.moe_dispatch == "ragged":
             ff, aux = M.moe_apply_ragged(p["mlp"], hn.reshape(b * s, d),
                                          use_kernel=self.use_kernels,
@@ -254,7 +258,7 @@ class TransformerLM:
         else:
             ff, aux = M.moe_apply_dense(p["mlp"], hn.reshape(b * s, d),
                                         **moe_kw)
-        return x + ff.reshape(b, s, d), aux
+        return self.shard(x + ff.reshape(b, s, d), "act_btd"), aux
 
     def _superblock_apply(self, blocks: list, x: torch.Tensor,
                           positions: torch.Tensor, first: int):
@@ -303,7 +307,7 @@ class TransformerLM:
         audio averages the cross entropy over its codebook heads."""
         h, aux = self.forward(params, batch["tokens"], batch.get("positions"),
                               batch.get("vision_embeds"))
-        logits = self.logits_fn(params, h)
+        logits = self.shard(self.logits_fn(params, h), "logits")
         mask = batch.get("mask")
         if self.token_shape:        # logits [B, S, K, V], labels [B, S, K]
             xent = torch.stack([

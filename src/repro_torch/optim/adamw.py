@@ -12,6 +12,11 @@ they are given.  The arithmetic and casts are JAX's, not
   * ``p - lr (m_hat / (sqrt(v_hat) + eps) + wd p)`` in f32, cast back to
     the parameter's dtype; the moments are stored in their own dtype
     (f32, or bf16 under ``moment_dtype="bfloat16"``).
+
+Sharded trees (``DTensor`` leaves, laid out by ``launch.sharding``) are
+updated shard by shard: each rank steps its local slices, and the global
+norm sums each rank's local squares over the mesh, counting a slice that
+is replicated over a mesh axis once.
 """
 
 from __future__ import annotations
@@ -21,6 +26,9 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ops import local_of as local
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -55,6 +63,14 @@ def tree_unflatten(tree: Any, leaves) -> Any:
     return tree_map(lambda _: next(it), tree)
 
 
+def like(x: torch.Tensor, new_local: torch.Tensor) -> torch.Tensor:
+    """``new_local`` laid out as ``x`` is: a ``DTensor`` of ``x``'s mesh,
+    placements and global shape where ``x`` is one, else itself."""
+    if not ops.is_dtensor(x):
+        return new_local
+    return ops.wrap_local(new_local, x.device_mesh, x.placements, x.shape)
+
+
 class AdamWState(NamedTuple):
     step: torch.Tensor       # scalar int32
     m: Any                   # tree like params
@@ -85,9 +101,10 @@ def adamw_init(params: Any, moment_dtype: str = "float32") -> AdamWState:
     leaf = tree_leaves(params)[0]
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+        x = local(p)
+        return like(p, torch.zeros(x.shape, dtype=dt, device=x.device))
     return AdamWState(
-        step=torch.zeros((), dtype=torch.int32, device=leaf.device),
+        step=torch.zeros((), dtype=torch.int32, device=local(leaf).device),
         m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
@@ -103,10 +120,35 @@ def cosine_schedule(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
     return cfg.base_lr * warm * (floor + (1 - floor) * cos)
 
 
+def _first_copy(x) -> bool:
+    """Whether this rank's slice of ``DTensor`` ``x`` is the one counted:
+    coordinate 0 on every mesh axis that replicates it."""
+    from torch.distributed.tensor import Shard
+    coord = x.device_mesh.get_coordinate()
+    return all(c == 0 for c, p in zip(coord, x.placements)
+               if not isinstance(p, Shard))
+
+
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+    """sqrt of the sum of every leaf's squares, in f32.  A tree of
+    ``DTensor`` leaves (all on one mesh) counts each distinct slice once:
+    the local squares of the slices each rank counts, summed over the
+    mesh in one all-reduce."""
+    leaves = tree_leaves(tree)
+    sharded = [ops.is_dtensor(x) for x in leaves]
+    if not any(sharded):
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in leaves))
+    if not all(sharded):
+        raise ValueError("global_norm: a tree of DTensors and plain "
+                         "tensors; lay every leaf out on the mesh")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import mesh_group
+    total = sum(torch.sum(torch.square(local(x).float())) if _first_copy(x)
+                else local(x).new_zeros((), dtype=torch.float32)
+                for x in leaves)
+    dist.all_reduce(total, group=mesh_group(leaves[0].device_mesh))
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads: Any, max_norm: float):
@@ -114,16 +156,18 @@ def clip_by_global_norm(grads: Any, max_norm: float):
     norm before clipping)."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+    return tree_map(lambda g: like(g, local(g) * scale.to(g.dtype)),
+                    grads), norm
 
 
 @torch.no_grad()
 def adamw_update(grads: Any, state: AdamWState, params: Any,
                  cfg: AdamWConfig):
     """One AdamW step.  Returns (new params, new state, {"lr",
-    "grad_norm"}); grads may be low precision."""
+    "grad_norm"}); grads may be low precision.  Sharded trees step each
+    rank's slices; ``params``, ``grads`` and the moments share a layout."""
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    step = state.step + 1
+    step = local(state.step) + 1
     lr = cosine_schedule(step, cfg)
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1.0 - torch.pow(b1, step.float())
@@ -131,19 +175,20 @@ def adamw_update(grads: Any, state: AdamWState, params: Any,
 
     new_p, new_m, new_v = [], [], []
 
-    def upd(p, g, m, v):
+    def upd(p_, g_, m_, v_):
+        p, g, m, v = local(p_), local(g_), local(m_), local(v_)
         g32 = g.float()
         m_new = b1 * m.float() + (1 - b1) * g32
         v_new = b2 * v.float() + (1 - b2) * g32 * g32
         update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
         update = update + cfg.weight_decay * p.float()
         p_new = p.float() - lr * update
-        new_p.append(p_new.to(p.dtype))
-        new_m.append(m_new.to(m.dtype))
-        new_v.append(v_new.to(v.dtype))
+        new_p.append(like(p_, p_new.to(p.dtype)))
+        new_m.append(like(m_, m_new.to(m.dtype)))
+        new_v.append(like(v_, v_new.to(v.dtype)))
 
     tree_map(upd, params, grads, state.m, state.v)
     return (tree_unflatten(params, new_p),
-            AdamWState(step, tree_unflatten(params, new_m),
+            AdamWState(like(state.step, step), tree_unflatten(params, new_m),
                        tree_unflatten(params, new_v)),
             {"lr": lr, "grad_norm": gnorm})

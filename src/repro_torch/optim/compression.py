@@ -5,8 +5,9 @@ Per-tensor symmetric int8 quantization; the quantization residual is
 carried into the next step, so the accumulated update is unbiased.  The
 arithmetic is JAX's op for op (``torch.round`` rounds half to even, as
 ``jnp.round`` does), so a tensor quantizes to the same bytes in both
-packages.  JAX's ``compressed_psum_tree``, the int8 all-reduce over a
-mesh axis, belongs with the sharded executor, where a collective runs.
+packages.  :func:`compressed_psum_tree` is the int8 all-reduce over a
+mesh axis, with JAX's arithmetic in JAX's order; as in JAX, no train step
+calls it.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.optim.adamw import tree_map
+from repro_torch.optim.adamw import tree_leaves, tree_map, tree_unflatten
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -43,3 +44,34 @@ def init_error_state(grads: Any) -> Any:
     """Zero f32 residuals like ``grads``."""
     return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
                                           device=g.device), grads)
+
+
+def compressed_psum_tree(grads: Any, err: Any, mesh, axis: str = "data"
+                         ) -> tuple[Any, Any]:
+    """All-reduce ``grads`` over the mesh ``axis`` in int8 with error
+    feedback; returns (the mean of every rank's dequantized contribution
+    in each gradient's dtype, the new f32 residuals).
+
+    Each rank quantizes its ``gradient + residual`` per tensor, the int8
+    payloads are summed in int32, the f32 scales averaged, and the sum
+    dequantized with the mean scale (JAX's ``shard_map`` body,
+    ``src/repro/optim/compression.py:53-86``): ``qsum * (psum(scale) / n)
+    / n``.  The residual is the rank's own quantization error."""
+    import torch.distributed as dist
+    group = mesh.get_group(axis)
+    n = float(dist.get_world_size(group))
+
+    def one(g, e):
+        target = g.float() + e
+        q, scale = quantize_int8(target)
+        qsum = q.to(torch.int32)
+        dist.all_reduce(qsum, group=group)
+        ssum = scale.clone()
+        dist.all_reduce(ssum, group=group)
+        ssum = ssum / n
+        mean = qsum.float() * ssum / n
+        return mean.to(g.dtype), target - dequantize_int8(q, scale)
+
+    outs = [one(g, e) for g, e in zip(tree_leaves(grads), tree_leaves(err))]
+    return (tree_unflatten(grads, [o[0] for o in outs]),
+            tree_unflatten(grads, [o[1] for o in outs]))

@@ -511,13 +511,16 @@ def test_vlm_accumulation_refused_in_both():
 def test_train_step_refusals_and_inputs_unchanged():
     cfg = get_config("granite-8b", reduced=True)
     model = build_model(cfg, device="cpu", use_kernels=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        make_train_step(model, AdamWConfig(), grad_shardings={})
     params = model.init(0)
     before = tree_map(torch.clone, params)
     opt = adamw_init(params)
     batch = host(SyntheticLMStream(cfg, ShapeConfig(
         "t", 8, 3, "train")).batch(0))
+    # grad_shardings lays the gradients out on a mesh: whole parameters
+    # are refused when the step runs
+    with pytest.raises(ValueError, match="as DTensors"):
+        make_train_step(model, AdamWConfig(), grad_shardings={})(
+            params, opt, batch)
     with pytest.raises(ValueError, match="accum_steps 2"):
         make_train_step(model, AdamWConfig(), accum_steps=2)(params, opt,
                                                              batch)
@@ -847,8 +850,13 @@ def test_launcher_accumulates(tmp_path, sigterm_handler):
 
 
 @pytest.mark.parametrize("flag", ["--data", "--model"])
-def test_launcher_refuses_a_mesh(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+def test_launcher_refuses_a_mesh(tmp_path, flag, monkeypatch):
+    """A mesh with no process group and no ``RANK`` / ``WORLD_SIZE``: the
+    launcher exits with a message that names torchrun (the mesh runs are
+    ``tests/test_torch_train_mesh.py``'s)."""
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit, match=f"{flag} 2.*torchrun"):
         launch(tmp_path, "--steps", "1", flag, "2")
 
 
@@ -901,6 +909,7 @@ def test_launcher_flags_are_jax_flags_and_device():
     jax_flags = argparse_defaults(ROOT / "src" / "repro" / "launch"
                                   / "train.py")
     assert ours.pop("--device") is None
+    assert ours.pop("--dist-init") == "env://"
     assert "repro_torch_ckpt" in ours.pop("--ckpt-dir")
     jax_flags.pop("--ckpt-dir")
     assert ours == jax_flags
