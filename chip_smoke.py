@@ -256,9 +256,9 @@ printing its lines; any failure exits non-zero before the last line:
    beside its plain version, ``torch._grouped_mm`` and its bound, the
    route printed at each shape;
 12b. training: the loop first — ``launch/train_100m.main`` at its
-   defaults but 150 steps (lm-100m, 79.95 M f32 parameters, B 8 x S 256,
+   defaults but 100 steps (lm-100m, 79.95 M f32 parameters, B 8 x S 256,
    accumulation 2, remat: the loss drop > 0.5, printed, tokens/s, peak
-   memory, 0 kernel launches, ~0.96 GB checkpoints at 100 and 150),
+   memory, 0 kernel launches, a ~0.96 GB checkpoint at 100),
    lm-100m's resume (10
    straight steps against 5 + a new ``Trainer`` resuming at 5 + 5, bit
    for bit, or the nondeterministic ops named and the resume held at two
@@ -274,7 +274,8 @@ printing its lines; any failure exits non-zero before the last line:
    first, no hand-written kernel launched; per-step wall (median of steps
    2-8) and peak allocated memory, the forward + backward apart from the
    update; one more step traced in three parts (forward, backward, AdamW:
-   busy share, device time by kernel, device operations); 2 steps with
+   busy share, device time by kernel, device operations) and one with
+   the profiler's FLOPs (``with_flops``, for 17); 2 steps with
    ``remat=True`` and ``accum_steps=2`` (wall and peak beside the steps
    without); one ``AsyncCheckpointer`` save of ``{params, opt}`` (13.84
    GB: the snapshot and the write timed apart, the free space of both
@@ -342,7 +343,18 @@ printing its lines; any failure exits non-zero before the last line:
    before and read after (the f32 products on the CUDA-core route, the
    gate projection on ``wgmma``), each against its plain version, then
    the largest and the n = 181 product timed beside ``torch.matmul``;
-17. the kernel JSON line, then the device JSON line, last.
+17. the dry-run (``dryrun_phase``): ``python -m repro_torch.launch.dryrun
+   --arch qwen2-7b --shape decode_32k --force`` in a child (a fake
+   256-rank group, meta tensors: status ``ok`` required, its summary row
+   printed), beside the estimator's two parts, each a child
+   (``--dryrun-estimate train|mesh OUT``), all three at once:
+   ``launch/op_cost.py`` and ``MemTracker`` on meta for 12b's granite-moe
+   step (predicted forward + backward and update peaks, FLOPs and the
+   roofline bound, printed beside 12b's measured peaks, the profiler's
+   FLOPs and the step wall) and for the mesh training step of 3a on a
+   fake 8-rank group, whose collective bytes must equal rank 0's
+   ``step.comm`` on the card by ``op_cost``'s stated relation;
+18. the kernel JSON line, then the device JSON line, last.
 """
 
 from __future__ import annotations
@@ -395,6 +407,11 @@ KERNELS = {
 
 #: the card's name and power limit (``nvidia-smi``), set by :func:`probe`
 CARD = "not probed"
+#: what earlier phases read on the card for the dry-run's estimator
+#: (:func:`dryrun_phase`): ``train`` (the granite-moe steps' peaks and
+#: wall), ``train_profiler_flops``, ``mesh_comm`` (rank 0's ``step.comm``
+#: of its last mesh training step)
+CARD_READINGS: dict = {}
 
 #: full-width serve models whose depth is cut to keep the script inside
 #: 1,200 s on a slower machine (widths and shapes of every kernel call
@@ -5554,6 +5571,10 @@ def train_phase() -> list[dict]:
     require(losses == direct, f"train: make_train_step losses {losses} "
             f"differ from the written-out loop's {direct}")
     peak_gb = max(max(p[1], p[3]) for p in split.parts)
+    CARD_READINGS["train"] = dict(
+        fb_gb=max(p[1] for p in split.parts),
+        up_gb=max(p[3] for p in split.parts),
+        step_ms=statistics.median(walls[1:]))
     ln_v = math.log(cfg.vocab_size)
     require(math.isfinite(losses[0]) and abs(losses[0] - ln_v) <= 1.5,
             f"train: first loss {losses[0]} not within 1.5 of ln V {ln_v:.2f}")
@@ -5731,6 +5752,16 @@ def train_profile(model, params, opt, batch, ocfg) -> None:
                     if e.device_type != DeviceType.CPU)
         log(f"train profile, {part}: {ops_n} device operations [{CARD}]")
         print_profile(prof, wall, top=8)
+    # one more step with the profiler's FLOPs (its formulas: matmuls, mul
+    # and add), for the dry-run's estimator (dryrun_phase)
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True,
+                 with_flops=True) as prof:
+        forward()
+        backward()
+        update()
+        torch.cuda.synchronize()
+    CARD_READINGS["train_profiler_flops"] = sum(
+        e.flops for e in prof.key_averages())
 
 
 def train_eval(cfg, model, kmodel, params, batch) -> list[dict]:
@@ -5822,16 +5853,16 @@ RESUME = dict(steps=10, stop=5)
 
 
 #: lm-100m's steps in ``train_100m`` (its default is 300): its checkpoints
-#: fall at 100 and at the last step
-LM100M_STEPS = 150
+#: fall at 100 and at the last step (150 until the dry-run phase came)
+LM100M_STEPS = 100
 
 
 def lm100m_phase() -> None:
     """``launch/train_100m.main()`` on the card at its defaults but
     :data:`LM100M_STEPS` steps (lm-100m, 79.95 M f32 parameters, B 8 x S
     256 at ``accum_steps`` 2, remat): the loss drop > 0.5 (printed), 0
-    hand-written kernel launches, checkpoints of ~0.96 GB at 100 and 150;
-    tokens/s and peak allocated memory printed."""
+    hand-written kernel launches, checkpoints of ~0.96 GB at 100 and the
+    last step; tokens/s and peak allocated memory printed."""
     import io
     import math
     import contextlib
@@ -5856,10 +5887,10 @@ def lm100m_phase() -> None:
     drop = hist[0]["loss"] - hist[-1]["loss"]
     require(drop > 0.5, f"lm-100m: loss drop {drop} <= 0.5")
     ckpts = res["checkpoints"]
-    require([s for s, _ in ckpts] == [100, LM100M_STEPS]
+    want = sorted({100, LM100M_STEPS})
+    require([s for s, _ in ckpts] == want
             and all(0.9e9 < n < 1.0e9 for _, n in ckpts),
-            f"lm-100m: checkpoints {ckpts}, want steps 100/{LM100M_STEPS} "
-            "of ~0.96 GB")
+            f"lm-100m: checkpoints {ckpts}, want steps {want} of ~0.96 GB")
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"lm-100m full width (12 layers, d 512, 79.95 M f32 parameters, B 8 "
         f"x S 256, accum 2, remat): loss {hist[0]['loss']:.4f} -> "
@@ -6580,6 +6611,7 @@ def mesh_train_report(reports) -> None:
     import torch
     from repro_torch.optim import AdamWConfig, cosine_schedule
     mt, r0 = MESH_TRAIN, reports[0]["train"]
+    CARD_READINGS["mesh_comm"] = dict(r0["comm"][-1])
     r0 = dict(r0, shard_rows=reports[1]["train"]["shard_rows"])
     ocfg = AdamWConfig(**MESH_TRAIN_OPT)
     lr_sum = sum(float(cosine_schedule(torch.tensor(s + 1), ocfg))
@@ -6872,6 +6904,178 @@ def rwkv_phases() -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the dry-run: launch/dryrun.py, and its estimator against the card
+# ---------------------------------------------------------------------------
+
+
+#: the cell the phase runs through ``python -m repro_torch.launch.dryrun``
+DRYRUN_CELL = ("qwen2-7b", "decode_32k")
+#: seconds the phase's child processes may take, all together
+DRYRUN_TIMEOUT_S = 240
+
+
+def dryrun_estimate(part: str) -> dict:
+    """The estimator on ``meta`` (no card; ``--dryrun-estimate PART OUT``
+    runs it in a child, since ``"mesh"`` starts a fake process group):
+
+    * ``"train"``: 12b's granite-moe step (full width, bf16, f32 moments,
+      ``remat=False``, the sorted dispatch, B x S of :data:`TRAIN_FULL`,
+      no mask) through ``op_cost`` and ``MemTracker``: the argument bytes
+      (parameters, moments, batch), the forward + backward's peak above
+      them (``value_and_grad``), the gradients' bytes and the update's peak
+      above the arguments and gradients (``adamw_update``), FLOPs (all and
+      matmul), bytes, and the roofline bound on one card;
+    * ``"mesh"``: 3a's mesh training step (:data:`MESH_TRAIN`'s
+      granite-moe, f32, on (data 4, model 2)) on a fake 8-rank group:
+      ``op_cost``'s collective bytes by kind, the step's own ``step.comm``
+      there, and the bytes of the statistics' all-reduces (``op_cost``'s
+      relation)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import analysis, op_cost, specs
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.train import value_and_grad
+    f = TRAIN_FULL
+    cfg = get_config(f["arch"])
+    if part == "mesh":
+        import torch.distributed as dist
+        from repro_torch.launch.dryrun import start_fake_group
+        from repro_torch.launch.mesh import make_host_mesh
+        mt = MESH_TRAIN
+        ranks = mt["mesh"][0] * mt["mesh"][1]
+        start_fake_group(ranks)
+        try:
+            mcfg = dataclasses.replace(cfg, num_layers=mt["layers"],
+                                       param_dtype="float32")
+            case = specs.train_case(
+                mcfg, ShapeConfig("mesh", mt["seq"], mt["batch"], "train"),
+                make_host_mesh(*mt["mesh"], device="cpu"))
+            costs, _ = op_cost.count(case.fn, *case.args)
+        finally:
+            dist.destroy_process_group()
+        n_moe = sum(cfg.family == "moe" and i % cfg.moe_every
+                    == cfg.moe_every - 1 for i in range(mt["layers"]))
+        return dict(by_kind=costs.coll_by_kind, counts=costs.coll_counts,
+                    ranks=ranks, comm=dict(case.fn.comm),
+                    stats_b=op_cost.stat_bytes(n_moe))
+    from repro_torch.launch.dryrun import peak_above
+    model = build_model(cfg, device="meta", use_kernels=False,
+                        moe_dispatch="sorted", remat=False)
+    params = model.init(0)
+    opt = adamw_init(params)
+    tok = torch.empty((f["batch"], f["seq"]), dtype=torch.int64,
+                      device="meta")
+    batch = {"tokens": tok, "labels": torch.empty_like(tok)}
+    args = (params, opt, batch)
+    (c_fb, (_, _, grads)), fb_peak = peak_above(
+        args, op_cost.count, value_and_grad, model, params, batch)
+    (c_up, _), up_peak = peak_above(
+        (args, grads), op_cost.count, adamw_update, grads, opt, params,
+        AdamWConfig(**TRAIN_OPT))
+    flops = c_fb.flops + c_up.flops
+    nbytes = c_fb.bytes + c_up.bytes
+    terms = analysis.roofline(
+        {"flops": flops, "bytes accessed": nbytes},
+        analysis.CollectiveStats({}, {}), chips=1,
+        model_flops=6.0 * cfg.active_param_count() * f["batch"] * f["seq"])
+    return dict(args_b=op_cost.tree_bytes(args), fb_peak_b=fb_peak,
+                grads_b=op_cost.tree_bytes(grads), up_peak_b=up_peak,
+                flops=flops, matmul_flops=c_fb.matmul_flops
+                + c_up.matmul_flops, bytes=nbytes, bound_s=terms.bound_s,
+                dominant=terms.dominant)
+
+
+def dryrun_phase() -> None:
+    """Three children at once, each timed: :data:`DRYRUN_CELL` through
+    the dry-run's CLI (status ``ok`` required, its summary row printed)
+    and the two parts of the estimator (:func:`dryrun_estimate`), held to
+    what 3a and 12b read on the card: the mesh step's collective bytes
+    must equal rank 0's ``step.comm`` (all-gathers x (n - 1) / n ==
+    gathered; all-reduces == reduced + the statistics' bytes); the
+    granite-moe step's predicted peaks, FLOPs and bound are printed beside
+    the card's."""
+    arch, shape = DRYRUN_CELL
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    cmds = {"cell": [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", shape, "--force"]}
+    for part in ("train", "mesh"):
+        cmds[part] = [sys.executable, str(ROOT / "chip_smoke.py"),
+                      "--dryrun-estimate", part, str(out / f"{part}.json")]
+    procs = {k: subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True,
+                                 env=dict(os.environ, PYTHONPATH=str(SRC)))
+             for k, c in cmds.items()}
+    walls, outs = {}, {}
+    try:
+        for k, p in procs.items():
+            left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                outs[k], err = p.communicate(timeout=max(left, 1))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"dryrun: {k} did not finish in "
+                                   f"{DRYRUN_TIMEOUT_S} s") from None
+            walls[k] = time.perf_counter() - t0
+            require(p.returncode == 0, f"dryrun {k}: exited "
+                    f"{p.returncode}:\n{err[-3000:]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cell = json.loads((ROOT / "experiments" / "dryrun_torch" /
+                       f"{arch}__{shape}__pod16x16.json").read_text())
+    require(cell["status"] == "ok", f"dryrun: {arch} x {shape} is "
+            f"{cell['status']}: {cell.get('error')}")
+    for line in outs["cell"].strip().splitlines()[-2:]:
+        log(f"  dryrun| {line}")
+    r, mem = cell["roofline"], cell["memory"]
+    log(f"dryrun {arch} x {shape}: rank 0 of a fake 256-rank group on meta "
+        f"tensors in {cell['trace_s']} s: {cell['cost']['flops']:.4g} "
+        f"FLOPs, {cell['cost']['bytes accessed']:.4g} B, collectives "
+        f"{json.dumps(cell['collectives']['bytes_by_kind'])} B, roofline "
+        f"{r['compute_s']:.4g} / {r['memory_s']:.4g} / "
+        f"{r['collective_s']:.4g} s (compute / memory / collective: "
+        f"{r['dominant']}), memory a rank "
+        f"{(mem['argument_bytes'] + mem['temp_bytes']) / 1e9:.2f} GB "
+        f"(H100 SXM constants)")
+    m = json.loads((out / "mesh.json").read_text())
+    card = CARD_READINGS["mesh_comm"]
+    n = m["ranks"]
+    gathered = m["by_kind"]["all-gather"] * (n - 1) // n
+    reduced = m["by_kind"]["all-reduce"] - m["stats_b"]
+    log(f"dryrun estimate, mesh training step (fake {n}-rank group, meta): "
+        f"all-gathers {m['by_kind']['all-gather']} B x {n - 1}/{n} = "
+        f"{gathered} B against step.comm on the card {card['gathered']} B; "
+        f"all-reduces {m['by_kind']['all-reduce']} B - statistics "
+        f"{m['stats_b']} B = {reduced} B against {card['reduced']} B; "
+        f"counts {json.dumps(m['counts'])} [{CARD}]")
+    require(gathered == card["gathered"] and reduced == card["reduced"]
+            and m["comm"] == card,
+            f"dryrun estimate: the mesh step's collective bytes {m} differ "
+            f"from step.comm on the card {card}")
+    t = json.loads((out / "train.json").read_text())
+    c = CARD_READINGS["train"]
+    fb_gb = (t["args_b"] + t["fb_peak_b"]) / 1e9
+    up_gb = (t["args_b"] + t["grads_b"] + t["up_peak_b"]) / 1e9
+    prof = CARD_READINGS["train_profiler_flops"]
+    log(f"dryrun estimate, granite-moe train step (B {TRAIN_FULL['batch']} "
+        f"x S {TRAIN_FULL['seq']}, remat off, meta): forward + backward "
+        f"peak {fb_gb:.2f} GB predicted against {c['fb_gb']:.2f} GB on the "
+        f"card; update peak {up_gb:.2f} GB against {c['up_gb']:.2f} GB; "
+        f"FLOPs {t['flops']:.4g} (matmul {t['matmul_flops']:.4g}) against "
+        f"the profiler's {prof:.4g}; roofline bound {t['bound_s'] * 1e3:.2f} "
+        f"ms ({t['dominant']}) against the step wall {c['step_ms']:.1f} ms "
+        f"({t['bound_s'] * 1e3 / c['step_ms']:.1%} of it) [{CARD}]")
+    log(f"dryrun: phase {time.perf_counter() - t0:.1f} s (children, "
+        f"started together, done at " + ", ".join(
+            f"{k} {w:.1f} s" for k, w in walls.items()) + f") [{CARD}]")
+
+
 def timed(phase):
     """Run ``phase()``, free what it left on the card (its model), print
     its wall time and the memory still allocated; return what it
@@ -6904,6 +7108,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--mesh-rank"]:
         rank, world, store, out = sys.argv[2:6]
         return mesh_rank(int(rank), int(world), store, out)
+    if sys.argv[1:2] == ["--dryrun-estimate"]:
+        part, out = sys.argv[2:4]
+        pathlib.Path(out).write_text(json.dumps(dryrun_estimate(part)))
+        return 0
     quick = "--quick" in sys.argv[1:]
     t0 = time.perf_counter()
     try:
@@ -6919,7 +7127,8 @@ def main() -> int:
         timed(mesh_phase)
         rows = []
         for phase in (dense_phases, rwkv_phases, rglru_phases, moe_phases,
-                      train_phases, vlm_phases, audio_phases, vm_phases):
+                      train_phases, vlm_phases, audio_phases, vm_phases,
+                      dryrun_phase):
             rows += timed(phase) or []
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -109,9 +109,17 @@ class CostModel:
 
 
 # ---------------------------------------------------------------------------
-# NVIDIA H100 SXM roofline constants (NVIDIA data sheet, dense, 700 W)
+# NVIDIA H100 SXM5 80GB roofline constants (NVIDIA's data sheet, dense,
+# 700 W; the network is the DGX H100's)
 # ---------------------------------------------------------------------------
 
 H100_PEAK_FLOPS_BF16: float = 989e12    # tensor cores, dense
 H100_HBM_BW: float = 3.35e12            # bytes/s
 H100_PEAK_FLOPS_F32: float = 67e12      # CUDA cores, outside the tensor cores
+H100_HBM_BYTES: int = 80 * 10**9        # HBM3, 80 GB
+#: one NDR InfiniBand port (400 Gb/s) a GPU, the DGX H100 layout: the
+#: inter-node link a 256- or 512-GPU mesh's collectives cross
+H100_NET_BW: float = 50e9               # bytes/s a GPU
+#: NVLink 4 within a node, a direction (recorded; the roofline does not
+#: use it yet)
+H100_NVLINK_BW: float = 450e9           # bytes/s a GPU

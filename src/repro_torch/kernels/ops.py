@@ -435,9 +435,14 @@ def wrap_local(local, mesh, layout, shape):
     """``local`` (this rank's slice) as a ``DTensor`` of global ``shape``
     under ``layout``, with no communication."""
     from torch.distributed.tensor import DTensor
-    stride = torch.empty(shape, device="meta").stride()
+    # the global tensor's contiguous strides, from the shape alone
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= max(n, 1)
     return DTensor.from_local(local, mesh, layout, run_check=False,
-                              shape=torch.Size(shape), stride=stride)
+                              shape=torch.Size(shape),
+                              stride=tuple(reversed(stride)))
 
 
 def shard_tensor(full, mesh, layout):

@@ -75,7 +75,10 @@ def _check_pair(k_src, v_src, k_pool, v_pool) -> None:
         raise ValueError("K and V must share shapes and strides: src "
                          f"{tuple(k_src.shape)}/{tuple(v_src.shape)}, pool "
                          f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
-    if k_pool.data_ptr() == v_pool.data_ptr():
+    # a meta tensor has no address: there, two pools are two tensors
+    same = (k_pool is v_pool if k_pool.device.type == "meta"
+            else k_pool.data_ptr() == v_pool.data_ptr())
+    if same:
         raise ValueError("K and V must be written to two pools")
 
 

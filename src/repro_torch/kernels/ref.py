@@ -310,6 +310,28 @@ def paged_decode_attention_ref(
     return o.to(q.dtype)
 
 
+def _store_rows(pool: torch.Tensor, w: int, rows: torch.Tensor,
+                valid: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``pool`` viewed as ``[rows, w]`` gets ``src[valid]`` at
+    ``rows[valid]``, in place, and keeps every other row's bytes.  Static
+    shapes (no boolean index, whose size needs the values): every entry
+    writes, an invalid one the same row and value as the first valid
+    entry (or row 0 its own value when none is valid), so duplicates
+    carry equal values."""
+    flat = pool.view(-1, w)
+    rows, valid = rows.reshape(-1), valid.reshape(-1)
+    if not rows.numel():
+        return pool
+    vals = src.reshape(-1, w).to(pool.dtype)
+    first = valid.int().argmax().reshape(1)
+    some = valid.any()
+    row0 = torch.where(some, rows.index_select(0, first), 0)
+    val0 = torch.where(some, vals.index_select(0, first), flat[:1])
+    flat[torch.where(valid, rows, row0)] = torch.where(valid[:, None], vals,
+                                                       val0)
+    return pool
+
+
 def paged_copy_ref(
     src: torch.Tensor,          # [B, S, W]
     pool: torch.Tensor,         # [P, page, W] — updated in place
@@ -333,8 +355,7 @@ def paged_copy_ref(
     valid = ((tok[None, :] < lens[:b, None]) & (entry >= 0)
              & (vpn[None, :] < max_pages))
     rows = entry.long() * page_size + (tok % page_size)[None, :]
-    pool.view(-1, w)[rows[valid]] = src[valid].to(pool.dtype)
-    return pool
+    return _store_rows(pool, w, rows, valid, src)
 
 
 def paged_copy_at_ref(
@@ -359,8 +380,7 @@ def paged_copy_at_ref(
     valid = ((tok[None, :] < lens[:b, None]) & (entry >= 0)
              & (vpn < max_pages))
     rows = entry.long() * page_size + pos % page_size
-    pool.view(-1, w)[rows[valid]] = src[valid].to(pool.dtype)
-    return pool
+    return _store_rows(pool, w, rows, valid, src)
 
 
 def paged_gather_ref(

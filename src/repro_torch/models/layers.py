@@ -14,6 +14,7 @@ Conventions (those of ``src/repro/models/layers.py``):
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Any
 
@@ -334,13 +335,40 @@ def swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def remat_apply(remat: bool, fn, *args):
+#: the ops whose outputs the ``"dots"`` policy saves: matmuls with no batch
+#: dims (``x @ W`` folds its leading dims into one ``mm``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+#: ``remat_policy`` values: None (save the inputs only) and ``"dots"``
+REMAT_POLICIES = (None, "dots")
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep each ``mm`` /
+    ``addmm`` output, recompute everything else (the attention ``bmm``s
+    too)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_apply(remat: bool, fn, *args, policy: str | None = None):
     """``fn(*args)``; under grad mode with ``remat``, through
     ``torch.utils.checkpoint`` (non-reentrant): the body keeps only its
     inputs and recomputes its activations in the backward (JAX's
-    ``jax.checkpoint`` of a scan body).  Under ``torch.no_grad()`` the body
-    runs as it is."""
+    ``jax.checkpoint`` of a scan body).  ``policy="dots"`` is a selective
+    checkpoint that also keeps its matmuls' outputs (JAX's
+    ``jax.checkpoint(..., policy=dots_with_no_batch_dims_saveable)``).
+    Under ``torch.no_grad()`` the body runs as it is."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat policy must be one of {REMAT_POLICIES}, "
+                         f"got {policy!r}")
     if remat and torch.is_grad_enabled():
+        kwargs = {}
+        if policy == "dots":
+            kwargs["context_fn"] = functools.partial(
+                torch.utils.checkpoint.create_selective_checkpoint_contexts,
+                _dots_saveable)
         return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
+                                                 use_reentrant=False,
+                                                 **kwargs)
     return fn(*args)

@@ -44,7 +44,8 @@ Port of the dense, MoE, VLM and audio families of
     raises in ``ops`` and a no-grad one runs the kernels.  ``remat``
     (JAX's default, True) checkpoints each superblock under grad mode
     (``layers.remat_apply``): its activations are recomputed in the
-    backward.
+    backward; ``remat_policy="dots"`` keeps its matmul outputs (a
+    selective checkpoint).
 
 Every tensor lives on ``self.device``: ``cuda`` unless the caller passes
 ``device="cpu"`` (the kernels' plain versions then run).
@@ -110,7 +111,8 @@ class TransformerLM:
     def __init__(self, cfg: ModelConfig, *, device=None,
                  use_kernels: bool = True, kv_dtype: str = "native",
                  capacity_factor: float = 1.25, moe_dispatch: str = "sorted",
-                 remat: bool = True, kernel_mesh=None, shard=None):
+                 remat: bool = True, remat_policy: str | None = None,
+                 kernel_mesh=None, shard=None):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not served by TransformerLM: "
@@ -135,6 +137,13 @@ class TransformerLM:
         #: activation checkpointing of each superblock under grad (JAX's
         #: ``jax.checkpoint`` of its scan body)
         self.remat = remat
+        if remat_policy not in L.REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of "
+                             f"{L.REMAT_POLICIES}, got {remat_policy!r}")
+        #: ``"dots"``: the checkpoint keeps each superblock's matmul outputs
+        #: and recomputes the rest (JAX's ``dots_with_no_batch_dims_
+        #: saveable``, ``src/repro/models/transformer.py:242-247``)
+        self.remat_policy = remat_policy
         self.kernel_mesh = kernel_mesh
         #: the activation hook ``shard(x, name)`` at JAX's sites and with
         #: JAX's names (``launch.sharding.make_shard_hook``)
@@ -295,7 +304,7 @@ class TransformerLM:
         for first in range(0, len(params["blocks"]), m):
             x, a = L.remat_apply(self.remat, self._superblock_apply,
                                  params["blocks"][first:first + m], x,
-                                 positions, first)
+                                 positions, first, policy=self.remat_policy)
             auxs.append(a)
         aux = (torch.stack(auxs).mean() if cfg.family == "moe"
                else x.new_zeros((), dtype=torch.float32))

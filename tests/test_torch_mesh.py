@@ -67,8 +67,9 @@ HERE = pathlib.Path(__file__).resolve().parent
 SRC = HERE.parent / "src"
 HKV, G, D = W.GRID_HKV, 2, W.GRID_D
 KV_SCALE = 1.0 / TransformerLM.KV_INT8_SCALE
-#: seconds every process of the fixture may take, all together
-DEADLINE_S = 150
+#: seconds every process of the fixture may take, all together: a
+#: hang guard, well past what a loaded run of the whole suite takes
+DEADLINE_S = 600
 #: the (Hkv, D) grid the factorizations are held on: the configs' (8, 128),
 #: (4, 128), (32, 64), the reduced qwen2-7b's (2, 14), the kernel grid's
 #: (2, 16), and (3, 16), (1, 64), (3, 10) for the degradations and raises
