@@ -167,6 +167,26 @@ printing its lines; any failure exits non-zero before the last line:
    to the record's bytes, tokens equal to a lone engine's, the record's
    bytes and the export, import and restore times printed); then the
    card's allocated bytes after 1, 2 and 4 engines;
+8a. the frozen seed engine (``reference_phase``): ``ReferenceEngine`` on
+   the same weights serves the cold workload of 4 (preempting) and 8
+   ``share_prefix`` forks of 8-40 tokens off a 200-token prefix (16 new
+   tokens), the launch counts zeroed just before each seed engine is
+   built and read just after its run (``paged_copy`` one a layer of each
+   prefill, ``flash_attention`` and ``paged_decode_attention`` launched,
+   all on their tensor-core routes; no continuation kernel: the seed
+   teacher-forces each fork's prompt one decode step a token); the split
+   ``Engine`` (graphs) on the same configs and requests: cold tokens,
+   preemptions, restores, page faults, completions and switch bytes
+   equal; fork tokens equal, or each request that diverges printed at
+   its first differing step with both paths' top-2 margins and logits
+   gap (the split's logits from an eager horizon-1 twin whose tokens
+   must equal its graph run's), the gap within eight bf16 steps of the
+   row's largest logit, as every request's first-token logits; each
+   engine's wall, tok/s and decode steps, the page-table rows each
+   uploads a decode step and the bytes the seed's whole-pool stacks copy
+   a spill and a restore, beside the card's name and power limit; the
+   reduced check (3) holds the reduced seed engine on the card to the
+   CPU's on ``tests/test_serve_executor.py``'s three workloads;
 9. full-width check and timing (the serve runs repeated eagerly, since
    the recorders read each call's inputs): each kernel against its plain version on
    the largest inputs an untimed repeat of the serve runs gave it (bf16,
@@ -303,7 +323,7 @@ printing its lines; any failure exits non-zero before the last line:
    TTFT and TPOT p50, traced busy share and kernels per decode
    token-step beside the card's name and power limit;
 14. audio: the qwen2-vl-7b weights are freed, musicgen-large at full
-   width (depth cut 48 -> 24, ``DEPTH``; d_model 2048, 32
+   width (depth cut 48 -> 12, ``DEPTH``; d_model 2048, 32
    heads of 64 with 32 KV heads (G 1), 4 codebooks of 2048, bf16) serves
    ``[len, 4]``
    prompts: the cold workload, an int8 run and a default-policy radix
@@ -416,7 +436,7 @@ CARD_READINGS: dict = {}
 #: full-width serve models whose depth is cut to keep the script inside
 #: 1,200 s on a slower machine (widths and shapes of every kernel call
 #: unchanged; launches scale with the layers)
-DEPTH = {"musicgen-large": 24, "granite-moe-1b-a400m": 12,
+DEPTH = {"musicgen-large": 12, "granite-moe-1b-a400m": 12,
          "recurrentgemma-9b": 20}
 
 
@@ -1058,6 +1078,50 @@ def reduced_engine_check() -> None:
             f"prefill_bytes_gathered card "
             f"{e_gpu.counters.get('prefill_bytes_gathered')} / cpu "
             f"{e_cpu.counters.get('prefill_bytes_gathered')}")
+    reduced_seed_check(cpu_model, cpu_params, gpu_model, gpu_params)
+
+
+def reduced_seed_check(cpu_model, cpu_params, gpu_model, gpu_params) -> None:
+    """The reduced seed engine (``ReferenceEngine``) on the card against the
+    same engine on the CPU, on ``tests/test_serve_executor.py``'s
+    workloads: identical tokens, every counter, switch and pool stats and
+    events, and the three cold kernels launched on the card."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeConfig, ServeRequest
+    vocab = cpu_model.cfg.vocab_size
+    cases = [("mixed", ServeConfig(page_size=4, num_pages=16,
+                                   max_pages_per_seq=16, max_batch=3),
+              None, serve_workload(vocab, n=7, lo=4, hi=13, max_new=12,
+                                   seed=13))]
+    for tag, seed, plen, lens, new, kw in (
+            ("forks page 4", 17, 22, (3, 6, 9), 8,
+             dict(page_size=4, num_pages=64, max_pages_per_seq=32)),
+            ("forks page 8", 23, 13, (1, 7, 12), 6,
+             dict(page_size=8, num_pages=64, max_pages_per_seq=16))):
+        rng = np.random.default_rng(seed)
+        prefix = rng.integers(0, vocab, size=plen).astype(np.int32)
+        cases.append((tag, ServeConfig(**kw, max_batch=4), prefix, [
+            ServeRequest(req_id=i, max_new_tokens=new, share_prefix=True,
+                         prompt=rng.integers(0, vocab, size=n)
+                         .astype(np.int32)) for i, n in enumerate(lens)]))
+    for tag, scfg, prefix, reqs in cases:
+        card = seed_served(gpu_model, gpu_params, scfg, reqs, prefix)
+        cpu = seed_served(cpu_model, cpu_params, scfg, reqs, prefix)
+        for key in ("tokens", "counters", "switch", "pool", "events"):
+            require(card[key] == cpu[key],
+                    f"reduced seed engine ({tag}): {key} differ card vs cpu")
+        for n in COLD_KERNELS:
+            require(card["launches"][n] > 0,
+                    f"reduced seed engine ({tag}): {n} never launched")
+        require(not any(cpu["launches"].values()),
+                "the CPU run launched a kernel")
+        log(f"check reduced seed engine ({tag}): card == cpu greedy tokens, "
+            f"every counter, switch and pool stats, events; preemptions "
+            f"{card['counters'].get('preemptions', 0)}, forked_admissions "
+            f"{card['counters'].get('forked_admissions', 0)}; launches "
+            + json.dumps({n: card["launches"][n] for n in COLD_KERNELS}))
+    ops.reset_launch_counts()
 
 
 def reduced_radix_workload(vocab: int, tok: tuple = ()):
@@ -1237,17 +1301,18 @@ def radix_workload(vocab: int, n: int = 8, seed: int = 2, max_new: int = 32,
         for i in range(n)]
 
 
-def fork_workload(vocab: int, n: int = 8, seed: int = 3, max_new: int = 32):
+def fork_workload(vocab: int, n: int = 8, seed: int = 3, max_new: int = 32,
+                  lo: int = 16, hi: int = 256):
     """A 200-token system prompt (12 pages + 8 tokens: every fork copies
     the tail page and starts its chunk mid-page) and ``n`` ``share_prefix``
-    requests with 16-256-token prompts."""
+    requests with ``lo``-``hi``-token prompts."""
     import numpy as np
     from repro_torch.serve import ServeRequest
     rng = np.random.default_rng(seed)
     prefix = rng.integers(0, vocab, size=200).astype(np.int32)
     return prefix, [ServeRequest(
         req_id=i, max_new_tokens=max_new, share_prefix=True,
-        prompt=rng.integers(0, vocab, size=int(rng.integers(16, 257)))
+        prompt=rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1)))
         .astype(np.int32)) for i in range(n)]
 
 
@@ -2201,6 +2266,323 @@ def router_phase(cfg, model, params) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     memory_phase(model, params)
+
+
+# ---------------------------------------------------------------------------
+# the frozen seed engine (serve/reference.py) against the split engine
+# ---------------------------------------------------------------------------
+
+
+#: the seed's fork workload (``fork_workload``'s 200-token prefix): 8
+#: ``share_prefix`` requests of 8-40 prompt tokens, each teacher-forced
+#: one decode step a token by the seed
+SEED_FORK = dict(n=8, lo=8, hi=40, max_new=16, seed=3)
+
+
+class StepTap(PrefillTap):
+    """:class:`PrefillTap` that also counts ``decode_step`` calls."""
+
+    NAMES = ("prefill", "prefill_continue", "decode_step")
+
+
+def recorded_seed_engine():
+    """``ReferenceEngine`` keeping, on the card, each request's f32 logits
+    row of every token it samples (the seed's code runs unchanged: only
+    ``_sample`` is wrapped, told which rows belong to whom)."""
+    from repro_torch.serve import ReferenceEngine
+
+    class Recorded(ReferenceEngine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.rows: dict[int, list] = {}
+            self._at = None
+
+        def _prefill(self, reqs):
+            self._at = {r.req_id: i for i, r in enumerate(reqs)}
+            try:
+                super()._prefill(reqs)
+            finally:
+                self._at = None
+
+        def _admit_forked(self, req):
+            self._at = req.req_id           # its slot exists once forked
+            try:
+                super()._admit_forked(req)
+            finally:
+                self._at = None
+
+        def _sample(self, logits):
+            at = self._at
+            if at is None:
+                at = dict(self._slot_of)
+            elif not isinstance(at, dict):
+                at = {at: self.vmem.seq(at).slot}
+            for rid, row in at.items():
+                self.rows.setdefault(rid, []).append(logits[row].float())
+            return super()._sample(logits)
+    return Recorded
+
+
+def seed_served(model, params, scfg, reqs, prefix=None) -> dict:
+    """One seed-engine run with the launch counts zeroed just before the
+    engine is built and read just after its run; the model's calls
+    counted (``StepTap``) and its run timed (host clock: each decode and
+    prefill synchronizes)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import to_internal
+    ops.reset_launch_counts()
+    with StepTap(model) as tap:
+        eng = recorded_seed_engine()(model, params, scfg)
+        if prefix is not None:
+            eng.preload_prefix(prefix)
+        for r in reqs:
+            eng.submit(to_internal(dataclasses.replace(r)))
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    st = eng.stats()
+    return dict(eng=eng, dt=dt, calls=dict(tap.calls), tap=tap,
+                tokens={i: [int(t) for t in r.output]
+                        for i, r in done.items()},
+                counters=dict(eng.counters.counters),
+                switch=st["switch_stats"], pool=st["pool"],
+                events=[(e.event, e.payload) for e in eng.counters.events()],
+                launches=ops.launch_counts())
+
+
+def split_recorded(model, params, scfg, reqs, prefix=None) -> dict:
+    """The split engine inside ``disable_graphs()`` at horizon 1, keeping
+    each request's f32 logits row of every token it samples (the
+    executor's ``sample`` wrapped; the scheduler's slots say whose row is
+    whose); returns its tokens and rows."""
+    from repro_torch.serve import Engine, disable_graphs
+    rows: dict[int, list] = {}
+    with disable_graphs():
+        eng = Engine(model, params, dataclasses.replace(scfg, max_horizon=1))
+        ex, last = eng.executor, {}
+        sample, decode = ex.sample, ex.decode
+        prefill, fork = ex.prefill, ex.admit_forked_batch
+
+        def keep(at):
+            for rid, row in at.items():
+                rows.setdefault(rid, []).append(last["logits"][row].float())
+
+        def sampled(logits):
+            last["logits"] = logits
+            return sample(logits)
+
+        def decoded(tokens, pre_lens, active):
+            at = {rid: s for rid, s in eng.scheduler.slot_of.items()
+                  if active[s]}
+            out = decode(tokens, pre_lens, active)
+            keep(at)
+            return out
+
+        def batch(call):
+            def run(reqs_, *args):
+                out = call(reqs_, *args)
+                keep({r.req_id: i for i, r in enumerate(reqs_)})
+                return out
+            return run
+        ex.sample, ex.decode = sampled, decoded
+        ex.prefill, ex.admit_forked_batch = batch(prefill), batch(fork)
+        if prefix is not None:
+            eng.preload_prefix(prefix)
+        for r in reqs:
+            eng.submit(dataclasses.replace(r))
+        res = eng.drain()
+        eng.close()
+    return dict(tokens=token_lists(res), rows=rows)
+
+
+def first_divergence(a: list, b: list):
+    """The first position where two token lists differ, or None."""
+    return next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def top2_margin(row) -> tuple[list[int], float]:
+    top = row.topk(2)
+    return top.indices.tolist(), float(top.values[0] - top.values[1])
+
+
+def logit_steps(a, b) -> float:
+    """``max|a - b|`` in bf16 steps of ``a``'s largest logit (2^-8 of
+    it), the bucket phase's measure."""
+    return float((a - b).abs().max()) / (2**-8 * float(a.abs().max()))
+
+
+def report_divergence(tag, seed, split, seed_rows, split_rows) -> list:
+    """Each request whose tokens differ: its first differing step, both
+    paths' top-2 logits margins there and the largest gap between their
+    logits rows (every earlier token equal by construction).  The two
+    rows must agree within ``LOGIT_STEPS`` bf16 steps of the row's
+    largest logit, as the bucket phase's first-token logits must: a
+    divergence is then greedy argmax breaking a bf16 tie (or a near one)
+    the other way, not a wrong cache.  Returns the divergent requests'
+    ``(id, step)``."""
+    out = []
+    for i in sorted(seed):
+        s = first_divergence(seed[i], split[i])
+        if s is None:
+            continue
+        require(s < len(seed_rows[i]) and s < len(split_rows[i]),
+                f"{tag} req {i}: no logits at step {s}")
+        a, b = seed_rows[i][s], split_rows[i][s]
+        (ta, ma), (tb, mb) = top2_margin(a), top2_margin(b)
+        steps = logit_steps(a, b)
+        log(f"{tag} req {i}: diverges at step {s} of {len(seed[i])} (seed "
+            f"token {seed[i][s]}, split {split[i][s]}); top-2 margin seed "
+            f"{ma:.4f} {ta}, split {mb:.4f} {tb}; seed's logit of the "
+            f"split's token {float(a[split[i][s]]):.4f}, split's of the "
+            f"seed's {float(b[seed[i][s]]):.4f}; max |seed - split| logit "
+            f"gap {float((a - b).abs().max()):.4f} = {steps:.2f} bf16 steps "
+            f"of max |logit| {float(a.abs().max()):.2f}")
+        require(steps <= LOGIT_STEPS,
+                f"{tag} req {i}: logits at the divergence differ by "
+                f"{steps:.2f} bf16 steps > {LOGIT_STEPS}")
+        out.append((i, s))
+    return out
+
+
+def first_token_gaps(tag, seed_rows, split_rows) -> None:
+    """Each request's first-token logits, the seed's teacher-forced decode
+    against the split engine's continuation prefill (before any sampled
+    token can differ): within ``LOGIT_STEPS`` bf16 steps."""
+    steps = {i: logit_steps(seed_rows[i][0], split_rows[i][0])
+             for i in sorted(seed_rows)}
+    log(f"{tag}: first-token logits seed vs split differ by at most "
+        f"{max(steps.values()):.2f} bf16 steps of the row's largest logit, "
+        "by request: " + json.dumps({i: round(v, 2)
+                                     for i, v in steps.items()}))
+    worst = max(steps, key=steps.get)
+    require(steps[worst] <= LOGIT_STEPS,
+            f"{tag}: request {worst}'s first-token logits differ by "
+            f"{steps[worst]:.2f} bf16 steps > {LOGIT_STEPS}")
+
+
+def seed_launch_checks(tag, run, layers: int) -> None:
+    """The seed's run (the last since the counts were zeroed) launched the
+    cold kernels on their tensor-core routes, one copy a layer of each
+    prefill, and no continuation kernel."""
+    launches = run["launches"]
+    for n in COLD_KERNELS:
+        require(launches[n] > 0, f"{tag}: {n} was never launched")
+    for n in CONT_KERNELS:
+        require(launches[n] == 0, f"{tag}: {n} launched {launches[n]} times "
+                                  "on the seed's path")
+    routes = require_tensor_core_routes(tag, launches)
+    require(routes["flash_attention"] == {
+        "wgmma": launches["flash_attention"], "simt": 0},
+        f"{tag}: flash_attention off the tensor-core route: {routes}")
+    run["tap"].require_copy_launches(tag, launches, layers)
+    log(f"{tag} launches: " + json.dumps(launches))
+    log(f"{tag}: {run['calls']['prefill']} prefill calls x {layers} layers "
+        f"= {launches['paged_copy']} paged_copy launches; "
+        f"{run['calls']['decode_step']} decode_step calls")
+
+
+def seed_vs_split_lines(tag, seed, split, scfg, reqs) -> None:
+    """Each engine's wall, tok/s and decode steps; page-table rows
+    uploaded a decode step; the bytes the seed's stacks copy a spill and
+    a restore against the victim bytes it moves."""
+    toks = sum(len(t) for t in seed["tokens"].values())
+    steps = seed["calls"]["decode_step"]
+    teacher = sum(len(r.prompt) for r in reqs if r.share_prefix)
+    c = split["counters"]
+    s_steps = c.get("decode_horizon", 0)
+    log(f"{tag} seed: {toks} tokens in {seed['dt']:.3f}s = "
+        f"{toks / seed['dt']:.1f} tok/s, {steps} decode steps ({teacher} "
+        f"teacher-forced prompt tokens); split: {toks} tokens in "
+        f"{split['dt']:.3f}s = {toks / split['dt']:.1f} tok/s, {s_steps} "
+        f"decode token-steps in {c.get('decode_dispatches', 0)} dispatches "
+        f"(graphs, horizon {scfg.max_horizon}) [{CARD}]")
+    log(f"{tag} page-table rows uploaded a decode step: seed "
+        f"{scfg.max_batch} (the whole table, every decode_step call: "
+        f"{scfg.max_batch * steps} rows); split "
+        f"{c.get('ptab_rows_uploaded', 0)} rows in "
+        f"{c.get('ptab_syncs', 0)} syncs = "
+        f"{c.get('ptab_rows_uploaded', 0) / max(s_steps, 1):.3f} a "
+        "token-step")
+    kv = seed["eng"].kv
+    pool = kv.k_pools.numel() * kv.k_pools.element_size()
+    st = seed["switch"]
+    pre, res = seed["counters"].get("preemptions", 0), \
+        seed["counters"].get("restores", 0)
+    if pre:
+        log(f"{tag} seed stacks: 2 x pool bytes = {2 * pool} B copied a "
+            f"spill and a restore ({pre} spills, {res} restores: "
+            f"{2 * pool * (pre + res)} B) against bytes_spilled "
+            f"{st['bytes_spilled']} ({st['bytes_spilled'] // pre} B a "
+            f"victim), bytes_restored {st['bytes_restored']}")
+
+
+def reference_phase(cfg, model, params) -> None:
+    """The seed engine (``ReferenceEngine``) on the full-width model against
+    the split engine (graphs on): the cold workload (preempting) with
+    identical tokens, policy counters and switch bytes; the fork workload
+    with identical tokens, or each divergence reported as a near-tie."""
+    from repro_torch.serve import ServeConfig
+    scfg = ServeConfig(**SERVE)
+    reqs = serve_workload(cfg.vocab_size, **WORKLOAD)
+    seed = seed_served(model, params, scfg, reqs)
+    seed_launch_checks("seed cold", seed, cfg.num_layers)
+    split = served(model, params, scfg, reqs, graphs=True)
+    c = seed["counters"]
+    require(c["preemptions"] > 0, "seed cold: the pool never preempted")
+    for k in ("preemptions", "restores", "page_faults", "completed"):
+        require(split["counters"].get(k) == c.get(k),
+                f"seed cold: {k} seed {c.get(k)} split "
+                f"{split['counters'].get(k)}")
+    for k in ("bytes_spilled", "bytes_restored"):
+        require(split["switch"][k] == seed["switch"][k],
+                f"seed cold: {k} seed {seed['switch'][k]} split "
+                f"{split['switch'][k]}")
+    diff = {i: first_divergence(seed["tokens"][i], split["tokens"][i])
+            for i in seed["tokens"]}
+    require(all(d is None for d in diff.values()),
+            f"seed cold: tokens differ from the split engine's at "
+            f"{ {i: d for i, d in diff.items() if d is not None} }")
+    log(f"seed cold: {len(reqs)} requests, greedy tokens identical to the "
+        "split engine's; preemptions, restores, page_faults, completed "
+        "and the switch bytes equal: " + json.dumps(
+            {k: c.get(k) for k in ("preemptions", "restores", "page_faults",
+                                   "completed")}) + " " + json.dumps(
+            {k: seed["switch"][k] for k in ("bytes_spilled",
+                                            "bytes_restored")}))
+    seed_vs_split_lines("seed cold", seed, split, scfg, reqs)
+    del seed, split
+
+    fcfg = ServeConfig(**CONT)
+    prefix, forks = fork_workload(cfg.vocab_size, **SEED_FORK)
+    seed = seed_served(model, params, fcfg, forks, prefix)
+    seed_launch_checks("seed fork", seed, cfg.num_layers)
+    require(seed["counters"].get("forked_admissions") == len(forks),
+            "seed fork: not every request forked")
+    split = served(model, params, fcfg, forks, prefix, graphs=True)
+    require(split["counters"].get("forked_admissions") == len(forks),
+            "seed fork: the split engine forked fewer")
+    seed_vs_split_lines("seed fork", seed, split, fcfg, forks)
+    same = sum(seed["tokens"][i] == split["tokens"][i] for i in seed["tokens"])
+    if same == len(forks):
+        log(f"seed fork: {len(forks)} forks of a {len(prefix)}-token "
+            "prefix, greedy tokens identical to the split engine's "
+            "(seed: teacher-forced decode steps; split: one continuation "
+            "prefill)")
+        return
+    rec = split_recorded(model, params, fcfg, forks, prefix)
+    require(rec["tokens"] == split["tokens"],
+            "seed fork: the split engine's eager horizon-1 run differs from "
+            "its graph run")
+    first_token_gaps("seed fork", seed["eng"].rows, rec["rows"])
+    out = report_divergence("seed fork", seed["tokens"], split["tokens"],
+                            seed["eng"].rows, rec["rows"])
+    log(f"seed fork: {same}/{len(forks)} requests identical; "
+        f"{len(out)} diverge where greedy argmax breaks a bf16 tie the "
+        "other way, tokens exact up to those steps (request, step): "
+        + json.dumps(out))
 
 
 class GatherTap:
@@ -5251,7 +5633,7 @@ def audio_attention_checks(cfg, model, params, runs):
 
 
 def audio_phases() -> list[dict]:
-    """musicgen-large at full width (24 of 48 layers, 4 codebooks): the cold,
+    """musicgen-large at full width (12 of 48 layers, 4 codebooks): the cold,
     int8 and radix serve runs (graphs == eager, traced cold), the copy and
     attention kernels held against their plain versions at its G 1
     shapes, and the G 1 rows of both paged attention kernels (timed, with
@@ -6870,7 +7252,7 @@ def print_rows(rows) -> None:
 
 def dense_phases() -> list[dict]:
     """The qwen2-7b phases (cold, int8, horizon, continuation, graphs,
-    buckets, router) and their kernel rows; the model and every recorded input are
+    buckets, router, the seed engine) and their kernel rows; the model and every recorded input are
     freed on return."""
     from repro_torch.serve import ServeConfig, disable_graphs
     cfg, model, params = full_model()
@@ -6879,6 +7261,9 @@ def dense_phases() -> list[dict]:
     graph_phase(cfg, model, params)
     bucket_phase(cfg, model, params)
     router_phase(cfg, model, params)
+    t0 = time.perf_counter()
+    reference_phase(cfg, model, params)
+    log(f"phase reference_phase: {time.perf_counter() - t0:.1f}s [{CARD}]")
     runs = [run[1:] for run in continuation_runs(cfg)]
     scfg = ServeConfig(**SERVE)
     with disable_graphs():      # the recorders read each call's inputs

@@ -84,8 +84,10 @@ def _restore_pages(k_pools, v_pools, pages: list[int],
 class SpilledState:
     """Swap-area record for one preempted request.
 
-    ``page_data`` is host memory ``[2, L, n_pages, page, ...]`` (K then V)
-    in the pool's storage dtype; nothing in it references the pool that
+    ``page_data`` is host memory ``[2, L, n_pages, page, ...]`` (K then V;
+    from the whole-pool :meth:`ContextSwitcher.spill`, the pool's shape
+    with ``n_pages`` along its page axis) in the pool's storage dtype;
+    nothing in it references the pool that
     spilled it.  The record is therefore **portable**: one replica's
     switcher can export it (:meth:`ContextSwitcher.export_swap`) and
     another's import it (:meth:`ContextSwitcher.import_swap`) and restore
@@ -124,14 +126,22 @@ class ContextSwitcher:
 
     Spill copies the victim's pages out in logical order; restore writes
     them into freshly allocated frames — the physical pages may differ,
-    exactly as after an OS swap-in.
+    exactly as after an OS swap-in.  The whole-pool API (:meth:`spill`,
+    :meth:`can_restore`, :meth:`restore`) takes ONE pool with its frames
+    along ``page_axis``; only the frozen seed engine
+    (:mod:`repro_torch.serve.reference`) calls it.
     """
 
-    def __init__(self, vmem: VirtualMemory, cost: CostModel | None = None):
+    def __init__(self, vmem: VirtualMemory, cost: CostModel | None = None,
+                 page_axis: int = 0):
         self.vmem = vmem
         self.cost = cost or CostModel()
         self.stats = SwitchStats()
         self._swap: dict[int, SpilledState] = {}
+        #: which axis of a WHOLE pool indexes physical frames — read only by
+        #: the whole-pool API (:meth:`spill` / :meth:`restore`; the seed
+        #: engine's flat ``[2L, P, page, ...]`` pool uses 1)
+        self.page_axis = page_axis
 
     def spill_kv(self, seq_id: int, k_pools: torch.Tensor,
                  v_pools: torch.Tensor, extra_state: Any = None) -> None:
@@ -224,6 +234,64 @@ class ContextSwitcher:
             raise ValueError(
                 f"import_swap: seq {record.seq_id} already spilled here")
         self._swap[record.seq_id] = record
+
+    # ---- whole-pool legacy API, kept for the seed engine ------------------
+
+    def spill(self, seq_id: int, pool: torch.Tensor,
+              extra_state: Any = None) -> torch.Tensor:
+        """Preempt ``seq_id``: copy its frames out of ``pool`` along
+        ``page_axis`` to a host tensor (the pool's dtype), free them.
+        Returns the pool unchanged (data in freed frames is dead).  As in
+        JAX, ``pages_spilled`` is not counted here."""
+        state = self.vmem.seq(seq_id)
+        idx = torch.as_tensor(state.pages, dtype=torch.long,
+                              device=pool.device)
+        page_data = pool.index_select(self.page_axis, idx).cpu()
+        nbytes = _nbytes(page_data)
+        self._swap[seq_id] = SpilledState(
+            seq_id=seq_id,
+            num_tokens=state.length,
+            page_data=page_data,
+            extra_state=extra_state,
+            bytes_moved=nbytes,
+        )
+        self.vmem.spill_seq(seq_id)
+        self.stats.switches += 1
+        self.stats.bytes_spilled += nbytes
+        self.stats.modeled_cycles += (
+            self.cost.scalar_ctx_switch_cycles
+            + self.cost.bytes_move_cycles(nbytes)
+        )
+        return pool
+
+    def can_restore(self, seq_id: int) -> bool:
+        """Whether a whole restore of ``seq_id`` fits now: its frames are
+        free and so is a slot."""
+        if seq_id not in self._swap:
+            return False
+        need = self.vmem.config.pages_for(self._swap[seq_id].num_tokens)
+        return self.vmem.pool.num_free >= need and self.vmem.num_free_slots > 0
+
+    def restore(self, seq_id: int, pool: torch.Tensor
+                ) -> tuple[torch.Tensor, Any]:
+        """Swap ``seq_id`` back in: new frames, its record written into
+        them along ``page_axis`` (0 or 1), in place.  Returns ``(pool,
+        extra_state)``.  Raises ``OutOfPagesError`` (frames unavailable)
+        or ``NotImplementedError`` (another axis) before anything moves;
+        ``pages_restored`` is not counted, as in JAX."""
+        spilled = self._swap[seq_id]
+        if self.page_axis not in (0, 1):
+            raise NotImplementedError(f"page_axis={self.page_axis}")
+        state = self.vmem.restore_seq(seq_id, spilled.num_tokens)  # may raise
+        idx = torch.as_tensor(state.pages, dtype=torch.long,
+                              device=pool.device)
+        pool.index_copy_(self.page_axis, idx,
+                         spilled.page_data.to(pool.device))
+        del self._swap[seq_id]
+        nbytes = _nbytes(spilled.page_data)
+        self.stats.bytes_restored += nbytes
+        self.stats.modeled_cycles += self.cost.bytes_move_cycles(nbytes)
+        return pool, spilled.extra_state
 
     def spilled_len(self, seq_id: int) -> int:
         """Token length recorded when ``seq_id`` was spilled — the only

@@ -17,7 +17,8 @@ migration).  On the card the steps run as CUDA graphs captured when each
 engine is built; :func:`disable_graphs` runs them eagerly.  On a ('kv',
 'hd') serve mesh of gloo ranks (``Engine(..., mesh=...)``,
 ``ServeConfig.serve_mesh``) the executor splits the KV pools over the
-ranks and runs its steps eagerly.
+ranks and runs its steps eagerly.  :class:`ReferenceEngine` is the
+frozen seed engine the split replaced, kept as the split engine's oracle.
 """
 from repro_torch.serve.api import (
     RequestTiming,
@@ -31,6 +32,7 @@ from repro_torch.serve.detokenize import AsyncDetokenizer
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.executor import Executor, disable_graphs
 from repro_torch.serve.prefix_cache import PrefixCache
+from repro_torch.serve.reference import ReferenceEngine
 from repro_torch.serve.router import Replica, ReplicaRouter
 from repro_torch.serve.scheduler import (
     DataPlane,
@@ -52,6 +54,7 @@ __all__ = [
     "Executor",
     "HostOnlyPlane",
     "PrefixCache",
+    "ReferenceEngine",
     "Replica",
     "ReplicaRouter",
     "ReplicaState",

@@ -1411,6 +1411,56 @@ def test_failed_capture_raises(reduced, monkeypatch):
         Engine(model, params, ServeConfig(**REDUCED_COLD)).close()
 
 
+def seed_served(model, params, scfg, prefix, reqs):
+    """The frozen seed engine (``ReferenceEngine``) to the end, with the
+    launch counts zeroed before it is built; returns tokens, counters,
+    switch and pool stats, the FIFO's events and the launches."""
+    from repro_torch.serve import ReferenceEngine, to_internal
+    ops.reset_launch_counts()
+    eng = ReferenceEngine(model, params, scfg)
+    if prefix is not None:
+        eng.preload_prefix(prefix)
+    for r in reqs:
+        eng.submit(to_internal(dataclasses.replace(r)))
+    done = eng.run()
+    st = eng.stats()
+    return ({i: [int(t) for t in r.output] for i, r in done.items()},
+            dict(eng.counters.counters), st["switch_stats"], st["pool"],
+            [(e.event, e.payload) for e in eng.counters.events()],
+            ops.launch_counts())
+
+
+@pytest.mark.parametrize("case", ["cold", "int8", "fork"])
+def test_seed_engine_card_equals_cpu(reduced, case):
+    """The reduced seed engine on the card against the same engine and
+    weights on the CPU: identical tokens, every counter, switch and pool
+    stats and events; on the card ``paged_copy``, ``flash_attention`` and
+    ``paged_decode_attention`` launch (forks teacher-forced through
+    ``decode_step``: no continuation kernel)."""
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeConfig
+    cfg, model, params = reduced
+    kv = "int8" if case == "int8" else "native"
+    card = model if kv == "native" else build_model(cfg, device="cuda",
+                                                    kv_dtype=kv)
+    cpu = build_model(cfg, device="cpu", kv_dtype=kv)
+    scfg = ServeConfig(**(REDUCED_FORK if case == "fork" else REDUCED_COLD))
+    prefix, reqs = reduced_workload(cfg, "fork" if case == "fork" else "cold")
+    got = seed_served(card, params, scfg, prefix, reqs)
+    want = seed_served(cpu, on(params, "cpu"), scfg, prefix, reqs)
+    assert got[:5] == want[:5]
+    assert not any(want[5].values())
+    launches = got[5]
+    for k in ("paged_copy", "flash_attention", "paged_decode_attention"):
+        assert launches[k] > 0, k
+    assert launches["paged_copy_at"] == launches[
+        "paged_prefill_attention"] == 0
+    if case == "fork":
+        assert got[1]["forked_admissions"] == 3
+    else:
+        assert got[1]["preemptions"] > 0 and got[2]["bytes_spilled"] > 0
+
+
 # ---------------------------------------------------------------------------
 # the multi-replica serve path: the router over engines on one card
 # ---------------------------------------------------------------------------
