@@ -1,0 +1,7 @@
+"""``flash_attention``'s share of its roofline over the traced slice
+(``work/flash_attention.py``), in %."""
+from portbench.lib.roofline import kernel_pct
+
+
+def read(rec):
+    return kernel_pct(rec, "flash_attention")

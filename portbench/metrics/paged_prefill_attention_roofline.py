@@ -1,0 +1,7 @@
+"""``paged_prefill_attention``'s share of its roofline over the traced slice
+(``work/paged_prefill_attention.py``), in %."""
+from portbench.lib.roofline import kernel_pct
+
+
+def read(rec):
+    return kernel_pct(rec, "paged_prefill_attention")
